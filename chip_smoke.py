@@ -23,13 +23,18 @@ Phases, one line each with its seconds:
                 blocks read, estimates and CI ends within 1e-5; every mean CI
                 covers the full-scan answer computed on the card; then one
                 run of each query under ``torch.profiler`` gives the device's
-                busy and idle share;
+                busy and idle share, and one under ``cProfile`` the host
+                functions that take the caller's time;
 5. times     -- each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
                 it, so host work that outlasts the kernel shows) beside its
                 plain version, its bound and (for the shuffle)
                 ``index_select``; and ``device_ms``, the device's busy time
-                per call from ``torch.profiler``.
+                per call from ``torch.profiler``.  plan_sketch is timed on
+                query (c)'s grouped plan, which carries most of its main-path
+                launches, and on query (b)'s plan on a line of its own; a
+                plan's bound reads only the 32-byte sectors of the columns
+                it touches.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).
@@ -128,6 +133,17 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sector_bytes(n: int, f: int, cols) -> int:
+    """Bytes of the 32-byte memory sectors that hold columns ``cols`` of an
+    ``[n, f]`` float32 row-major block: what a pass that needs only those
+    columns must read."""
+    import numpy as np
+
+    cols = np.unique(np.asarray(cols, np.int64))
+    addr = (np.arange(n, dtype=np.int64)[:, None] * f + cols[None, :]) * 4
+    return 32 * int(np.unique(addr // 32).size)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +373,37 @@ def device_share(ds, aggs, kw) -> dict:
     return {"wall_s": wall, "busy_s": busy, "top": [(name[:60], sec) for name, sec in top]}
 
 
+def host_profile(ds, aggs, kw, top: int = 10) -> dict:
+    """One run of a query under ``cProfile``: wall seconds and the ``top``
+    functions by own time and by cumulative time.  The per-block payloads
+    and the fold run on the caller's thread; from Python 3.12 ``cProfile``
+    also sees the fetch workers' threads, so where they overlap the caller
+    the times of several threads add up.  Array indexing is not a call, so
+    its time counts as the own time of the function that indexes."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    ds.query(aggs, **kw)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = [
+        (f"{Path(file).name}:{line}({fn})", tt, ct)
+        for (file, line, fn), (_, _, tt, ct, _) in pstats.Stats(prof).stats.items()
+    ]
+    return {
+        "wall_s": wall,
+        "own_s": [(name, tt) for name, tt, _ in sorted(rows, key=lambda r: -r[1])[:top]],
+        "cumulative_s": [(name, ct) for name, _, ct in sorted(rows, key=lambda r: -r[2])[:top]],
+    }
+
+
 def device_ms(fn, reps: int) -> float | None:
     """Device-busy milliseconds per call of ``fn(i)``, i = 0 .. reps-1 (the
     host's launch overhead between calls left out), or None when the
@@ -469,6 +516,12 @@ def main_path(args, device) -> dict:
             print(f"device share {name}: wall {s['wall_s']:.3f} s, busy {s['busy_s']} s,"
                   f" idle share {idle}, top {json.dumps(s['top'])}", flush=True)
         phase("device share", t0, "one profiled run of each query")
+
+        t0 = time.perf_counter()
+        hosts = {name: host_profile(ds_open, aggs, kw) for name, (aggs, kw) in queries().items()}
+        for name, h in hosts.items():
+            print(f"host profile {name}: {json.dumps(h)}", flush=True)
+        phase("host profile", t0, "one cProfile run of each query")
         ds_open.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -480,6 +533,7 @@ def main_path(args, device) -> dict:
         "save_s": save_s,
         "summary_probe": probe,
         "device_share": shares,
+        "host_profile": hosts,
         "queries": {
             k: {"p50_ms": statistics.median(v) * 1e3, "runs_ms": [t * 1e3 for t in v],
                 "blocks_read": results[k].blocks_read,
@@ -544,27 +598,39 @@ def times(args, device) -> dict:
         "shape": f"[{n}, {F}] f32, bins {BINS}",
     }
 
-    # query (b)'s plan: predicate c0 > 0.5, columns (0, 28), mean only (bins 0)
-    plan = QueryPlan(predicates="c0 > 0.5", columns=(0, 28))
-    arrays = PlanArrays.build(plan, F, device)
-    fp = 2
-    nbytes = blk.numel() * 4 + 3 * 4 + fp * 4 + 5 * fp * 4 + 4
-    b, by = bound_ms(nbytes, 4 * blk.numel())
-    out["plan_sketch"] = {
-        "ms": time_cuda(lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0),
-                        reps=REPS),
-        "plain_ms": time_cuda(lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0),
-                              reps=REPS),
-        "device_ms": device_ms(
-            lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0), REPS),
-        "library_ms": None, "bound_ms": b, "bound_by": by,
-        "shape": f"[{n}, {F}] f32, where c0 > 0.5, columns (0, 28), bins 0",
-    }
-    plan_g = QueryPlan(group_by=28, num_classes=2)
-    arrays_g = PlanArrays.build(plan_g, F, device)
-    grouped_ms = time_cuda(lambda i: plan_sketch_cuda(blks[i % 8], arrays_g, None, None, bins=0),
-                           reps=REPS)
-    print(f"plan_sketch grouped G=2 over all 29 columns, bins 0: {grouped_ms:.4f} ms", flush=True)
+    def plan_times(plan, shape):
+        """Times and bound of one plan on the rotating blocks, bins 0 (the
+        main path's queries ask for means only).  The bound reads the
+        sectors of the columns the plan touches and writes its outputs."""
+        arrays = PlanArrays.build(plan, F, device)
+        fp, g = arrays.cols.numel(), arrays.groups
+        touched = {p.column for p in plan.predicates} | set(arrays.cols.tolist())
+        if arrays.gcol >= 0:
+            touched.add(arrays.gcol)
+        read = sector_bytes(n, F, sorted(touched))
+        nbytes = read + arrays.pcol.numel() * 12 + fp * 4 + 5 * g * fp * 4 + 4
+        b, by = bound_ms(nbytes, (len(plan.predicates) + 5 * fp) * n)
+        return {
+            "ms": time_cuda(lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0),
+                            reps=REPS),
+            "plain_ms": time_cuda(
+                lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0), reps=REPS),
+            "device_ms": device_ms(
+                lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0), REPS),
+            "library_ms": None, "bound_ms": b, "bound_by": by, "bound_read_bytes": read,
+            "shape": shape,
+        }
+
+    # query (c)'s plan carries 300 of the main path's 333 plan launches: the
+    # per-class mean, G = 2 over all 29 columns
+    out["plan_sketch"] = plan_times(QueryPlan(group_by=28, num_classes=2),
+                                    f"[{n}, {F}] f32, group_by c28, G 2, all columns, bins 0")
+    # query (b)'s plan: predicate c0 > 0.5, columns (0, 28); two columns'
+    # sectors are about a third of the block
+    where = plan_times(QueryPlan(predicates="c0 > 0.5", columns=(0, 28)),
+                       f"[{n}, {F}] f32, where c0 > 0.5, columns (0, 28), bins 0")
+    print(f"plan_sketch, query (b)'s plan: {json.dumps(where)}", flush=True)
+    out["plan_sketch_where"] = where
     return out
 
 
@@ -651,7 +717,8 @@ def main() -> int:
         out.mkdir(parents=True, exist_ok=True)
         (out / "build.log").write_text(_cuda.build_log())
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"kernels": record["kernels"], "end_to_end": path["e2e"], "gpu": nvidia_smi()},
+            {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
+             "end_to_end": path["e2e"], "gpu": nvidia_smi()},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,14 @@
 // one-hot matmul on the MXU and histogrammed with a one-hot compare; here the
 // projection is a column gather and the histogram counts with int32 atomics.
 //
-// Bound on the H100: bytes.  Whatever the plan, every row has to be read
-// (the predicate columns decide which rows count, and rows are 116-byte
-// records on the main path), so the least time is n * F * 4 bytes at
-// 3.35 TB/s: ~3.8 us for a 110,000 x 29 block.  Outputs are a few KB.
+// Bound on the H100: bytes.  Every row has to be visited (the predicate
+// columns decide which rows count), but only the 32-byte sectors that hold
+// the plan's predicate, projected and group columns need be read.  A plan
+// over all 29 columns reads the whole 110,000 x 29 block, 12.76 MB, ~3.8 us
+// at 3.35 TB/s; the main path's where=/columns= plan (columns 0 and 28,
+// adjacent bytes across neighbouring 116-byte rows) needs about a third of
+// that.  Outputs are a few KB.  This kernel stages whole rows, so it reads
+// every sector whatever the plan.
 //
 // Design:
 //  * Each CTA stages a tile of up to 256 rows into shared memory with
@@ -31,8 +35,6 @@
 #include "sketch_common.cuh"
 
 namespace {
-
-constexpr int kMaxPredicates = 16;
 
 __device__ __forceinline__ bool compare(float v, int op, float c) {
   switch (op) {
@@ -203,8 +205,6 @@ __global__ void plan_sketch_partial(PlanArgs a) {
 
 extern "C" {
 
-int plan_sketch_max_predicates() { return kMaxPredicates; }
-
 int plan_sketch_num_ctas(long long n, int tile_rows) {
   const long long c = (n + tile_rows - 1) / tile_rows;
   return (int)(c < 1 ? 1 : c);
@@ -219,7 +219,7 @@ long long plan_sketch_smem_bytes(int T, int F, int tile_rows, int Fp, int G, int
 }
 
 // x [n, F] float32 row-major.  Predicates: pcol / pop int32 [npred], pval
-// float32 [npred] (npred <= plan_sketch_max_predicates()).  cols int32 [Fp]
+// float32 [npred] (the wrapper caps npred).  cols int32 [Fp]
 // projected column indices in [0, F).  gcol: label column in [0, F), or -1
 // for an ungrouped plan (then G must be 1).  lo / inv_width [Fp] float32
 // (ignored when bins == 0).  Scratch pmom [ctas, G, 3, Fp] double and pext
@@ -231,7 +231,6 @@ int plan_sketch_launch(const void* x, long long n, int F, int tile_rows, int T, 
                        const void* cols, int Fp, int gcol, int G, const void* lo,
                        const void* inv_width, int bins, int hist_in_smem, void* pmom,
                        void* pext, void* stats, void* hist, void* nsel, void* stream) {
-  if (npred > kMaxPredicates) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   PlanArgs a;
   a.x = static_cast<const float*>(x);

@@ -6,7 +6,8 @@
 // src/repro/kernels/rsp_shuffle/kernel.py.  On the TPU the intra-tile
 // permutation ran as a one-hot matmul on the MXU because VMEM had no vector
 // gather; here it is a plain gather, and the rows are copied as raw words,
-// so the output is bit-exact for any dtype.
+// so the output is bit-exact for any dtype whose rows are an even number of
+// bytes (every float dtype the partition backends admit).
 //
 // Bound on the H100: bytes.  Every row is read once and written once, plus
 // the index arrays: for one 110,000 x 29 float32 original block that is
@@ -16,7 +17,7 @@
 // Design: one CTA per (output tile, batch).  A 116-byte HIGGS row is not a
 // multiple of 16 bytes, so 16-byte vector loads do not apply; the CTA walks
 // the output tile as a flat run of words (4-byte words when the row size
-// allows, else 2- or 1-byte words), neighbouring threads on neighbouring
+// allows, else 2-byte words), neighbouring threads on neighbouring
 // words, so writes are fully coalesced and reads are coalesced within each
 // source row.  Indices outside the tile are skipped rather than read.
 #include <cuda_runtime.h>
@@ -64,14 +65,14 @@ cudaError_t launch(const void* x, const void* tile_perm, const void* intra, void
 
 extern "C" {
 
-// x / out [batch, rows_per_batch, row_bytes] (any dtype, row-major and
-// contiguous); tile_perm int32 [batch, n_tiles]; intra int32 [batch,
+// x / out [batch, rows_per_batch, row_bytes] (any dtype, row_bytes even,
+// row-major and contiguous); tile_perm int32 [batch, n_tiles]; intra int32 [batch,
 // n_tiles, tile_rows], with n_tiles = rows_per_batch / tile_rows.  Returns
 // cudaGetLastError() after the launch.
 int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, void* out,
                        long long batch, long long rows_per_batch, int tile_rows, int row_bytes,
                        void* stream) {
-  if (tile_rows <= 0 || rows_per_batch % tile_rows != 0 || batch > 65535) {
+  if (tile_rows <= 0 || rows_per_batch % tile_rows != 0 || batch > 65535 || row_bytes % 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (batch == 0 || rows_per_batch == 0 || row_bytes == 0) return (int)cudaSuccess;
@@ -80,12 +81,8 @@ int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, 
     return (int)launch<uint32_t>(x, tile_perm, intra, out, batch, rows_per_batch, tile_rows,
                                  row_bytes, st);
   }
-  if (row_bytes % 2 == 0) {
-    return (int)launch<uint16_t>(x, tile_perm, intra, out, batch, rows_per_batch, tile_rows,
-                                 row_bytes, st);
-  }
-  return (int)launch<uint8_t>(x, tile_perm, intra, out, batch, rows_per_batch, tile_rows,
-                              row_bytes, st);
+  return (int)launch<uint16_t>(x, tile_perm, intra, out, batch, rows_per_batch, tile_rows,
+                               row_bytes, st);
 }
 
 // Message for a CUDA error code (for the Python wrappers' exceptions).

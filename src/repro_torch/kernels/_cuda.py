@@ -47,7 +47,6 @@ _SIGNATURES = {
     "block_sketch_launch": (
         _I, [_P, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "plan_sketch_max_predicates": (_I, []),
     "plan_sketch_num_ctas": (_I, [_L, _I]),
     "plan_sketch_smem_bytes": (_L, [_I, _I, _I, _I, _I, _I, _I]),
     "plan_sketch_launch": (
@@ -203,6 +202,15 @@ def check(code: int, what: str) -> None:
 def stream_handle(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of the current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_same_device(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every named tensor lies on ``device``, the block's: a
+    kernel handed a pointer into another device's memory faults or reads
+    the wrong card."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, but the block is on {device}")
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype | None = None) -> None:

@@ -79,6 +79,8 @@ def block_sketch_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the CUDA kernel on CUDA tensors (float32, contiguous)."""
     _check_args(x, lo, inv_width, bins)
+    if bins > 0:
+        _cuda.require_same_device(x.device, lo=lo, inv_width=inv_width)
     _cuda.require_cuda(x, "x", torch.float32)
     n, f = x.shape
     if f < 1 or f > _THREADS * 4:

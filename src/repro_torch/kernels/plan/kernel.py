@@ -156,8 +156,15 @@ def plan_sketch_plain(
 def plan_sketch_cuda(
     x: torch.Tensor, arrays: PlanArrays, lo, inv_width, *, bins: int
 ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
-    """Launch the CUDA kernel on a CUDA tensor with prepared plan arrays."""
+    """Launch the CUDA kernel on a CUDA tensor with prepared plan arrays
+    (on the block's device)."""
+    plan_tensors = {"pcol": arrays.pcol, "pop": arrays.pop, "pval": arrays.pval,
+                    "cols": arrays.cols}
+    grid = {"lo": lo, "inv_width": inv_width} if bins > 0 else {}
+    _cuda.require_same_device(x.device, **plan_tensors, **grid)
     _cuda.require_cuda(x, "x", torch.float32)
+    for name, t in plan_tensors.items():
+        _cuda.require_cuda(t, name, torch.float32 if name == "pval" else torch.int32)
     if x.ndim != 2:
         raise ValueError(f"block must be [n, F], got shape {tuple(x.shape)}")
     n, f = x.shape

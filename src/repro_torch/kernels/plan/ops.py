@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.device import as_numpy
+from repro_torch.device import DEFAULT_DEVICE, as_numpy, resolve_device
 from repro_torch.kernels.block_sketch.ops import IMPLS, as_block_tensor, grid_tensors, resolve_impl
 from repro_torch.kernels.block_sketch.ref import BlockSketch, _grid
 from repro_torch.kernels.plan.kernel import PlanArrays, plan_sketch_cuda, plan_sketch_plain
@@ -108,15 +108,16 @@ def compile_plan(
     num_features: int,
     bins: int = 0,
     impl: str = "torch",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = DEFAULT_DEVICE,
 ) -> Callable:
     """The compiled executor ``run(x, glo, ghi) -> PlanResult`` for ``plan``
-    at this shape and device, memoized on ``(plan.key(), features, bins,
-    impl, device)`` -- the plan-keyed compile cache."""
+    at this shape and device (the card unless asked for the CPU), memoized
+    on ``(plan.key(), features, bins, impl, device)`` -- the plan-keyed
+    compile cache.  The executor takes blocks on ``device`` only."""
     global _HITS, _MISSES
     if impl not in IMPLS or impl == "auto":
         raise ValueError(f"compile_plan impl must be concrete, got {impl!r}")
-    device = torch.device(device)
+    device = resolve_device(device)
     key = (plan.key(), int(num_features), int(bins), impl, str(device))
     telemetry = obs.enabled()
     with _CACHE_LOCK:

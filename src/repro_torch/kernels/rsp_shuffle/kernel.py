@@ -6,7 +6,7 @@ For every batch ``b`` (one original block), output tile ``i`` and row ``r``::
     out[b, i*T + r] = x[b, tile_perm[b, i]*T + intra_perm[b, i, r]]
 
 ``x`` is ``[R, D]`` or batched ``[B, R, D]`` (any dtype; rows are copied
-bit for bit), ``tile_perm`` ``[R/T]`` / ``[B, R/T]`` and ``intra_perm``
+bit for bit; the kernel takes rows of an even number of bytes), ``tile_perm`` ``[R/T]`` / ``[B, R/T]`` and ``intra_perm``
 ``[R/T, T]`` / ``[B, R/T, T]`` int32 permutations.
 
 * :func:`rsp_shuffle_cuda` launches ``csrc/rsp_shuffle.cu`` (the port of
@@ -67,10 +67,14 @@ def rsp_shuffle_plain(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tens
 def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tensor:
     """Launch the CUDA kernel (all batches in one launch)."""
     xb, tp, ip, batched = _batched(x, tile_perm, intra_perm, tile_rows)
+    b, r, d = xb.shape
+    if (d * xb.element_size()) % 2:
+        raise ValueError("the kernel copies 2- or 4-byte words: a row must be an even"
+                         f" number of bytes, got {d * xb.element_size()}")
+    _cuda.require_same_device(xb.device, tile_perm=tp, intra_perm=ip)
     _cuda.require_cuda(xb, "x")
     _cuda.require_cuda(tp, "tile_perm", torch.int32)
     _cuda.require_cuda(ip, "intra_perm", torch.int32)
-    b, r, d = xb.shape
     if b > 65535:
         raise ValueError("the kernel takes at most 65535 batches per launch")
     out = torch.empty_like(xb)

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.registry import RSPStore
-from repro_torch.device import as_tensor
+from repro_torch.device import DEFAULT_DEVICE, as_tensor, resolve_device
 from repro_torch.obs.trace import SpanContext
 
 
@@ -153,13 +153,14 @@ class BlockFetcher(Protocol):
 
 class MemoryFetcher:
     """Blocks already stacked in memory -- ``fetch`` returns a view.  A
-    numpy stack is wrapped as a tensor (on ``device`` when given)."""
+    tensor stays where it lies unless ``device`` is given; a numpy stack is
+    moved to ``device``, the card unless asked for the CPU."""
 
     def __init__(self, blocks, device: torch.device | str | None = None):
         if isinstance(blocks, torch.Tensor):
-            self._blocks = blocks if device is None else blocks.to(device)
+            self._blocks = blocks if device is None else blocks.to(resolve_device(device))
         else:
-            self._blocks = as_tensor(blocks, torch.device(device or "cpu"))
+            self._blocks = as_tensor(blocks, resolve_device(device))
 
     @property
     def num_blocks(self) -> int:
@@ -171,12 +172,13 @@ class MemoryFetcher:
 
 class StoreFetcher:
     """Materializing ``RSPStore`` reads: each fetch loads the block with
-    ``np.load`` and moves it to ``device`` (on the worker thread)."""
+    ``np.load`` and moves it to ``device`` (on the worker thread), the card
+    unless asked for the CPU."""
 
-    def __init__(self, store: RSPStore, *, device: torch.device | str = "cpu",
+    def __init__(self, store: RSPStore, *, device: torch.device | str = DEFAULT_DEVICE,
                  verify: bool = False):
         self.store = store
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.verify = verify
 
     @property
@@ -190,11 +192,12 @@ class StoreFetcher:
 
 class MmapFetcher:
     """Memory-mapped ``RSPStore`` reads for corpora larger than RAM: pages
-    stream from disk while the block is copied to ``device``."""
+    stream from disk while the block is copied to ``device``, the card
+    unless asked for the CPU."""
 
-    def __init__(self, store: RSPStore, *, device: torch.device | str = "cpu"):
+    def __init__(self, store: RSPStore, *, device: torch.device | str = DEFAULT_DEVICE):
         self.store = store
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @property
     def num_blocks(self) -> int:
@@ -221,19 +224,20 @@ class _AdapterFetcher:
 
 
 def as_fetcher(
-    source: Any, *, mode: str = "auto", device: torch.device | str = "cpu"
+    source: Any, *, mode: str = "auto", device: torch.device | str | None = None
 ) -> BlockFetcher:
     """Adapt ``source`` into a :class:`BlockFetcher`.
 
-    Accepts an existing fetcher, a stacked tensor or ``np.ndarray``, an
-    ``RSPStore`` (``mode="store"`` materializes, ``"mmap"`` memory-maps,
-    ``"auto"`` == ``"store"``; blocks land on ``device``), or any object with
-    ``num_blocks`` and ``block``/``load``.
+    Accepts an existing fetcher, a stacked tensor (kept where it lies) or
+    ``np.ndarray``, an ``RSPStore`` (``mode="store"`` materializes,
+    ``"mmap"`` memory-maps, ``"auto"`` == ``"store"``), or any object with
+    ``num_blocks`` and ``block``/``load``.  Arrays and store blocks land on
+    ``device``, the card unless asked for the CPU.
     """
     if isinstance(source, (MemoryFetcher, StoreFetcher, MmapFetcher, _AdapterFetcher)):
         return source
     if isinstance(source, (np.ndarray, torch.Tensor)):
-        return MemoryFetcher(source)
+        return MemoryFetcher(source, device)
     if isinstance(source, RSPStore):
         if mode == "mmap":
             return MmapFetcher(source, device=device)

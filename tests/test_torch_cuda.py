@@ -54,7 +54,8 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 29), (torch.float16, 7), (torch.uint8, 3)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 29), (torch.float16, 7),
+                                     (torch.bfloat16, 29)])
 def test_rsp_shuffle_kernel_copies_the_plain_gather(dev, dtype, d):
     x = torch.from_numpy(np.abs(_data(4 * 330, d)).reshape(4, 330, d) * 10).to(dtype).to(dev)
     tp, ip = (torch.from_numpy(a).to(dev) for a in _perms(1, 4, 3, 110))
@@ -109,6 +110,15 @@ def test_plan_kernel_matches_plain(dev, name, bins):
     assert n1 == n2
     _close(s1, s2)
     assert (h1 is None and h2 is None) or torch.equal(h1, h2)
+
+
+def test_plan_kernel_refuses_plan_arrays_on_the_host(dev):
+    x = torch.from_numpy(_data(500, 6)).to(dev)
+    plan = QueryPlan(predicates="c0 > 1.0")
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="pcol is on cpu"):
+        plan_sketch_cuda(x, PlanArrays.build(plan, 6, "cpu"), None, None, bins=0)
+    assert kernels.launch_counts()["plan_sketch"] == 0
 
 
 def test_auto_impl_launches_the_kernels_and_counts(dev):

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from repro_torch import kernels, rsp
+from repro_torch.core.registry import RSPStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda
-from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
+from repro_torch.kernels.plan import PlanArrays, QueryPlan, compile_plan, plan_sketch
+from repro_torch.kernels.plan.kernel import plan_sketch_cuda
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -73,6 +75,36 @@ def test_entry_points_default_to_the_card():
         resolve_device("meta")
 
 
+V1_STORE = RSPStore(str(ROOT / "tests" / "fixtures" / "v1_store"))
+BLOCKS = np.zeros((2, 20, 3), np.float32)
+DEFAULT_DEVICE_CONSTRUCTORS = {
+    "MemoryFetcher": lambda: rsp.MemoryFetcher(BLOCKS),
+    "StoreFetcher": lambda: rsp.StoreFetcher(V1_STORE),
+    "MmapFetcher": lambda: rsp.MmapFetcher(V1_STORE),
+    "as_fetcher(array)": lambda: rsp.as_fetcher(BLOCKS),
+    "as_fetcher(store)": lambda: rsp.as_fetcher(V1_STORE),
+    "as_fetcher(store, mmap)": lambda: rsp.as_fetcher(V1_STORE, mode="mmap"),
+    "BlockExecutor": lambda: rsp.BlockExecutor(BLOCKS, prefetch=0),
+    "compile_plan": lambda: compile_plan(QueryPlan(predicates="c0 > 0"), num_features=3,
+                                         impl="cuda"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CONSTRUCTORS))
+def test_fetchers_and_compiled_plans_default_to_the_card(name):
+    _cuda_absent()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEFAULT_DEVICE_CONSTRUCTORS[name]()
+
+
+def test_fetchers_run_on_the_host_only_when_asked():
+    store, blocks = V1_STORE, BLOCKS
+    assert rsp.StoreFetcher(store, device="cpu").fetch(0).device.type == "cpu"
+    assert rsp.MmapFetcher(store, device="cpu").fetch(0).device.type == "cpu"
+    assert rsp.as_fetcher(blocks, device="cpu").fetch(1).device.type == "cpu"
+    assert rsp.as_fetcher(torch.from_numpy(blocks)).fetch(0).device.type == "cpu"
+
+
 def test_cuda_impl_on_a_cpu_tensor_raises():
     x = torch.zeros((64, 4))
     lo, invw = torch.zeros(4), torch.ones(4)
@@ -90,6 +122,34 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
         block_sketch(x, impl="pallas")
     with pytest.raises(ValueError, match="at most"):
         PlanArrays.build(QueryPlan(predicates=[f"c0 > {i}" for i in range(17)]), 4, "cpu")
+    # the shuffle kernel copies 2- or 4-byte words
+    with pytest.raises(ValueError, match="even number of bytes"):
+        rsp_shuffle_cuda(torch.zeros((64, 3), dtype=torch.uint8), tp, ip, tile_rows=32)
+
+
+def _on_another_device():
+    """Each CUDA wrapper with its small inputs on another device (``meta``)
+    than the block (the host): the wrapper must refuse before it reads a
+    pointer."""
+    x = torch.zeros((64, 4))
+    meta = torch.device("meta")
+    lo, invw = torch.zeros(4, device=meta), torch.ones(4, device=meta)
+    tp = torch.zeros(2, dtype=torch.int32, device=meta)
+    ip = torch.zeros((2, 32), dtype=torch.int32, device=meta)
+    arrays = PlanArrays.build(QueryPlan(predicates="c0 > 0", columns=(0, 2)), 4, meta)
+    return {
+        "rsp_shuffle": lambda: rsp_shuffle_cuda(x, tp, ip, tile_rows=32),
+        "block_sketch": lambda: block_sketch_cuda(x, lo, invw, bins=4),
+        "plan_sketch": lambda: plan_sketch_cuda(x, arrays, None, None, bins=0),
+        "plan_sketch grid": lambda: plan_sketch_cuda(
+            x, PlanArrays.build(QueryPlan(columns=(0, 2)), 4, "cpu"), lo[:2], invw[:2], bins=4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_on_another_device()))
+def test_cuda_wrappers_refuse_inputs_on_another_device(name):
+    with pytest.raises(ValueError, match="but the block is on cpu"):
+        _on_another_device()[name]()
 
 
 def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
