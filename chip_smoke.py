@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's two paths once on one NVIDIA card: the
+RSP main path and dense LM serving.
 
-    python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
+    python3 chip_smoke.py [--seed S] [--records N] [--paths rsp,lm] [--out DIR]
 
 Phases, one line each with its seconds:
 
-1. build     -- compile the three CUDA kernels (``src/repro_torch/csrc``) with
-                nvcc for sm_90a, at first use, into ``build/``;
+1. build     -- compile the four CUDA kernels (``src/repro_torch/csrc``) with
+                nvcc for sm_90a, one process per source, at first use, into
+                ``build/``;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
-                the main path's shapes: rsp_shuffle bit for bit, block_sketch
+                the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative and histograms
                 equal (plan cases: predicate, projection, G=2, empty
                 selection, labels out of range, ragged row count);
+                flash_attention within 2e-2 in bf16 and 2e-5 in float32
+                (the reference's own tolerances) at llama3.2-1b's prefill
+                shape in the serve path's strided layout, qwen2-0.5b's,
+                qwen3-14b's and granite-20b's heads, a ragged S and a
+                non-causal case;
 3. main path -- a class-sorted HIGGS-shaped corpus (N x 29 float32, label in
                 the last column) partitioned into K blocks on the card by the
                 ``cuda`` backend (checked bit for bit against the plain
@@ -34,10 +41,26 @@ Phases, one line each with its seconds:
                 query (c)'s grouped plan, which carries most of its main-path
                 launches, and on query (b)'s plan on a line of its own; a
                 plan's bound reads only the 32-byte sectors of the columns
-                it touches.
+                it touches;
+6. serving   -- llama3.2-1b at full width (16 layers, d_model 2048, 32 over
+                8 heads, vocab 128,256; random weights from the seed):
+                ``Server.generate`` of 8 prompts of 2048 tokens, 64 new
+                tokens, greedy (16 flash launches: one prefill per layer),
+                checked by teacher forcing the generated sequence through
+                the same model with the plain attention on the card; then
+                ``EnsembleServer`` over 3 models of their own seeds, 4
+                prompts of 512 tokens, 32 new tokens (48 flash launches),
+                whose tokens must equal the argmax of the three models'
+                log-probabilities averaged outside the server.  Prefill
+                seconds, time to first token, decode tokens/s, peak device
+                memory and the device's idle share of one generate
+                (``torch.profiler``) are printed beside the card; the flash
+                kernel is timed at the prefill shape beside its bound, its
+                plain version and ``scaled_dot_product_attention``.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
-the card, float64 moments, each host sketch).
+the card, float64 moments, each host sketch).  Each path's launch counts
+are set to 0 just before the path is driven and read just after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -62,6 +85,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 BLOCKS = 100                  # K = P, the paper's HIGGS setting
 QUERY_RUNS = 3                # query latency is the median of these
 REPS = 20                     # timed launches per kernel
@@ -129,9 +153,9 @@ def time_cuda(fn, *, reps: int, windows: int = 3) -> float:
     return statistics.median(per_call)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -337,10 +361,11 @@ def summary_probe(block) -> dict:
     return out
 
 
-def profiled(fn) -> tuple[float, float | None, dict]:
+def profiled(fn) -> tuple[float, float | None, dict, int]:
     """Run ``fn()`` under ``torch.profiler``: (wall seconds, seconds in the
     union of the device's busy intervals -- kernels, fills and copies -- or
-    None when the profiler saw no device event, device seconds by name)."""
+    None when the profiler saw no device event, device seconds by name,
+    number of device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -351,24 +376,27 @@ def profiled(fn) -> tuple[float, float | None, dict]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the raw Kineto events: prof.events() would parse them into a Python
+    # event tree first, which takes minutes for a generate's ~10^5 events
     spans, by_name = [], {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
             continue
-        spans.append((evt.time_range.start, evt.time_range.end))
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e6
+        start, dur = evt.start_ns() / 1e3, evt.duration_ns() / 1e3
+        spans.append((start, start + dur))
+        by_name[evt.name()] = by_name.get(evt.name(), 0.0) + dur / 1e6
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
-    return wall, (busy / 1e6 if spans else None), by_name
+    return wall, (busy / 1e6 if spans else None), by_name, len(spans)
 
 
 def device_share(ds, aggs, kw) -> dict:
     """One profiled run of a query: wall and device-busy seconds and the
     four largest device items."""
-    wall, busy, by_name = profiled(lambda: ds.query(aggs, **kw))
+    wall, busy, by_name, _ = profiled(lambda: ds.query(aggs, **kw))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return {"wall_s": wall, "busy_s": busy, "top": [(name[:60], sec) for name, sec in top]}
 
@@ -412,7 +440,7 @@ def device_ms(fn, reps: int) -> float | None:
         for i in range(reps):
             fn(i)
 
-    _, busy, _ = profiled(run)
+    _, busy, _, _ = profiled(run)
     return None if busy is None else busy / reps * 1e3
 
 
@@ -473,8 +501,8 @@ def main_path(args, device) -> dict:
                   f" store fetch {fetch_s * 1e3:.1f} ms of the last run")
         counts = kernels.launch_counts()   # the main path ends here
         print(f"launches on the main path: {json.dumps(counts)}", flush=True)
-        for k, v in counts.items():
-            check(v > 0, f"kernel {k} was not launched on the main path")
+        for k in ("rsp_shuffle", "block_sketch", "plan_sketch"):
+            check(counts[k] > 0, f"kernel {k} was not launched on the main path")
 
         # plain-version partition on the card, bit for bit
         t0 = time.perf_counter()
@@ -634,6 +662,284 @@ def times(args, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Dense LM serving: the flash attention kernel, llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "llama3.2-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
+ENS_K, ENS_BATCH, ENS_PROMPT, ENS_NEW = 3, 4, 512, 32
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # tests/test_kernels.py:53
+# teacher-forced logits against the served ones: the reference's own
+# decode-vs-forward tolerance (tests/test_models_smoke.py), |a - b| <= 8e-2 (1 + |b|)
+TF_TOL = 8e-2
+FLASH_CASES = {
+    # name: (B, H, Hkv, S, D, causal, strided as the serve path lays it out)
+    "llama3.2-1b prefill": (8, 32, 8, 2048, 64, True, True),
+    "qwen2-0.5b heads": (2, 14, 2, 1024, 64, True, False),
+    "qwen3-14b heads": (2, 40, 8, 1024, 128, True, False),
+    "granite-20b MQA": (2, 48, 1, 1024, 128, True, False),
+    "ragged S": (2, 32, 8, 1000, 64, True, True),
+    "non-causal": (4, 32, 8, 512, 128, False, False),
+}
+
+
+def flash_inputs(B, H, Hkv, S, D, dtype, device, seed, strided):
+    """q [B, H, S, D] and k, v [B, Hkv, S, D]; ``strided`` lays them out as
+    the attention layer hands them over: views of [B, S, heads, D]."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(h):
+        if strided:
+            return torch.randn((B, S, h, D), generator=g, device=device).to(dtype).transpose(1, 2)
+        return torch.randn((B, h, S, D), generator=g, device=device).to(dtype)
+
+    return make(H), make(Hkv), make(Hkv)
+
+
+def flash_parity(args, device) -> float:
+    """The flash kernel against its plain version at every case, in bf16 and
+    float32; returns the largest absolute deviation."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    worst = 0.0
+    for i, (name, (B, H, Hkv, S, D, causal, strided)) in enumerate(FLASH_CASES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(B, H, Hkv, S, D, dtype, device, args.seed + i, strided)
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            diff = (got.float() - want.float()).abs()
+            bad = diff > tol + tol * want.float().abs()
+            check(got.shape == want.shape and got.dtype == dtype, f"flash {name}: shape/dtype")
+            check(bool(torch.isfinite(got).all()), f"flash {name} {dtype}: non-finite output")
+            check(not bool(bad.any()), f"flash {name} {dtype}: {int(bad.sum())} values beyond"
+                  f" {tol} (largest deviation {float(diff.max()):.3g})")
+            worst = max(worst, float(diff.max()))
+            print(f"  flash {name} {str(dtype).split('.')[1]}: max |kernel - plain|"
+                  f" {float(diff.max()):.3g} (tolerance {tol})", flush=True)
+            del q, k, v, got, want, diff, bad
+    torch.cuda.empty_cache()
+    return worst
+
+
+def prefill_flops(cfg, batch: int, seq: int) -> int:
+    """Operations of a prefill to last-position logits: every projection
+    (2 per multiply-add) over every token, causal attention over the
+    prompt's pairs, and the last position's unembedding."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    proj = d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = (2 if cfg.mlp_type == "gelu" else 3) * d * cfg.d_ff
+    attn = 4 * cfg.num_heads * dh * seq * (seq + 1) // 2 * batch
+    return cfg.num_layers * (2 * (proj + mlp) * batch * seq + attn) + 2 * batch * d * cfg.vocab_size
+
+
+def lm_serving(args, device, gpu: str) -> dict:
+    """Serve llama3.2-1b at full width through Server and EnsembleServer."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.transformer import DenseLM, init_caches
+    from repro_torch.serve import EnsembleServer, Server
+
+    cfg = ARCHS[LM_ARCH]
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    model = DenseLM(cfg, device=device, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = 4 * n_params
+    cache_bytes = (2 * cfg.num_layers * SERVE_BATCH * cfg.num_kv_heads
+                   * (SERVE_PROMPT + SERVE_NEW) * cfg.resolved_head_dim * 4)
+    phase("lm model", t0, f"{cfg.name}: {n_params:,} float32 parameters ({weight_bytes / 1e9:.3f}"
+          f" GB), seed {args.seed}; float32 KV cache {cache_bytes / 1e9:.3f} GB")
+    # least times: the prefill's operations at the bf16 tensor-core peak; a
+    # decode step's reads of every weight and the whole cache
+    pf_flops = prefill_flops(cfg, SERVE_BATCH, SERVE_PROMPT)
+    pf_bound_s = pf_flops / BF16_OPS_PER_S
+    step_bound_s = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S
+    print(f"serve {cfg.name} bounds: prefill {pf_flops / 1e12:.2f} TFLOP, {pf_bound_s:.4f} s at"
+          f" the bf16 peak; decode step {(weight_bytes + cache_bytes) / 1e9:.3f} GB,"
+          f" {step_bound_s * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, so at most"
+          f" {SERVE_BATCH / step_bound_s:.0f} tokens/s", flush=True)
+    server = Server(cfg, model, device=device)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), np.int32)
+    # warm-up at the full prompt: cuBLAS plans and the allocator's blocks
+    server.generate(prompts[::-1].copy(), max_new_tokens=2)
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    tokens, step_logits = server.generate(prompts, max_new_tokens=SERVE_NEW, return_logits=True)
+    counts = kernels.launch_counts()            # the serving path ends here
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = dict(server.last_stats)
+    phase("lm serve", t0, f"Server.generate {SERVE_BATCH} x {SERVE_PROMPT} + {SERVE_NEW};"
+          f" launches {json.dumps(counts)}")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"Server.generate launched flash {counts['flash_attention']} times, not {cfg.num_layers}")
+    check(tokens.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW), f"tokens {tokens.shape}")
+    check(bool((tokens[:, :SERVE_PROMPT] == prompts).all()), "the prompts came back changed")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size, "token ids out of range")
+    check(bool(torch.isfinite(step_logits).all()), "served logits are not finite")
+
+    # teacher forcing: the generated sequence through the same model with
+    # the plain attention; its logits at positions P-1 .. P+new-2 chose the
+    # new tokens
+    t0 = time.perf_counter()
+    seq = torch.from_numpy(tokens).to(device=device, dtype=torch.int64)
+    with torch.no_grad():
+        h, _ = model.hidden(seq[:, :-1], attn_impl="torch")
+        tf = model.logits(h[:, SERVE_PROMPT - 1:]).float()
+    del h
+    diff = (tf - step_logits).abs()
+    bad = diff > TF_TOL * (1 + step_logits.abs())
+    agree = float((tf.argmax(-1) == step_logits.argmax(-1)).float().mean())
+    tf_err = float(diff.max())
+    phase("lm teacher forcing", t0, f"max |served - teacher-forced| {tf_err:.4g} over"
+          f" {diff.numel():,} logits (tolerance {TF_TOL} (1 + |b|)); argmax agreement {agree:.4f}")
+    check(not bool(bad.any()), f"{int(bad.sum())} served logits beyond the teacher-forced"
+          f" tolerance (largest deviation {tf_err:.4g})")
+    del tf, diff, bad, seq, step_logits
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    wall, busy, by_name, gen_events = profiled(
+        lambda: server.generate(prompts, max_new_tokens=SERVE_NEW))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    idle = None if busy is None else 1 - busy / wall
+    # the prefill alone: where its time goes on the device
+    seq = torch.from_numpy(prompts).to(device=device, dtype=torch.int64)
+    caches = init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, torch.float32, device)
+    with torch.no_grad():
+        p_wall, p_busy, p_by_name, pf_events = profiled(
+            lambda: api.make_prefill_fn(model)(caches, {"tokens": seq}))
+    del caches, seq
+    step_events = (gen_events - pf_events) / (SERVE_NEW - 1)
+    p_top = sorted(p_by_name.items(), key=lambda kv: -kv[1])[:8]
+    phase("lm profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy {busy} s;"
+          f" one profiled prefill: wall {p_wall:.3f} s, device busy {p_busy} s,"
+          f" top {json.dumps([(n[:60], t) for n, t in p_top])}; device events: generate"
+          f" {gen_events}, prefill {pf_events}, so {step_events:.1f} a decode step")
+    decode_tps = SERVE_BATCH * (SERVE_NEW - 1) / stats["decode_s"]
+    serve = {
+        "prefill_s": stats["prefill_s"], "first_token_s": stats["first_token_s"],
+        "decode_s": stats["decode_s"], "decode_tokens_per_s": decode_tps,
+        "total_s": stats["total_s"], "peak_gb": peak_gb, "profiled_wall_s": wall,
+        "device_busy_s": busy, "idle_share": idle,
+        "top": [(name[:60], sec) for name, sec in top],
+        "prefill_profile": {"wall_s": p_wall, "device_busy_s": p_busy,
+                            "top": [(name[:60], sec) for name, sec in p_top]},
+        "device_events": {"generate": gen_events, "prefill": pf_events,
+                          "per_decode_step": step_events},
+        "prefill_flops": pf_flops, "prefill_bound_s": pf_bound_s, "weight_bytes": weight_bytes,
+        "cache_bytes": cache_bytes, "decode_step_bound_s": step_bound_s,
+        "teacher_forced_max_abs_err": tf_err, "teacher_forced_argmax_agreement": agree,
+    }
+    for line in (f"prefill seconds {stats['prefill_s']:.4f}",
+                 f"time to first token {stats['first_token_s']:.4f} s",
+                 f"decode tokens/s {decode_tps:.1f} ({SERVE_BATCH} x {SERVE_NEW - 1} tokens"
+                 f" in {stats['decode_s']:.4f} s)",
+                 f"peak device memory {peak_gb:.3f} GB",
+                 f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
+        print(f"serve {cfg.name} {SERVE_BATCH} x {SERVE_PROMPT} + {SERVE_NEW}: {line}"
+              f" [{gpu}]", flush=True)
+    del server, model
+    torch.cuda.empty_cache()
+
+    # the RSP block ensemble: k models of their own seeds
+    t0 = time.perf_counter()
+    models = [DenseLM(cfg, device=device, seed=args.seed + 1 + i) for i in range(ENS_K)]
+    ens = EnsembleServer(cfg, models, device=device)
+    eprompts = rng.integers(0, cfg.vocab_size, (ENS_BATCH, ENS_PROMPT), np.int32)
+    ens.generate(eprompts[::-1].copy(), max_new_tokens=2)         # warm-up
+    kernels.reset_launch_counts()
+    etokens = ens.generate(eprompts, max_new_tokens=ENS_NEW)
+    ecounts = kernels.launch_counts()           # the ensemble path ends here
+    estats = dict(ens.last_stats)
+    phase("lm ensemble", t0, f"EnsembleServer k={ENS_K} {ENS_BATCH} x {ENS_PROMPT} + {ENS_NEW};"
+          f" launches {json.dumps(ecounts)}")
+    check(ecounts["flash_attention"] == ENS_K * cfg.num_layers,
+          f"EnsembleServer.generate launched flash {ecounts['flash_attention']} times,"
+          f" not {ENS_K * cfg.num_layers}")
+
+    # the same combination outside the server: each model fed the ensemble's
+    # tokens, log-probabilities averaged here
+    t0 = time.perf_counter()
+    seq = torch.from_numpy(etokens).to(device=device, dtype=torch.int64)
+    logprobs = []
+    with torch.no_grad():
+        for m in models:
+            caches = init_caches(cfg, ENS_BATCH, ENS_PROMPT + ENS_NEW, torch.float32, device)
+            logits, caches = api.make_prefill_fn(m)(caches, {"tokens": seq[:, :ENS_PROMPT]})
+            steps = [logits[:, -1]]
+            for t in range(ENS_NEW - 1):
+                pos = ENS_PROMPT + t
+                logits, caches = api.make_decode_fn(m)(caches, {"tokens": seq[:, pos:pos + 1]})
+                steps.append(logits[:, -1])
+            logprobs.append(torch.log_softmax(torch.stack(steps, 1).float(), dim=-1))
+            del caches
+    mean_lp = torch.logsumexp(torch.stack(logprobs), dim=0) - math.log(ENS_K)
+    want = mean_lp.argmax(-1).cpu().numpy()
+    same = bool((want == etokens[:, ENS_PROMPT:]).all())
+    phase("lm ensemble check", t0, f"ensemble tokens equal the argmax of the {ENS_K} models'"
+          f" averaged log-probabilities: {same}")
+    check(same, "the ensemble's tokens differ from the averaged log-probabilities' argmax")
+    ens_tps = ENS_BATCH * ENS_NEW / estats["total_s"]
+    print(f"serve ensemble[{ENS_K}] {cfg.name} {ENS_BATCH} x {ENS_PROMPT} + {ENS_NEW}:"
+          f" first token {estats['first_token_s']:.4f} s, {ens_tps:.1f} tok/s overall [{gpu}]",
+          flush=True)
+    del ens, models, logprobs, seq
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ensemble_counts": ecounts, "serve": serve,
+            "ensemble": dict(estats, tokens_per_s=ens_tps)}
+
+
+def flash_times(args, device) -> dict:
+    """The flash kernel at llama3.2-1b's prefill shape, bf16, causal, in the
+    serve path's layout, beside its bound, its plain version and one
+    ``scaled_dot_product_attention`` call on head-expanded K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    B, H, Hkv, S, D, causal, strided = FLASH_CASES["llama3.2-1b prefill"]
+    q, k, v = flash_inputs(B, H, Hkv, S, D, torch.bfloat16, device, args.seed, strided)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v read; o written
+    b, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    qc = q.contiguous()
+    ke = k.repeat_interleave(H // Hkv, dim=1).contiguous()
+    ve = v.repeat_interleave(H // Hkv, dim=1).contiguous()
+    out = {
+        "ms": time_cuda(lambda i: flash_attention_cuda(q, k, v, causal=causal), reps=REPS),
+        "plain_ms": time_cuda(lambda i: flash_attention_plain(q, k, v, causal=causal), reps=3),
+        "library_ms": time_cuda(
+            lambda i: F.scaled_dot_product_attention(qc, ke, ve, is_causal=causal), reps=REPS),
+        "device_ms": device_ms(lambda i: flash_attention_cuda(q, k, v, causal=causal), REPS),
+        "bound_ms": b, "bound_by": by, "flops": flops, "bytes": nbytes,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": flops / BF16_OPS_PER_S * 1e3,
+        "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16, causal,"
+                 " strided views of [B, S, heads, D]",
+    }
+    del q, k, v, qc, ke, ve
+    torch.cuda.empty_cache()
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -647,8 +953,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--records", type=int, default=11_000_000)
+    ap.add_argument("--paths", default="rsp,lm",
+                    help="paths to drive, comma-separated: rsp (the RSP main path), lm (serving)")
     ap.add_argument("--out", default=None, help="directory for the build log and JSON")
     args = ap.parse_args()
+    paths = set(args.paths.split(","))
+    if not paths or paths - {"rsp", "lm"}:
+        print(f"chip_smoke: --paths takes rsp and/or lm, got {args.paths!r}", file=sys.stderr)
+        return 2
     if args.records % (BLOCKS * BLOCKS):
         print(f"chip_smoke: --records must be a multiple of {BLOCKS * BLOCKS}", file=sys.stderr)
         return 2
@@ -663,11 +975,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    # float32 products in full float32 (the plain versions are the yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import _cuda
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    print(nvidia_smi(), flush=True)
+    gpu = nvidia_smi()
+    print(gpu, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
@@ -678,28 +995,45 @@ def main() -> int:
         if "registers" in line or "error" in line.lower():
             print(f"  ptxas: {line.strip()}")
 
-    t0 = time.perf_counter()
-    errs = parity(args, device)
-    phase("parity", t0, json.dumps(errs))
+    errs = {}
+    if "rsp" in paths:
+        t0 = time.perf_counter()
+        errs = parity(args, device)
+        phase("parity", t0, json.dumps(errs))
+    if "lm" in paths:
+        t0 = time.perf_counter()
+        errs["flash_attention"] = flash_parity(args, device)
+        phase("flash parity", t0, f"max |kernel - plain| {errs['flash_attention']:.3g}")
 
-    path = main_path(args, device)
+    path = main_path(args, device) if "rsp" in paths else None
+    lm = lm_serving(args, device, gpu) if "lm" in paths else None
 
     t0 = time.perf_counter()
-    tm = times(args, device)
+    tm = times(args, device) if "rsp" in paths else {}
+    if "lm" in paths:
+        tm["flash_attention"] = flash_times(args, device)
+        print(f"flash_attention times: {json.dumps(tm['flash_attention'])} [{gpu}]", flush=True)
     phase("times", t0)
 
     replaces = {
         "rsp_shuffle": "src/repro/kernels/rsp_shuffle/kernel.py:44",
         "block_sketch": "src/repro/kernels/block_sketch/kernel.py:82",
         "plan_sketch": "src/repro/kernels/plan/kernel.py:129",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
     }
+    launches = {}
+    if path:
+        launches.update({k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch",
+                                                         "plan_sketch")})
+    if lm:
+        launches["flash_attention"] = lm["counts"]["flash_attention"]
     record = {"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": path["counts"][name],
+            "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": tm[name]["ms"],
             "plain_ms": tm[name]["plain_ms"],
@@ -709,16 +1043,21 @@ def main() -> int:
             "device_ms": tm[name]["device_ms"],
             "shape": tm[name]["shape"],
         }
-        for name in ("rsp_shuffle", "block_sketch", "plan_sketch")
+        for name in replaces if name in launches
     ]}
-    print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
+    if path:
+        print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
+    if lm:
+        print(f"serving: {json.dumps({k: v for k, v in lm.items() if k != 'counts'})}",
+              flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "build.log").write_text(_cuda.build_log())
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
-             "end_to_end": path["e2e"], "gpu": nvidia_smi()},
+            {"kernels": record["kernels"], "plan_sketch_where": tm.get("plan_sketch_where"),
+             "end_to_end": path and path["e2e"], "serving": lm, "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,43 @@
+"""Architecture registry of the port: the dense configs it can build, their
+reduced smoke variants, and the shape cells.
+
+``ARCHS`` holds the five dense architectures (llama3.2-1b, qwen2-0.5b,
+qwen3-14b, granite-20b, chameleon-34b) at their published widths;
+``smoke_config`` shrinks them exactly as the reference's does.  The MoE,
+hybrid, RWKV and encoder configs come with their families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs.chameleon_34b import CONFIG as CHAMELEON_34B
+from repro_torch.configs.granite_20b import CONFIG as GRANITE_20B
+from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA32_1B
+from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_05B
+from repro_torch.configs.qwen3_14b import CONFIG as QWEN3_14B
+from repro_torch.configs.shapes import SHAPES, ShapeCell
+from repro_torch.models.config import ModelConfig
+
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, CHAMELEON_34B]
+}
+
+
+def smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests (the reference's
+    shrink for a dense arch)."""
+    cfg = ARCHS[arch]
+    return dataclasses.replace(
+        cfg,
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads < cfg.num_heads else 4,
+        head_dim=16,
+        d_ff=96,
+        vocab_size=256,
+    )
+
+
+__all__ = ["ARCHS", "SHAPES", "ShapeCell", "smoke_config"]

@@ -6,6 +6,7 @@ version and a launch counter.
   rsp_shuffle    Algorithm 1's hierarchical row shuffle
   block_sketch   fused per-block moments + histogram
   plan           fused filter / project / group-by sketch
+  flash_attention  online-softmax attention with grouped-query heads
 
 Importing this package imports no kernel: the subpackages load the library
 only when a wrapper is called on a CUDA tensor.
@@ -16,10 +17,12 @@ from __future__ import annotations
 
 def _counters() -> dict:
     from repro_torch.kernels.block_sketch.kernel import LAUNCHES as block_sketch
+    from repro_torch.kernels.flash_attention.kernel import LAUNCHES as flash_attention
     from repro_torch.kernels.plan.kernel import LAUNCHES as plan_sketch
     from repro_torch.kernels.rsp_shuffle.kernel import LAUNCHES as rsp_shuffle
 
-    return {"rsp_shuffle": rsp_shuffle, "block_sketch": block_sketch, "plan_sketch": plan_sketch}
+    return {"rsp_shuffle": rsp_shuffle, "block_sketch": block_sketch, "plan_sketch": plan_sketch,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

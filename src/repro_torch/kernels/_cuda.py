@@ -37,6 +37,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signatures of the exported functions: name -> (restype, argtypes)
 _SIGNATURES = {
@@ -53,6 +54,9 @@ _SIGNATURES = {
         _I,
         [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
          _P, _P, _P, _P, _P, _P],
+    ),
+    "flash_attention_launch": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *([_L] * 12), _I, _F, _P],
     ),
 }
 

@@ -1,0 +1,139 @@
+"""Grouped-query attention: projections, qk-norm, RoPE, prefill through the
+flash attention kernel, and token decode against a KV cache.
+
+GQA stays in grouped form: queries ``[B, Hkv, G, S, D]`` against keys and
+values ``[B, Hkv, S, D]``, so K/V are never expanded to the full head count.
+Prefill goes through ``kernels.flash_attention`` -- the CUDA kernel for
+tensors on the card, its plain version on the host (``impl="auto"``).  A
+decode step (``S == 1`` with a cache) is plain attention over the whole
+float32 cache, masked by position, as in the reference.
+
+Reference numerics kept here, limits included: q, k and v enter attention
+in bf16 after RoPE; scores, softmax and accumulators are float32; the
+prefill output is bf16.  A prefill with a cache attends only to its own
+keys (the reference's ``kg = kh``), so a prefill after a non-empty cache is
+unsupported, as in the reference.  The cache is updated in place (a decode
+step would otherwise copy every layer's cache); the returned cache dict
+holds the same tensors with the new length.
+
+The reference's flat-head layout (tensor parallelism) and its custom-VJP
+flash (training) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import ParamSpec, Tree, apply_rope, linear, linear_spec, rmsnorm_1d
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10000.0
+    causal: bool = True
+    norm_eps: float = 1e-5
+
+
+def attention_specs(cfg: AttentionConfig) -> Tree:
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs = {
+        "q": linear_spec(cfg.d_model, H * D, bias=cfg.qkv_bias),
+        "k": linear_spec(cfg.d_model, Hkv * D, bias=cfg.qkv_bias),
+        "v": linear_spec(cfg.d_model, Hkv * D, bias=cfg.qkv_bias),
+        "o": linear_spec(H * D, cfg.d_model),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((D,), "ones")
+        specs["k_norm"] = ParamSpec((D,), "ones")
+    return specs
+
+
+def attention_apply(
+    params,
+    x: torch.Tensor,                        # [B, S, d_model]
+    cfg: AttentionConfig,
+    *,
+    positions: torch.Tensor | None = None,  # [S] absolute positions
+    cache: dict | None = None,              # {"k", "v": [B, Hkv, T, D], "length": int}
+    compute_dtype=torch.bfloat16,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, dict | None]:
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // Hkv
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+        if cache is not None:
+            positions = positions + cache["length"]
+
+    q = linear(params["q"], x, compute_dtype=compute_dtype).reshape(B, S, H, D)
+    k = linear(params["k"], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
+    v = linear(params["v"], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rmsnorm_1d(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm_1d(params["k_norm"], k, eps=cfg.norm_eps)
+    if cfg.rope:
+        q = apply_rope(q, positions[None, :, None], theta=cfg.rope_theta)
+        k = apply_rope(k, positions[None, :, None], theta=cfg.rope_theta)
+
+    kh = k.transpose(1, 2)             # [B, Hkv, S, D] (cache layout), a view
+    vh = v.transpose(1, 2)
+    qg = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)   # [B, Hkv, G, S, D]
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache["length"])
+        ck, cv = cache["k"], cache["v"]
+        if start + S > ck.shape[2]:
+            raise ValueError(f"cache of {ck.shape[2]} positions cannot take {start + S}")
+        ck[:, :, start:start + S] = kh
+        cv[:, :, start:start + S] = vh
+        new_cache = {"k": ck, "v": cv, "length": start + S}
+
+    if cache is not None and S == 1:
+        # token decode: grouped attention against the full cache
+        out = _decode_attention(
+            qg, new_cache["k"], new_cache["v"],
+            q_positions=positions,
+            kv_positions=torch.arange(new_cache["k"].shape[2], device=x.device),
+        )
+    else:
+        out = flash_attention(qg, kh, vh, causal=cfg.causal, impl=impl)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * D).to(compute_dtype)
+    return linear(params["o"], out, compute_dtype=compute_dtype), new_cache
+
+
+def _decode_attention(q, k, v, *, q_positions, kv_positions):
+    """Single/few-token attention against a (possibly longer) cache, in
+    float32, masked by position."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bhgsd,bhtd->bhgst", q.to(torch.float32), k.to(torch.float32)) * scale
+    keep = kv_positions[None, :] <= q_positions[:, None]
+    s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgst,bhtd->bhgsd", p, v.to(torch.float32))
+
+
+def init_cache(
+    cfg: AttentionConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
+) -> dict:
+    dev = resolve_device(device)
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "length": 0,
+    }

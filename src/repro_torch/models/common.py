@@ -1,0 +1,192 @@
+"""Module substrate of the model zoo: parameter specs, their initialisation
+with an explicit ``torch.Generator``, and the basic layers.
+
+A model is described by a nested dict of :class:`ParamSpec` leaves, laid out
+as the reference lays it out (layers stacked on a leading axis).  The
+reference's logical sharding axes have no counterpart on one card and are
+left out.  From that
+tree :func:`init_params` makes real float32 values at the reference's
+scales; :class:`Params` turns a (per-layer) tree into an ``nn.Module`` whose
+leaves are parameters and whose sub-dicts are sub-modules, indexed as
+``params["q"]["w"]`` by the functional layers below.
+
+Layers follow the reference's numerics: every ``linear`` casts ``x`` and
+``w`` to ``compute_dtype`` (bfloat16) before the product, norms compute in
+float32 and return the input's dtype, RoPE rotates in float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterator
+
+import torch
+from torch import nn
+
+Tree = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"          # normal | zeros | ones | embed
+    scale: float | None = None    # stddev override for "normal" / "embed"
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # weight layout convention: last dim is output features
+    return int(math.prod(shape[:-1])) if len(shape) > 1 else int(shape[0])
+
+
+def init_scale(spec: ParamSpec) -> float:
+    """The standard deviation the reference draws a "normal"/"embed" leaf
+    with (``_init_leaf``): the override, else 1 for embeddings and
+    ``1 / sqrt(fan_in)`` otherwise -- with the layer axis of a stacked leaf
+    counted in its fan-in, as the reference counts it."""
+    if spec.scale is not None:
+        return spec.scale
+    return 1.0 if spec.init == "embed" else 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
+    """A float32 leaf: zeros, ones, or normal at :func:`init_scale`."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, device=device)
+    x = torch.randn(spec.shape, generator=generator, device=device)
+    return x.mul_(init_scale(spec))
+
+
+def iter_leaves(tree: Tree, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    """(path, leaf) pairs of a nested dict, in sorted key order."""
+    for name in sorted(tree):
+        sub = tree[name]
+        if isinstance(sub, dict):
+            yield from iter_leaves(sub, prefix + (name,))
+        else:
+            yield prefix + (name,), sub
+
+
+def set_leaf(tree: Tree, path: tuple[str, ...], value) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
+
+
+def init_params(specs: Tree, generator: torch.Generator, device) -> Tree:
+    """Real parameter values for a spec tree, drawn leaf by leaf in sorted
+    path order from ``generator`` (which lives on ``device``)."""
+    out: Tree = {}
+    for path, spec in iter_leaves(specs):
+        set_leaf(out, path, init_leaf(spec, generator, device))
+    return out
+
+
+def stack_specs(specs: Tree, num: int) -> Tree:
+    """Prepend a stacked layer dimension to every leaf."""
+    out: Tree = {}
+    for path, s in iter_leaves(specs):
+        set_leaf(out, path, ParamSpec((num, *s.shape), s.init, s.scale))
+    return out
+
+
+class Params(nn.Module):
+    """A tree of parameters as a module: dict leaves become (frozen)
+    ``nn.Parameter``s, sub-dicts sub-modules.  ``p["q"]["w"]`` and
+    ``"b" in p`` read it as the functional layers read the reference's
+    dicts."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        for name in sorted(tree):
+            value = tree[name]
+            if isinstance(value, dict):
+                self.add_module(name, Params(value))
+            else:
+                self.register_parameter(name, nn.Parameter(torch.as_tensor(value),
+                                                           requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+# ---------------------------------------------------------------------------
+# Basic layers (functional; params are dicts or Params of the spec trees)
+# ---------------------------------------------------------------------------
+
+def linear_spec(d_in: int, d_out: int, *, bias: bool = False) -> Tree:
+    out = {"w": ParamSpec((d_in, d_out))}
+    if bias:
+        out["b"] = ParamSpec((d_out,), "zeros")
+    return out
+
+
+def linear(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
+    if "b" in params:
+        y = y + params["b"].to(compute_dtype)
+    return y
+
+
+def rmsnorm_spec(d: int) -> Tree:
+    return {"scale": ParamSpec((d,), "ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_1d(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last dim with an explicit scale vector (qk-norm)."""
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def embedding_spec(vocab: int, d: int, *, scale: float = 0.02) -> Tree:
+    return {"table": ParamSpec((vocab, d), "embed", scale)}
+
+
+def embed(params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    # gather, then cast: the same values as casting the whole table first
+    return params["table"][ids].to(compute_dtype)
+
+
+def unembed_logits(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [.., d] @ table.T -> logits [.., vocab]."""
+    return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., seq, head_dim]; positions: broadcastable to [..., seq]."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

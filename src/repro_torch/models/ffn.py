@@ -1,0 +1,58 @@
+"""Feed-forward blocks: SwiGLU (llama/qwen family) and the GELU MLP
+(granite-20b).
+
+The activations repeat the reference's arithmetic in the activations' own
+dtype, one rounding per operation, constants rounded to that dtype first:
+``jax.nn.silu`` is ``x * (1 / (1 + exp(-x)))`` and ``jax.nn.gelu`` (tanh
+approximation, its default) is ``x * (0.5 * (1 + tanh(c * (x + 0.044715 *
+x**3))))``.  PyTorch's fused ``F.silu`` / ``F.gelu`` round once from float32
+and give other bf16 values for about a third of the inputs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import Tree, linear, linear_spec
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.reciprocal(torch.exp(-x) + _const(1.0, x))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    inner = x + _const(0.044715, x) * x ** 3
+    cdf = _const(0.5, x) * (torch.tanh(_const(math.sqrt(2 / math.pi), x) * inner) + _const(1.0, x))
+    return x * cdf
+
+
+def swiglu_specs(d_model: int, d_ff: int) -> Tree:
+    return {
+        "gate": linear_spec(d_model, d_ff),
+        "up": linear_spec(d_model, d_ff),
+        "down": linear_spec(d_ff, d_model),
+    }
+
+
+def swiglu_apply(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    g = linear(params["gate"], x, compute_dtype=compute_dtype)
+    u = linear(params["up"], x, compute_dtype=compute_dtype)
+    return linear(params["down"], silu(g) * u, compute_dtype=compute_dtype)
+
+
+def gelu_mlp_specs(d_model: int, d_ff: int, *, bias: bool = True) -> Tree:
+    return {
+        "fc1": linear_spec(d_model, d_ff, bias=bias),
+        "fc2": linear_spec(d_ff, d_model, bias=bias),
+    }
+
+
+def gelu_mlp_apply(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    h = gelu_tanh(linear(params["fc1"], x, compute_dtype=compute_dtype))
+    return linear(params["fc2"], h, compute_dtype=compute_dtype)

@@ -7,7 +7,9 @@ neither ``jax`` nor ``repro``, so it runs on a machine with the card alone:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: shuffles, histograms, counts and ``nsel`` exact; moments within
-1e-5 relative (the kernels sum in another order than the plain versions).
+1e-5 relative (the kernels sum in another order than the plain versions);
+flash attention within 2e-5 in float32 and 2e-2 in bfloat16, the
+reference's own tolerances for its Pallas kernel (``tests/test_kernels.py``).
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -18,6 +20,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain
@@ -144,3 +151,63 @@ def test_partition_on_the_card_equals_the_cpu_plain_version(dev):
     on_cpu = rsp.partition(data, blocks=10, seed=3, num_classes=2, summaries=False,
                            backend="cuda", device="cpu")
     assert torch.equal(on_card.stacked().cpu(), on_cpu.stacked())
+
+
+FLASH_SHAPES = [
+    # B, H, Hkv, S, D
+    (2, 4, 2, 128, 64),      # GQA, whole tiles
+    (1, 14, 2, 200, 64),     # qwen2-0.5b's heads (G = 7), ragged S
+    (1, 40, 8, 96, 128),     # qwen3-14b's heads, D = 128
+    (1, 48, 1, 130, 128),    # granite-20b's MQA (G = 48)
+    (2, 2, 2, 1, 64),        # a single row
+    (1, 8, 8, 1000, 64),     # MHA, ragged S over many tiles
+]
+
+
+def _qkv(B, H, Hkv, S, D, dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((B, h, S, D), generator=g) for h in (H, Hkv, Hkv))
+    return (t.to(dtype).to(dev) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
+    q, k, v = _qkv(*shape, dtype, dev)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_the_grouped_layout_as_strided_views(dev):
+    B, S, Hkv, G, D = 2, 150, 2, 3, 64
+    g = torch.Generator(device="cpu").manual_seed(1)
+    # as the attention layer makes them: [B, S, heads, D] transposed, no copy
+    q = torch.randn((B, S, Hkv, G, D), generator=g).bfloat16().to(dev).permute(0, 2, 3, 1, 4)
+    k = torch.randn((B, S, Hkv, D), generator=g).bfloat16().to(dev).transpose(1, 2)
+    v = torch.randn((B, S, Hkv, D), generator=g).bfloat16().to(dev).transpose(1, 2)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = flash_attention(q, k, v, causal=True, impl="torch")
+    assert got.shape == (B, Hkv, G, S, D)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(1, 2, 1, 64, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(1, 2, 1, 64, 64, torch.float16, dev)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(1, 2, 1, 64, 64, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head dim must be contiguous"):
+        flash_attention_cuda(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="but the block is on"):
+        flash_attention_cuda(q, k.cpu(), v)

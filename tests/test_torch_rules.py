@@ -13,13 +13,18 @@ import pytest
 import torch
 
 from repro_torch import kernels, rsp
+from repro_torch.checkpoint import store
+from repro_torch.configs import smoke_config
 from repro_torch.core.registry import RSPStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
+from repro_torch.models.transformer import DenseLM, init_caches
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, compile_plan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda
+from repro_torch.serve import EnsembleServer, Server
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -33,7 +38,8 @@ def _cuda_absent():
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.rsp, repro_torch.kernels.plan, "
-        "repro_torch.data, repro_torch.obs\n"
+        "repro_torch.data, repro_torch.obs, repro_torch.kernels.flash_attention, "
+        "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'jaxlib') "
         "or m.startswith(('jax.', 'repro.', 'jaxlib.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -73,6 +79,27 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def _host_model():
+    return DenseLM(smoke_config("llama3.2-1b"), device="cpu")
+
+
+LM_ENTRY_POINTS = {
+    "DenseLM": lambda: DenseLM(smoke_config("llama3.2-1b")),
+    "Server": lambda: Server(smoke_config("llama3.2-1b"), _host_model()),
+    "EnsembleServer": lambda: EnsembleServer(smoke_config("llama3.2-1b"), [_host_model()] * 2),
+    "init_caches": lambda: init_caches(smoke_config("llama3.2-1b"), 1, 8),
+    "restore": lambda: store.restore(str(ROOT / "no_such_checkpoint"), 0),
+    "launch.serve": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main([]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_ENTRY_POINTS))
+def test_lm_entry_points_default_to_the_card(name):
+    _cuda_absent()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM_ENTRY_POINTS[name]()
 
 
 V1_STORE = RSPStore(str(ROOT / "tests" / "fixtures" / "v1_store"))
@@ -125,6 +152,13 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
     # the shuffle kernel copies 2- or 4-byte words
     with pytest.raises(ValueError, match="even number of bytes"):
         rsp_shuffle_cuda(torch.zeros((64, 3), dtype=torch.uint8), tp, ip, tile_rows=32)
+    q, kv = torch.zeros((1, 4, 16, 64)), torch.zeros((1, 2, 16, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention(q, kv, kv, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_cuda(torch.zeros((1, 3, 16, 64)), kv, kv)
 
 
 def _on_another_device():
@@ -137,7 +171,9 @@ def _on_another_device():
     tp = torch.zeros(2, dtype=torch.int32, device=meta)
     ip = torch.zeros((2, 32), dtype=torch.int32, device=meta)
     arrays = PlanArrays.build(QueryPlan(predicates="c0 > 0", columns=(0, 2)), 4, meta)
+    q, kv = torch.zeros((1, 4, 16, 64)), torch.zeros((1, 2, 16, 64), device=meta)
     return {
+        "flash_attention": lambda: flash_attention_cuda(q, kv, kv),
         "rsp_shuffle": lambda: rsp_shuffle_cuda(x, tp, ip, tile_rows=32),
         "block_sketch": lambda: block_sketch_cuda(x, lo, invw, bins=4),
         "plan_sketch": lambda: plan_sketch_cuda(x, arrays, None, None, bins=0),
@@ -163,7 +199,13 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
     ds.query(["mean", "p95"], use_sketches=False, sketch_impl="auto")
     ds.query("mean", where="c0 > 0", columns=(0, 1), use_sketches=False)
     ds.query(rsp.Aggregate("mean", by_label=True), use_sketches=False)
-    assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0}
+    cfg = smoke_config("qwen2-0.5b")
+    prompts = np.zeros((2, 5), np.int32)
+    Server(cfg, DenseLM(cfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=3)
+    EnsembleServer(cfg, [DenseLM(cfg, device="cpu", seed=s) for s in (1, 2)],
+                   device="cpu").generate(prompts, max_new_tokens=2)
+    assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
+                                       "flash_attention": 0}
 
 
 def test_cuda_build_is_keyed_by_sources(tmp_path):
@@ -172,5 +214,5 @@ def test_cuda_build_is_keyed_by_sources(tmp_path):
     key = _cuda.source_hash()
     assert len(key) == 16 and key == _cuda.source_hash()
     assert {p.name for p in _cuda._sources()} == {
-        "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu"}
+        "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu"}
     assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
