@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's two paths once on one NVIDIA card: the
 RSP main path and dense LM serving.
 
-    python3 chip_smoke.py [--seed S] [--records N] [--paths rsp,lm] [--out DIR]
+    python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds:
 
@@ -47,7 +47,11 @@ Phases, one line each with its seconds:
                 ``Server.generate`` of 8 prompts of 2048 tokens, 64 new
                 tokens, greedy (16 flash launches: one prefill per layer),
                 checked by teacher forcing the generated sequence through
-                the same model with the plain attention on the card; then
+                the same model with the plain attention on the card (the
+                served logits, and every position's logits through the
+                kernel), and the same check run on two served runs with a
+                known-wrong attention (non-causal, zero output) must
+                refuse both; then
                 ``EnsembleServer`` over 3 models of their own seeds, 4
                 prompts of 512 tokens, 32 new tokens (48 flash launches),
                 whose tokens must equal the argmax of the three models'
@@ -71,6 +75,7 @@ either it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -739,6 +744,79 @@ def prefill_flops(cfg, batch: int, seq: int) -> int:
     return cfg.num_layers * (2 * (proj + mlp) * batch * seq + attn) + 2 * batch * d * cfg.vocab_size
 
 
+def logit_deviation(got, want) -> dict:
+    """Logits held against the plain attention's: how many lie beyond
+    TF_TOL (1 + |b|), the largest |a - b| and the argmax agreement."""
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > TF_TOL * (1 + want.float().abs())).sum())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return {"bad": bad, "max_abs_err": float(diff.max()), "argmax_agreement": same,
+            "logits": diff.numel()}
+
+
+def teacher_forced(model, tokens, step_logits, chunk: int = 256) -> dict:
+    """The served sequence ``tokens`` [B, P + new] fed through ``model``
+    with the plain attention on the card.  ``served``: its logits at
+    positions P-1 .. P+new-2 against ``step_logits``, the ones that chose
+    the new tokens.  ``sequence``: its logits at every position against the
+    same sequence through the model's own attention (the kernel on the
+    card) -- early positions attend to a few keys, where attention carries
+    a large share of the residual stream; at the last positions it
+    averages some 2,000 near-uniform keys and moves the logits little."""
+    import torch
+
+    seq = torch.as_tensor(tokens, device=step_logits.device, dtype=torch.int64)[:, :-1]
+    start = seq.shape[1] - step_logits.shape[1] + 1
+    with torch.no_grad():
+        h_plain, _ = model.hidden(seq, attn_impl="torch")
+        h_model, _ = model.hidden(seq)
+        served = logit_deviation(model.logits(h_plain[:, start - 1:]), step_logits)
+        parts = [logit_deviation(model.logits(h_model[:, i:i + chunk]),
+                                 model.logits(h_plain[:, i:i + chunk]))
+                 for i in range(0, seq.shape[1], chunk)]
+    n = sum(p["logits"] for p in parts)
+    sequence = {"bad": sum(p["bad"] for p in parts),
+                "max_abs_err": max(p["max_abs_err"] for p in parts),
+                "argmax_agreement": sum(p["argmax_agreement"] * p["logits"] for p in parts) / n,
+                "logits": n}
+    return {"served": served, "sequence": sequence}
+
+
+@contextlib.contextmanager
+def attention_replaced(stand_in):
+    """Serve with ``stand_in(q, k, v, causal)`` in place of the flash
+    kernel; the plain attention (``impl="torch"``) stays the yardstick."""
+    from repro_torch.models import attention
+
+    real = attention.flash_attention
+
+    def patched(q, k, v, *, causal, impl="auto"):
+        return real(q, k, v, causal=causal, impl=impl) if impl == "torch" else stand_in(
+            q, k, v, causal)
+
+    attention.flash_attention = patched
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def _non_causal(q, k, v, causal):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, causal=False, impl="cuda")
+
+
+def _zero_output(q, k, v, causal):
+    import torch
+
+    return torch.zeros_like(q)
+
+
+# known-wrong attentions the teacher-forced check must refuse
+CONTROLS = {"non-causal": _non_causal, "zero output": _zero_output}
+
+
 def lm_serving(args, device, gpu: str) -> dict:
     """Serve llama3.2-1b at full width through Server and EnsembleServer."""
     import math
@@ -794,23 +872,28 @@ def lm_serving(args, device, gpu: str) -> dict:
     check(bool(torch.isfinite(step_logits).all()), "served logits are not finite")
 
     # teacher forcing: the generated sequence through the same model with
-    # the plain attention; its logits at positions P-1 .. P+new-2 chose the
-    # new tokens
+    # the plain attention, held against the served logits and against the
+    # kernel's forward of every position
     t0 = time.perf_counter()
-    seq = torch.from_numpy(tokens).to(device=device, dtype=torch.int64)
-    with torch.no_grad():
-        h, _ = model.hidden(seq[:, :-1], attn_impl="torch")
-        tf = model.logits(h[:, SERVE_PROMPT - 1:]).float()
-    del h
-    diff = (tf - step_logits).abs()
-    bad = diff > TF_TOL * (1 + step_logits.abs())
-    agree = float((tf.argmax(-1) == step_logits.argmax(-1)).float().mean())
-    tf_err = float(diff.max())
-    phase("lm teacher forcing", t0, f"max |served - teacher-forced| {tf_err:.4g} over"
-          f" {diff.numel():,} logits (tolerance {TF_TOL} (1 + |b|)); argmax agreement {agree:.4f}")
-    check(not bool(bad.any()), f"{int(bad.sum())} served logits beyond the teacher-forced"
-          f" tolerance (largest deviation {tf_err:.4g})")
-    del tf, diff, bad, seq, step_logits
+    tf = teacher_forced(model, tokens, step_logits)
+    phase("lm teacher forcing", t0, f"{json.dumps(tf)} (tolerance {TF_TOL} (1 + |b|))")
+    for part in ("served", "sequence"):
+        check(tf[part]["bad"] == 0, f"{tf[part]['bad']} {part} logits beyond the teacher-forced"
+              f" tolerance (largest deviation {tf[part]['max_abs_err']:.4g})")
+    del step_logits
+    # controls: the same check must refuse a served run whose prefill
+    # attention is wrong
+    t0 = time.perf_counter()
+    controls = {}
+    for name, stand_in in CONTROLS.items():
+        with attention_replaced(stand_in):
+            ctokens, clogits = server.generate(prompts, max_new_tokens=SERVE_NEW,
+                                               return_logits=True)
+            controls[name] = teacher_forced(model, ctokens, clogits)
+        del clogits
+        refused = controls[name]["served"]["bad"] + controls[name]["sequence"]["bad"]
+        check(refused > 0, f"the teacher-forced check passed a served run with {name} attention")
+    phase("lm controls", t0, json.dumps(controls))
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -844,7 +927,7 @@ def lm_serving(args, device, gpu: str) -> dict:
                           "per_decode_step": step_events},
         "prefill_flops": pf_flops, "prefill_bound_s": pf_bound_s, "weight_bytes": weight_bytes,
         "cache_bytes": cache_bytes, "decode_step_bound_s": step_bound_s,
-        "teacher_forced_max_abs_err": tf_err, "teacher_forced_argmax_agreement": agree,
+        "teacher_forced": tf, "controls": controls,
     }
     for line in (f"prefill seconds {stats['prefill_s']:.4f}",
                  f"time to first token {stats['first_token_s']:.4f} s",
@@ -953,14 +1036,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--records", type=int, default=11_000_000)
-    ap.add_argument("--paths", default="rsp,lm",
-                    help="paths to drive, comma-separated: rsp (the RSP main path), lm (serving)")
     ap.add_argument("--out", default=None, help="directory for the build log and JSON")
     args = ap.parse_args()
-    paths = set(args.paths.split(","))
-    if not paths or paths - {"rsp", "lm"}:
-        print(f"chip_smoke: --paths takes rsp and/or lm, got {args.paths!r}", file=sys.stderr)
-        return 2
     if args.records % (BLOCKS * BLOCKS):
         print(f"chip_smoke: --records must be a multiple of {BLOCKS * BLOCKS}", file=sys.stderr)
         return 2
@@ -995,24 +1072,20 @@ def main() -> int:
         if "registers" in line or "error" in line.lower():
             print(f"  ptxas: {line.strip()}")
 
-    errs = {}
-    if "rsp" in paths:
-        t0 = time.perf_counter()
-        errs = parity(args, device)
-        phase("parity", t0, json.dumps(errs))
-    if "lm" in paths:
-        t0 = time.perf_counter()
-        errs["flash_attention"] = flash_parity(args, device)
-        phase("flash parity", t0, f"max |kernel - plain| {errs['flash_attention']:.3g}")
+    t0 = time.perf_counter()
+    errs = parity(args, device)
+    phase("parity", t0, json.dumps(errs))
+    t0 = time.perf_counter()
+    errs["flash_attention"] = flash_parity(args, device)
+    phase("flash parity", t0, f"max |kernel - plain| {errs['flash_attention']:.3g}")
 
-    path = main_path(args, device) if "rsp" in paths else None
-    lm = lm_serving(args, device, gpu) if "lm" in paths else None
+    path = main_path(args, device)
+    lm = lm_serving(args, device, gpu)
 
     t0 = time.perf_counter()
-    tm = times(args, device) if "rsp" in paths else {}
-    if "lm" in paths:
-        tm["flash_attention"] = flash_times(args, device)
-        print(f"flash_attention times: {json.dumps(tm['flash_attention'])} [{gpu}]", flush=True)
+    tm = times(args, device)
+    tm["flash_attention"] = flash_times(args, device)
+    print(f"flash_attention times: {json.dumps(tm['flash_attention'])} [{gpu}]", flush=True)
     phase("times", t0)
 
     replaces = {
@@ -1021,12 +1094,8 @@ def main() -> int:
         "plan_sketch": "src/repro/kernels/plan/kernel.py:129",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
     }
-    launches = {}
-    if path:
-        launches.update({k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch",
-                                                         "plan_sketch")})
-    if lm:
-        launches["flash_attention"] = lm["counts"]["flash_attention"]
+    launches = {k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch", "plan_sketch")}
+    launches["flash_attention"] = lm["counts"]["flash_attention"]
     record = {"kernels": [
         {
             "name": name,
@@ -1043,21 +1112,18 @@ def main() -> int:
             "device_ms": tm[name]["device_ms"],
             "shape": tm[name]["shape"],
         }
-        for name in replaces if name in launches
+        for name in replaces
     ]}
-    if path:
-        print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
-    if lm:
-        print(f"serving: {json.dumps({k: v for k, v in lm.items() if k != 'counts'})}",
-              flush=True)
+    print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
+    print(f"serving: {json.dumps({k: v for k, v in lm.items() if k != 'counts'})}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "build.log").write_text(_cuda.build_log())
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"kernels": record["kernels"], "plan_sketch_where": tm.get("plan_sketch_where"),
-             "end_to_end": path and path["e2e"], "serving": lm, "gpu": gpu},
+            {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
+             "end_to_end": path["e2e"], "serving": lm, "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

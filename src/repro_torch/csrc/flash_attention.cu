@@ -25,7 +25,9 @@
 //    tensor cores with mma.sync.m16n8k16 (bf16 in, float32 accumulate);
 //    the S accumulators are rescaled, masked and exponentiated in
 //    registers and repacked as the A fragments of P V without a trip
-//    through shared memory.  P enters the second product in bf16.
+//    through shared memory.  P enters the second product in bf16 (the
+//    reference keeps it in float32), and the running sum l adds up that
+//    rounded P, so numerator and denominator weigh V alike.
 //  * float32: no tensor-core path keeps float32 exact, so 256 threads,
 //    four per query row, compute scores and the accumulator with FMAs from
 //    shared memory (rows padded by one word so no load conflicts).
@@ -79,6 +81,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -180,13 +186,15 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Args a) {
     const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
+    // P is rounded to bf16 here, once: the row sums l add up the same
+    // weights that P V multiplies, so the normalised weights sum to one
     float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      sacc[n][0] = exp2f(sacc[n][0] - mn_a);
-      sacc[n][1] = exp2f(sacc[n][1] - mn_a);
-      sacc[n][2] = exp2f(sacc[n][2] - mn_b);
-      sacc[n][3] = exp2f(sacc[n][3] - mn_b);
+      sacc[n][0] = round_bf16(exp2f(sacc[n][0] - mn_a));
+      sacc[n][1] = round_bf16(exp2f(sacc[n][1] - mn_a));
+      sacc[n][2] = round_bf16(exp2f(sacc[n][2] - mn_b));
+      sacc[n][3] = round_bf16(exp2f(sacc[n][3] - mn_b));
       ps_a += sacc[n][0] + sacc[n][1];
       ps_b += sacc[n][2] + sacc[n][3];
     }

@@ -17,19 +17,19 @@ def model_specs(cfg: ModelConfig):
     return transformer.model_specs(cfg)
 
 
-def make_prefill_fn(model: DenseLM, *, attn_impl: str = "auto"):
+def make_prefill_fn(model: DenseLM):
     """Prefill: run the whole prompt, return (last-token logits [B, 1, V],
     caches).  Only the last position is unembedded: the reference computes
     every position's logits and keeps the last."""
     def f(caches, batch):
-        h, new_caches = model.hidden(batch["tokens"], caches=caches, attn_impl=attn_impl)
+        h, new_caches = model.hidden(batch["tokens"], caches=caches)
         return model.logits(h[:, -1:]), new_caches
 
     return f
 
 
-def make_decode_fn(model: DenseLM, *, attn_impl: str = "auto"):
+def make_decode_fn(model: DenseLM):
     def f(caches, batch):
-        return transformer.decode_step(model, caches, batch["tokens"], attn_impl=attn_impl)
+        return transformer.decode_step(model, caches, batch["tokens"])
 
     return f

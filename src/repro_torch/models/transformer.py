@@ -193,8 +193,8 @@ class DenseLM(nn.Module):
         table = self.embed if self.cfg.tie_embeddings else self.unembed
         return unembed_logits(table, h)
 
-    def forward(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
-        h, new_caches = self.hidden(tokens, caches=caches, attn_impl=attn_impl)
+    def forward(self, tokens: torch.Tensor, *, caches: Any = None):
+        h, new_caches = self.hidden(tokens, caches=caches)
         return self.logits(h), new_caches
 
 
@@ -202,10 +202,9 @@ class DenseLM(nn.Module):
 # Top-level forward / decode (the reference's function names)
 # ===========================================================================
 
-def forward_lm(model: DenseLM, tokens: torch.Tensor, *, caches: Any = None,
-               attn_impl: str = "auto"):
+def forward_lm(model: DenseLM, tokens: torch.Tensor, *, caches: Any = None):
     """Returns (logits [B, S, vocab] bf16, new_caches, aux loss 0)."""
-    logits, new_caches = model(tokens, caches=caches, attn_impl=attn_impl)
+    logits, new_caches = model(tokens, caches=caches)
     return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
 
 
@@ -225,7 +224,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16
     }
 
 
-def decode_step(model: DenseLM, caches, tokens: torch.Tensor, *, attn_impl: str = "auto"):
+def decode_step(model: DenseLM, caches, tokens: torch.Tensor):
     """One serve step: tokens [B, 1] -> (logits [B, 1, V], new_caches)."""
-    logits, new_caches = model(tokens, caches=caches, attn_impl=attn_impl)
+    logits, new_caches = model(tokens, caches=caches)
     return logits, new_caches
