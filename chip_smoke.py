@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths once on one NVIDIA card: the
-RSP main path and dense LM serving.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
+main path, dense LM serving and zamba2 hybrid serving.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds:
 
-1. build     -- compile the four CUDA kernels (``src/repro_torch/csrc``) with
+1. build     -- compile the five CUDA kernels (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
                 ``build/``;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
@@ -17,8 +17,13 @@ Phases, one line each with its seconds:
                 flash_attention within 2e-2 in bf16 and 2e-5 in float32
                 (the reference's own tolerances) at llama3.2-1b's prefill
                 shape in the serve path's strided layout, qwen2-0.5b's,
-                qwen3-14b's and granite-20b's heads, a ragged S and a
-                non-causal case;
+                qwen3-14b's and granite-20b's heads, a ragged S, a
+                non-causal case and zamba2-7b's shared block (D = 112);
+                mamba2_ssd's y and h_final within 2e-4 (1 + |plain|) at
+                zamba2-7b's prefill shape, with weak decay (dA in
+                [-1e-3, 0]: the state crosses all 16 chunks), with
+                dA = -30, at a ragged L from an initial state, and at
+                B = 1;
 3. main path -- a class-sorted HIGGS-shaped corpus (N x 29 float32, label in
                 the last column) partitioned into K blocks on the card by the
                 ``cuda`` backend (checked bit for bit against the plain
@@ -36,8 +41,9 @@ Phases, one line each with its seconds:
                 of back-to-back calls (the wrapper as the query path calls
                 it, so host work that outlasts the kernel shows) beside its
                 plain version, its bound and (for the shuffle)
-                ``index_select``; and ``device_ms``, the device's busy time
-                per call from ``torch.profiler``.  plan_sketch is timed on
+                ``index_select``; and ``device_ms``, the kernels' own device
+                time per call from ``torch.profiler``'s events of them, with
+                the count of launches it saw.  plan_sketch is timed on
                 query (c)'s grouped plan, which carries most of its main-path
                 launches, and on query (b)'s plan on a line of its own; a
                 plan's bound reads only the 32-byte sectors of the columns
@@ -60,7 +66,21 @@ Phases, one line each with its seconds:
                 memory and the device's idle share of one generate
                 (``torch.profiler``) are printed beside the card; the flash
                 kernel is timed at the prefill shape beside its bound, its
-                plain version and ``scaled_dot_product_attention``.
+                plain version and ``scaled_dot_product_attention``;
+7. hybrid    -- zamba2-7b at full width and depth (81 Mamba2 layers, 14
+                invocations of the shared block, d_model 3584, vocab
+                32,000; random weights from the seed), after the llama
+                models are freed: ``Server.generate`` of 8 prompts of 2048
+                tokens, 32 new tokens, greedy (81 mamba2_ssd and 14 flash
+                launches), checked by teacher forcing through the plain
+                SSD and the plain attention, and layer by layer (each
+                block's attention or mixer output and SSM state from the
+                same input through the kernels and the plain versions);
+                the same checks run on two served runs with a known-wrong
+                SSD (state not carried across chunks, h_final zeroed) must
+                refuse both, which the layer-by-layer part does; its
+                numbers as for llama; the SSD kernel and flash at D = 112
+                are timed at their serving shapes.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
@@ -366,13 +386,24 @@ def summary_probe(block) -> dict:
     return out
 
 
+def device_events(prof) -> list[tuple[str, float, float]]:
+    """(name, start us, duration us) of every device event -- kernels, fills
+    and copies -- a finished ``torch.profiler`` session saw.  The raw Kineto
+    events: prof.events() would parse them into a Python event tree first,
+    which takes minutes for a generate's ~10^5 events."""
+    from torch.autograd import DeviceType
+
+    return [(evt.name(), evt.start_ns() / 1e3, evt.duration_ns() / 1e3)
+            for evt in prof.profiler.kineto_results.events()
+            if evt.device_type() == DeviceType.CUDA]
+
+
 def profiled(fn) -> tuple[float, float | None, dict, int]:
     """Run ``fn()`` under ``torch.profiler``: (wall seconds, seconds in the
     union of the device's busy intervals -- kernels, fills and copies -- or
     None when the profiler saw no device event, device seconds by name,
     number of device events)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -381,15 +412,11 @@ def profiled(fn) -> tuple[float, float | None, dict, int]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the raw Kineto events: prof.events() would parse them into a Python
-    # event tree first, which takes minutes for a generate's ~10^5 events
+    events = device_events(prof)
     spans, by_name = [], {}
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() != DeviceType.CUDA:
-            continue
-        start, dur = evt.start_ns() / 1e3, evt.duration_ns() / 1e3
+    for name, start, dur in events:
         spans.append((start, start + dur))
-        by_name[evt.name()] = by_name.get(evt.name(), 0.0) + dur / 1e6
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e6
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
@@ -437,16 +464,44 @@ def host_profile(ds, aggs, kw, top: int = 10) -> dict:
     }
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """Device-busy milliseconds per call of ``fn(i)``, i = 0 .. reps-1 (the
-    host's launch overhead between calls left out), or None when the
-    profiler saw no device event."""
-    def run():
-        for i in range(reps):
-            fn(i)
+PROFILER_WARMUP = 64   # device events launched before a device_ms window
+PROFILER_SESSIONS = 3  # device_ms profiles again while launches go unseen
 
-    _, busy, _, _ = profiled(run)
-    return None if busy is None else busy / reps * 1e3
+
+def device_ms(fn, reps: int, *kernels: str) -> dict:
+    """The kernels' own device time per call: ``fn(i)``, i = 0 .. reps-1,
+    back to back under ``torch.profiler``, and the durations of the device
+    events whose names hold one of ``kernels`` (the wrapper's launches),
+    summed and divided by ``reps``.  The profiler misses the device events
+    of a session's first moments (on the H100: the first 11 to all of 64
+    small fills, in some sessions every event), so PROFILER_WARMUP fills
+    and a 50 ms pause go first, and a session that missed a launch is run
+    again, up to PROFILER_SESSIONS in all.  ``seen`` counts each kernel's
+    events and ``warmup_seen`` the fills' in the last session; ``ms`` is
+    None unless it saw every launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(1, dtype=torch.int16, device="cuda")    # no wrapper fills int16
+    for session in range(1, PROFILER_SESSIONS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_WARMUP):
+                scratch.fill_(0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        seen = {k: sum(1 for name, _, _ in events if k in name) for k in kernels}
+        if all(n == reps for n in seen.values()):
+            break
+    total = sum(dur for name, _, dur in events if any(k in name for k in kernels))
+    return {"ms": total / reps / 1e3 if all(n == reps for n in seen.values()) else None,
+            "seen": seen, "launched": reps, "sessions": session,
+            "warmup_seen": sum(1 for name, _, _ in events if "FillFunctor<short>" in name),
+            "warmup_launched": PROFILER_WARMUP}
 
 
 def main_path(args, device) -> dict:
@@ -607,7 +662,8 @@ def times(args, device) -> dict:
         "ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), reps=5),
         "plain_ms": time_cuda(lambda i: rsp_shuffle_plain(x, tp, ip, tile_rows=delta), reps=5),
         "library_ms": time_cuda(lambda i: xf.index_select(0, flat), reps=5),
-        "device_ms": device_ms(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), 5),
+        "device_ms": device_ms(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), 5,
+                               "rsp_shuffle_kernel"),
         "bound_ms": b, "bound_by": by, "shape": f"[{P}, {R}, {F}] f32, tile {delta}, one launch",
     }
     del x, xf, flat, tp, ip
@@ -626,7 +682,8 @@ def times(args, device) -> dict:
         "plain_ms": time_cuda(lambda i: block_sketch_plain(blks[i % 8], lo, invw, bins=BINS),
                               reps=REPS),
         "device_ms": device_ms(
-            lambda i: block_sketch_cuda(blks[i % 8], lo, invw, bins=BINS), REPS),
+            lambda i: block_sketch_cuda(blks[i % 8], lo, invw, bins=BINS), REPS,
+            "block_sketch_partial", "sketch_finalize"),
         "library_ms": None, "bound_ms": b, "bound_by": by,
         "shape": f"[{n}, {F}] f32, bins {BINS}",
     }
@@ -649,7 +706,8 @@ def times(args, device) -> dict:
             "plain_ms": time_cuda(
                 lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0), reps=REPS),
             "device_ms": device_ms(
-                lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0), REPS),
+                lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0), REPS,
+                "plan_sketch_partial", "sketch_finalize"),
             "library_ms": None, "bound_ms": b, "bound_by": by, "bound_read_bytes": read,
             "shape": shape,
         }
@@ -678,6 +736,15 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # tests/test_kernels.py:53
 # teacher-forced logits against the served ones: the reference's own
 # decode-vs-forward tolerance (tests/test_models_smoke.py), |a - b| <= 8e-2 (1 + |b|)
 TF_TOL = 8e-2
+# zamba2-7b's logits are ~1 (llama3.2-1b's ~45), so TF_TOL (1 + |b|) is ~0.1
+# there, and 95 blocks of bf16 rounding carry float32-level differences to
+# rare logits beyond it.  The hybrid's check allows these shares of them, set
+# just above what runs with no kernel at all put beyond it on the H100: 2 of
+# 8.19M served logits (served through the plain versions) and 0 of 532M
+# every-position ones (the plain scan at chunk 64 against 128); the sound run
+# had 1 and 7.  The SSD controls stay inside these shares too: the
+# layer-by-layer check is what refuses them.
+TF_RATE = {"served": 3e-7, "sequence": 3e-8}
 FLASH_CASES = {
     # name: (B, H, Hkv, S, D, causal, strided as the serve path lays it out)
     "llama3.2-1b prefill": (8, 32, 8, 2048, 64, True, True),
@@ -686,6 +753,7 @@ FLASH_CASES = {
     "granite-20b MQA": (2, 48, 1, 1024, 128, True, False),
     "ragged S": (2, 32, 8, 1000, 64, True, True),
     "non-causal": (4, 32, 8, 512, 128, False, False),
+    "zamba2-7b shared block": (8, 32, 32, 2048, 112, True, True),
 }
 
 
@@ -733,6 +801,99 @@ def flash_parity(args, device) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# The zamba2 hybrid: the mamba2_ssd kernel, zamba2-7b at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-7b"
+HY_BATCH, HY_PROMPT, HY_NEW = 8, 2048, 32
+SSD_TOL = 2e-4    # tests/test_kernels.py:122, held as |a - b| <= tol (1 + |b|)
+SSD_CASES = {
+    # name: (B, L, H, decay, h0); P = N = 64, the kernel's chunk 128
+    "zamba2-7b prefill": (8, 2048, 112, "softplus", False),
+    "weak decay, dA in [-1e-3, 0]": (2, 2048, 112, "weak", False),
+    "strong decay, dA = -30": (2, 1024, 112, "strong", False),
+    "ragged L = 2080, from h0": (2, 2080, 112, "softplus", True),
+    "B = 1": (1, 2048, 112, "softplus", False),
+}
+
+
+def ssd_inputs(B, L, H, decay, device, seed, with_h0=False):
+    """xbar [B, L, H, 64], dA [B, L, H] (<= 0), B and C [B, L, 64] and,
+    with ``with_h0``, h0 [B, H, 64, 64], float32 on the card."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, L, H, 64), generator=g, device=device)
+    if decay == "weak":
+        # the state sums L nearly undecayed steps: xbar / sqrt(L) keeps it
+        # O(1), as in the reference's own cases (tests/test_kernels.py); at
+        # unit scale y reaches ~1e3 by cancellation, where any two float32
+        # scans differ by more than the absolute 2e-4 (both the kernel and
+        # the plain version are 3e-4 to 5e-4 from a float64 recurrence)
+        x = x * L ** -0.5
+        dA = -1e-3 * torch.rand((B, L, H), generator=g, device=device)
+    elif decay == "strong":
+        dA = torch.full((B, L, H), -30.0, device=device)
+    else:   # the served model's scale: -softplus(normal)
+        dA = -torch.nn.functional.softplus(torch.randn((B, L, H), generator=g, device=device))
+    Bm = torch.randn((B, L, 64), generator=g, device=device)
+    Cm = torch.randn((B, L, 64), generator=g, device=device)
+    h0 = torch.randn((B, H, 64, 64), generator=g, device=device) if with_h0 else None
+    return (x, dA, Bm, Cm), h0
+
+
+def ssd_parity(args, device) -> float:
+    """The SSD kernel (through ``ops.ssd``, which pads a ragged L) against
+    its plain chunked version at every case, y and h_final; returns the
+    largest absolute deviation."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import ssd
+
+    worst = 0.0
+    for i, (name, (B, L, H, decay, with_h0)) in enumerate(SSD_CASES.items()):
+        arrays, h0 = ssd_inputs(B, L, H, decay, device, args.seed + 100 + i, with_h0)
+        got = ssd(*arrays, chunk=128, h0=h0, impl="cuda")
+        want = ssd(*arrays, chunk=128, h0=h0, impl="torch")
+        torch.cuda.synchronize()
+        for part, a, b in (("y", got[0], want[0]), ("h_final", got[1], want[1])):
+            check(a.shape == b.shape, f"ssd {name} {part}: shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"ssd {name} {part}: non-finite output")
+            diff = (a - b).abs()
+            bad = int((diff > SSD_TOL * (1 + b.abs())).sum())
+            check(bad == 0, f"ssd {name} {part}: {bad} values beyond {SSD_TOL} (1 + |b|)"
+                  f" (largest deviation {float(diff.max()):.3g})")
+            worst = max(worst, float(diff.max()))
+            print(f"  ssd {name} {part}: max |kernel - plain| {float(diff.max()):.3g},"
+                  f" max |plain| {float(b.abs().max()):.3g}", flush=True)
+        if decay == "weak":
+            # the case has the power to see a scan that drops the carry
+            cut, _ = _no_carry(*arrays, 128, None)
+            far = int(((cut - want[0]).abs() > SSD_TOL * (1 + want[0].abs())).sum())
+            print(f"  ssd {name}: the state not carried across chunks puts {far} of"
+                  f" {cut.numel()} values of y beyond the tolerance", flush=True)
+            check(far > 0, f"ssd {name}: a scan without the inter-chunk carry passes")
+            del cut
+        del arrays, h0, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ssd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
+    """(operations, bytes) of one SSD scan: per batch row and chunk C B^T's
+    causal half (B and C are shared by all heads), then per chunk and head
+    the causal half of the intra-chunk product, the inter-chunk term and the
+    state update (2 operations a multiply-add); xbar, dA, B and C read once,
+    y and h_final written once."""
+    nc = -(-L // Q)
+    tri = Q * (Q + 1) // 2
+    per_head = tri * P + Q * N * P + Q * P * N
+    ops = 2 * B * nc * (tri * N + H * per_head)
+    nbytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N + B * H * P * N)
+    return ops, nbytes
+
+
 def prefill_flops(cfg, batch: int, seq: int) -> int:
     """Operations of a prefill to last-position logits: every projection
     (2 per multiply-add) over every token, causal attention over the
@@ -754,9 +915,23 @@ def logit_deviation(got, want) -> dict:
             "logits": diff.numel()}
 
 
-def teacher_forced(model, tokens, step_logits, chunk: int = 256) -> dict:
+def compare_hidden(model, h_a, h_b, chunk: int = 256) -> dict:
+    """The logits of hidden states ``h_a`` against those of ``h_b`` at every
+    position, ``chunk`` positions at a time, as ``logit_deviation`` counts
+    them."""
+    parts = [logit_deviation(model.logits(h_a[:, i:i + chunk]), model.logits(h_b[:, i:i + chunk]))
+             for i in range(0, h_a.shape[1], chunk)]
+    n = sum(p["logits"] for p in parts)
+    return {"bad": sum(p["bad"] for p in parts),
+            "max_abs_err": max(p["max_abs_err"] for p in parts),
+            "argmax_agreement": sum(p["argmax_agreement"] * p["logits"] for p in parts) / n,
+            "logits": n}
+
+
+def teacher_forced(model, tokens, step_logits, plain: dict | None = None) -> dict:
     """The served sequence ``tokens`` [B, P + new] fed through ``model``
-    with the plain attention on the card.  ``served``: its logits at
+    with the plain versions of its kernels on the card (``plain``: the
+    ``hidden`` arguments that select them; the attention's by default).  ``served``: its logits at
     positions P-1 .. P+new-2 against ``step_logits``, the ones that chose
     the new tokens.  ``sequence``: its logits at every position against the
     same sequence through the model's own attention (the kernel on the
@@ -768,17 +943,10 @@ def teacher_forced(model, tokens, step_logits, chunk: int = 256) -> dict:
     seq = torch.as_tensor(tokens, device=step_logits.device, dtype=torch.int64)[:, :-1]
     start = seq.shape[1] - step_logits.shape[1] + 1
     with torch.no_grad():
-        h_plain, _ = model.hidden(seq, attn_impl="torch")
+        h_plain, _ = model.hidden(seq, **(plain or {"attn_impl": "torch"}))
         h_model, _ = model.hidden(seq)
         served = logit_deviation(model.logits(h_plain[:, start - 1:]), step_logits)
-        parts = [logit_deviation(model.logits(h_model[:, i:i + chunk]),
-                                 model.logits(h_plain[:, i:i + chunk]))
-                 for i in range(0, seq.shape[1], chunk)]
-    n = sum(p["logits"] for p in parts)
-    sequence = {"bad": sum(p["bad"] for p in parts),
-                "max_abs_err": max(p["max_abs_err"] for p in parts),
-                "argmax_agreement": sum(p["argmax_agreement"] * p["logits"] for p in parts) / n,
-                "logits": n}
+        sequence = compare_hidden(model, h_model, h_plain)
     return {"served": served, "sequence": sequence}
 
 
@@ -989,16 +1157,321 @@ def lm_serving(args, device, gpu: str) -> dict:
             "ensemble": dict(estats, tokens_per_s=ens_tps)}
 
 
-def flash_times(args, device) -> dict:
-    """The flash kernel at llama3.2-1b's prefill shape, bf16, causal, in the
-    serve path's layout, beside its bound, its plain version and one
+def hybrid_prefill_flops(cfg, batch: int, seq: int) -> int:
+    """bf16 operations of a hybrid prefill to last-position logits: every
+    projection of the shared block's invocations and of the Mamba2 layers
+    (the float32 dt projection included) over every token, causal attention
+    over the prompt's pairs, and the last position's unembedding.  The SSD
+    scans' float32 operations are counted apart (``ssd_work``)."""
+    from repro_torch.models.transformer import hybrid_layout
+
+    d, dh, m = cfg.d_model, cfg.resolved_head_dim, cfg.mamba_config()
+    full, _, rem = hybrid_layout(cfg)
+    inv = full + (1 if rem else 0)
+    shared = 2 * d * d + d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff
+    mamba = d * (2 * m.d_inner + 2 * m.d_state + m.num_heads) + m.d_inner * d
+    attn = 4 * cfg.num_heads * dh * seq * (seq + 1) // 2 * batch
+    tokens = batch * seq
+    return (inv * (2 * shared * tokens + attn) + cfg.num_layers * 2 * mamba * tokens
+            + 2 * batch * d * cfg.vocab_size)
+
+
+@contextlib.contextmanager
+def ssd_replaced(stand_in):
+    """Serve with ``stand_in(xbar, dA, Bm, Cm, chunk, h0)`` in place of the
+    SSD kernel; the plain scan (``impl="torch"``) stays the yardstick."""
+    from repro_torch.models import mamba2
+
+    real = mamba2.ssd
+
+    def patched(xbar, dA, Bm, Cm, *, chunk, h0=None, impl="auto"):
+        if impl == "torch":
+            return real(xbar, dA, Bm, Cm, chunk=chunk, h0=h0, impl=impl)
+        return stand_in(xbar, dA, Bm, Cm, chunk, h0)
+
+    mamba2.ssd = patched
+    try:
+        yield
+    finally:
+        mamba2.ssd = real
+
+
+def _no_carry(xbar, dA, Bm, Cm, chunk, h0):
+    """Every chunk from a zero state: the chunks go through the kernel as
+    batch rows of their own; h_final is the last chunk's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba2_ssd import ssd
+
+    B, L, H, P = xbar.shape
+    pad = (-L) % chunk
+    padded = [F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (xbar, dA, Bm, Cm)]
+    nc = (L + pad) // chunk
+    rows = [t.reshape(B * nc, chunk, *t.shape[2:]).contiguous() for t in padded]
+    y, h = ssd(*rows, chunk=chunk, impl="cuda")
+    return y.reshape(B, L + pad, H, P)[:, :L], h.reshape(B, nc, *h.shape[1:])[:, -1]
+
+
+def _zero_state(xbar, dA, Bm, Cm, chunk, h0):
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import ssd
+
+    y, h = ssd(xbar, dA, Bm, Cm, chunk=chunk, h0=h0, impl="cuda")
+    return y, torch.zeros_like(h)
+
+
+LAYER_TOL = 2e-2   # bf16 outputs: tests/test_torch_models.py's tolerance, a few ulps
+
+
+def _tally(out: dict, name: str, got, want, tol: float) -> None:
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > tol * (1 + want.float().abs())).sum())
+    t = out.setdefault(name, {"bad": 0, "max_abs_err": 0.0, "values": 0, "tolerance": tol})
+    t["bad"] += bad
+    t["max_abs_err"] = max(t["max_abs_err"], float(diff.max()))
+    t["values"] += diff.numel()
+
+
+def layer_by_layer(model, tokens) -> dict:
+    """Each block of the hybrid fed its input from a pass through the plain
+    versions (forward pre-hooks on the blocks), and run from that input once
+    through its kernels (``impl="auto"``) and once through the plain
+    versions: the shared block's attention output and each Mamba2 mixer's
+    output held to LAYER_TOL (1 + |b|), each mixer's final SSM state (what
+    decode starts from) to SSD_TOL (1 + |b|).  Blocks see the same input on
+    both sides, so no rounding is carried from one block to the next.  The
+    blocks' outputs are not compared: the random model's residual stream
+    grows to ~2e3 at depth, where h + z cancels to values near 0 whose
+    summands' ulps are 4-8."""
+    import torch
+
+    from repro_torch.models import mamba2
+
+    seq = torch.as_tensor(tokens, device=model.embed.table.device, dtype=torch.int64)[:, :-1]
+    out: dict = {}
+
+    def shared_block(block, args, kwargs):
+        h, x_emb, positions = args[:3]
+        got, want = (block.attend(h, x_emb, positions, attn_impl=impl)[1]
+                     for impl in ("auto", "torch"))
+        _tally(out, "shared block attention output", got, want, LAYER_TOL)
+
+    def mamba_layer(layer, args, kwargs):
+        h = args[0]
+        res = {impl: layer.mix(h, mamba2.init_mamba_state(layer.mcfg, h.shape[0], torch.float32,
+                                                          h.device), ssd_impl=impl)
+               for impl in ("auto", "torch")}
+        _tally(out, "mamba2 mixer output", res["auto"][0], res["torch"][0], LAYER_TOL)
+        _tally(out, "mamba2 final state", res["auto"][1]["ssm"], res["torch"][1]["ssm"],
+               SSD_TOL)
+
+    hooks = [model.shared.register_forward_pre_hook(shared_block, with_kwargs=True)]
+    hooks += [layer.register_forward_pre_hook(mamba_layer, with_kwargs=True)
+              for layer in model.layers]
+    try:
+        with torch.no_grad():
+            model.hidden(seq, attn_impl="torch", ssd_impl="torch")
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return out
+
+
+# known-wrong SSD scans the teacher-forced check must refuse
+SSD_CONTROLS = {"state not carried across chunks": _no_carry, "h_final zeroed": _zero_state}
+
+
+def hybrid_serving(args, device, gpu: str) -> dict:
+    """Serve zamba2-7b at full width and depth through Server."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.transformer import HybridLM, hybrid_layout, init_caches
+    from repro_torch.serve import Server
+
+    cfg = ARCHS[HYBRID_ARCH]
+    m = cfg.mamba_config()
+    full, _, rem = hybrid_layout(cfg)
+    inv = full + (1 if rem else 0)
+    rng = np.random.default_rng(args.seed + 7)
+    t0 = time.perf_counter()
+    model = HybridLM(cfg, device=device, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = 4 * n_params
+    T = HY_PROMPT + HY_NEW
+    kv_bytes = 2 * inv * HY_BATCH * cfg.num_kv_heads * T * cfg.resolved_head_dim * 4
+    ssm_bytes = cfg.num_layers * HY_BATCH * m.num_heads * m.head_dim * m.d_state * 4
+    conv_bytes = cfg.num_layers * HY_BATCH * (m.conv_kernel - 1) * (m.d_inner + 2 * m.d_state) * 4
+    phase("hybrid model", t0, f"{cfg.name}: {n_params:,} float32 parameters"
+          f" ({weight_bytes / 1e9:.3f} GB), seed {args.seed}; float32 KV caches of {inv}"
+          f" invocations {kv_bytes / 1e9:.3f} GB, SSM states of {cfg.num_layers} layers"
+          f" {ssm_bytes / 1e9:.3f} GB, conv windows {conv_bytes / 1e9:.3f} GB")
+    # least times: the prefill's bf16 operations at the tensor-core peak and
+    # the SSD scans' float32 operations at the FMA peak; a decode step reads
+    # every weight and the KV caches, and reads and writes the states
+    pf_flops = hybrid_prefill_flops(cfg, HY_BATCH, HY_PROMPT)
+    ssd_ops, _ = ssd_work(HY_BATCH, HY_PROMPT, m.num_heads)
+    pf_bound_s = pf_flops / BF16_OPS_PER_S + cfg.num_layers * ssd_ops / FP32_OPS_PER_S
+    step_bytes = weight_bytes + kv_bytes + 2 * (ssm_bytes + conv_bytes)
+    step_bound_s = step_bytes / HBM_BYTES_PER_S
+    print(f"serve {cfg.name} bounds: prefill {pf_flops / 1e12:.2f} TFLOP bf16"
+          f" ({pf_flops / BF16_OPS_PER_S:.4f} s at the bf16 peak) and"
+          f" {cfg.num_layers} x {ssd_ops / 1e9:.2f} GFLOP float32 SSD"
+          f" ({cfg.num_layers * ssd_ops / FP32_OPS_PER_S:.4f} s), {pf_bound_s:.4f} s in all;"
+          f" decode step {step_bytes / 1e9:.3f} GB, {step_bound_s * 1e3:.3f} ms at"
+          f" {HBM_BYTES_PER_S / 1e12} TB/s, so at most {HY_BATCH / step_bound_s:.0f} tokens/s",
+          flush=True)
+    server = Server(cfg, model, device=device)
+    prompts = rng.integers(0, cfg.vocab_size, (HY_BATCH, HY_PROMPT), np.int32)
+    server.generate(prompts[::-1].copy(), max_new_tokens=2)      # warm-up at the full prompt
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    tokens, step_logits = server.generate(prompts, max_new_tokens=HY_NEW, return_logits=True)
+    counts = kernels.launch_counts()            # the hybrid serving path ends here
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = dict(server.last_stats)
+    phase("hybrid serve", t0, f"Server.generate {HY_BATCH} x {HY_PROMPT} + {HY_NEW};"
+          f" launches {json.dumps(counts)}")
+    check(counts["mamba2_ssd"] == cfg.num_layers,
+          f"Server.generate launched mamba2_ssd {counts['mamba2_ssd']} times, not"
+          f" {cfg.num_layers}")
+    check(counts["flash_attention"] == inv,
+          f"Server.generate launched flash {counts['flash_attention']} times, not {inv}")
+    check(tokens.shape == (HY_BATCH, HY_PROMPT + HY_NEW), f"tokens {tokens.shape}")
+    check(bool((tokens[:, :HY_PROMPT] == prompts).all()), "the prompts came back changed")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size, "token ids out of range")
+    check(bool(torch.isfinite(step_logits).all()), "served logits are not finite")
+
+    plain = {"attn_impl": "torch", "ssd_impl": "torch"}
+    t0 = time.perf_counter()
+    tf = teacher_forced(model, tokens, step_logits, plain=plain)
+    phase("hybrid teacher forcing", t0, f"{json.dumps(tf)} (tolerance {TF_TOL} (1 + |b|))")
+    del step_logits
+    t0 = time.perf_counter()
+    layers = layer_by_layer(model, tokens)
+    phase("hybrid layer by layer", t0, json.dumps(layers))
+    for part in ("served", "sequence"):
+        check(tf[part]["bad"] <= TF_RATE[part] * tf[part]["logits"],
+              f"{tf[part]['bad']} of {tf[part]['logits']} {part} logits beyond the"
+              f" teacher-forced tolerance, more than {TF_RATE[part]} of them (largest deviation"
+              f" {tf[part]['max_abs_err']:.4g})")
+    for name, t in layers.items():
+        check(t["bad"] == 0, f"layer by layer: {t['bad']} values of the {name} beyond"
+              f" {t['tolerance']} (1 + |b|) (largest deviation {t['max_abs_err']:.4g})")
+    t0 = time.perf_counter()
+    controls = {}
+    for name, stand_in in SSD_CONTROLS.items():
+        with ssd_replaced(stand_in):
+            ctokens, clogits = server.generate(prompts, max_new_tokens=HY_NEW, return_logits=True)
+            controls[name] = teacher_forced(model, ctokens, clogits, plain=plain)
+            controls[name]["layers"] = layer_by_layer(model, ctokens)
+        del clogits
+        c = controls[name]
+        refused = (any(c[part]["bad"] > TF_RATE[part] * c[part]["logits"]
+                       for part in ("served", "sequence"))
+                   or any(t["bad"] > 0 for t in c["layers"].values()))
+        print(f"  control {name}: {c['served']['bad']} served and {c['sequence']['bad']}"
+              f" sequence logits beyond the tolerance; layer by layer "
+              f"{json.dumps({k: t['bad'] for k, t in c['layers'].items()})} values beyond",
+              flush=True)
+        check(refused, f"the teacher-forced check passed a served run with {name}")
+    phase("hybrid controls", t0, json.dumps(controls))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    wall, busy, by_name, gen_events = profiled(
+        lambda: server.generate(prompts, max_new_tokens=HY_NEW))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    idle = None if busy is None else 1 - busy / wall
+    seq = torch.from_numpy(prompts).to(device=device, dtype=torch.int64)
+    caches = init_caches(cfg, HY_BATCH, T, torch.float32, device)
+    with torch.no_grad():
+        p_wall, p_busy, p_by_name, pf_events = profiled(
+            lambda: api.make_prefill_fn(model)(caches, {"tokens": seq}))
+    del caches, seq
+    step_events = (gen_events - pf_events) / (HY_NEW - 1)
+    p_top = sorted(p_by_name.items(), key=lambda kv: -kv[1])[:8]
+    phase("hybrid profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy"
+          f" {busy} s; one profiled prefill: wall {p_wall:.3f} s, device busy {p_busy} s,"
+          f" top {json.dumps([(n[:60], t) for n, t in p_top])}; device events: generate"
+          f" {gen_events}, prefill {pf_events}, so {step_events:.1f} a decode step")
+    decode_tps = HY_BATCH * (HY_NEW - 1) / stats["decode_s"]
+    serve = {
+        "prefill_s": stats["prefill_s"], "first_token_s": stats["first_token_s"],
+        "decode_s": stats["decode_s"], "decode_tokens_per_s": decode_tps,
+        "total_s": stats["total_s"], "peak_gb": peak_gb, "profiled_wall_s": wall,
+        "device_busy_s": busy, "idle_share": idle,
+        "top": [(name[:60], sec) for name, sec in top],
+        "prefill_profile": {"wall_s": p_wall, "device_busy_s": p_busy,
+                            "top": [(name[:60], sec) for name, sec in p_top]},
+        "device_events": {"generate": gen_events, "prefill": pf_events,
+                          "per_decode_step": step_events},
+        "prefill_flops_bf16": pf_flops, "ssd_flops_per_launch": ssd_ops,
+        "prefill_bound_s": pf_bound_s, "weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
+        "ssm_bytes": ssm_bytes, "decode_step_bytes": step_bytes,
+        "decode_step_bound_s": step_bound_s, "teacher_forced": tf,
+        "layer_by_layer": layers,
+        "controls": controls,
+    }
+    for line in (f"prefill seconds {stats['prefill_s']:.4f}",
+                 f"time to first token {stats['first_token_s']:.4f} s",
+                 f"decode tokens/s {decode_tps:.1f} ({HY_BATCH} x {HY_NEW - 1} tokens"
+                 f" in {stats['decode_s']:.4f} s)",
+                 f"peak device memory {peak_gb:.3f} GB",
+                 f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
+        print(f"serve {cfg.name} {HY_BATCH} x {HY_PROMPT} + {HY_NEW}: {line} [{gpu}]", flush=True)
+    del server, model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "serve": serve}
+
+
+def ssd_times(args, device) -> dict:
+    """The SSD kernel at zamba2-7b's prefill shape beside its bound and its
+    plain version.  No single PyTorch call computes the scan."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import head_tile, ssd_cuda, ssd_plain
+
+    B, L, H, decay, _ = SSD_CASES["zamba2-7b prefill"]
+    arrays, _ = ssd_inputs(B, L, H, decay, device, args.seed)
+    ht = head_tile(B, H, torch.cuda.get_device_properties(device).multi_processor_count)
+    ops, nbytes = ssd_work(B, L, H)
+    b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    out = {
+        "ms": time_cuda(lambda i: ssd_cuda(*arrays), reps=REPS),
+        "plain_ms": time_cuda(lambda i: ssd_plain(*arrays, chunk=128), reps=3),
+        "library_ms": None,
+        "device_ms": device_ms(lambda i: ssd_cuda(*arrays), REPS, "ssd_fwd"),
+        "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "head_tile": ht,
+        "shape": f"xbar [{B}, {L}, {H}, 64], dA [{B}, {L}, {H}], B/C [{B}, {L}, 64] f32,"
+                 f" chunk 128, {H // ht * B} CTAs of {ht} heads",
+    }
+    del arrays
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
+    """The flash kernel at a serve path's prefill shape (llama3.2-1b's, or
+    zamba2-7b's shared block), bf16, causal, in the serve path's layout,
+    beside its bound, its plain version and one
     ``scaled_dot_product_attention`` call on head-expanded K/V."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
-    B, H, Hkv, S, D, causal, strided = FLASH_CASES["llama3.2-1b prefill"]
+    B, H, Hkv, S, D, causal, strided = FLASH_CASES[case]
     q, k, v = flash_inputs(B, H, Hkv, S, D, torch.bfloat16, device, args.seed, strided)
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * B * H * D * pairs
@@ -1012,7 +1485,8 @@ def flash_times(args, device) -> dict:
         "plain_ms": time_cuda(lambda i: flash_attention_plain(q, k, v, causal=causal), reps=3),
         "library_ms": time_cuda(
             lambda i: F.scaled_dot_product_attention(qc, ke, ve, is_causal=causal), reps=REPS),
-        "device_ms": device_ms(lambda i: flash_attention_cuda(q, k, v, causal=causal), REPS),
+        "device_ms": device_ms(lambda i: flash_attention_cuda(q, k, v, causal=causal), REPS,
+                               "fa_fwd_bf16"),
         "bound_ms": b, "bound_by": by, "flops": flops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": flops / BF16_OPS_PER_S * 1e3,
         "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16, causal,"
@@ -1078,14 +1552,23 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["flash_attention"] = flash_parity(args, device)
     phase("flash parity", t0, f"max |kernel - plain| {errs['flash_attention']:.3g}")
+    t0 = time.perf_counter()
+    errs["mamba2_ssd"] = ssd_parity(args, device)
+    phase("ssd parity", t0, f"max |kernel - plain| {errs['mamba2_ssd']:.3g}")
 
     path = main_path(args, device)
     lm = lm_serving(args, device, gpu)
+    hy = hybrid_serving(args, device, gpu)
 
     t0 = time.perf_counter()
     tm = times(args, device)
     tm["flash_attention"] = flash_times(args, device)
     print(f"flash_attention times: {json.dumps(tm['flash_attention'])} [{gpu}]", flush=True)
+    tm["flash_attention_d112"] = flash_times(args, device, "zamba2-7b shared block")
+    print(f"flash_attention times at zamba2-7b's shared block (D = 112):"
+          f" {json.dumps(tm['flash_attention_d112'])} [{gpu}]", flush=True)
+    tm["mamba2_ssd"] = ssd_times(args, device)
+    print(f"mamba2_ssd times: {json.dumps(tm['mamba2_ssd'])} [{gpu}]", flush=True)
     phase("times", t0)
 
     replaces = {
@@ -1093,9 +1576,17 @@ def main() -> int:
         "block_sketch": "src/repro/kernels/block_sketch/kernel.py:82",
         "plan_sketch": "src/repro/kernels/plan/kernel.py:129",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+        "mamba2_ssd": "src/repro/kernels/mamba2_ssd/kernel.py:69",
     }
     launches = {k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch", "plan_sketch")}
+    # flash's row: llama3.2-1b's generate; zamba2-7b's is in launches_by_path
     launches["flash_attention"] = lm["counts"]["flash_attention"]
+    launches["mamba2_ssd"] = hy["counts"]["mamba2_ssd"]
+    by_path = {
+        "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
+                            "zamba2-7b generate": hy["counts"]["flash_attention"]},
+        "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},
+    }
     record = {"kernels": [
         {
             "name": name,
@@ -1109,13 +1600,16 @@ def main() -> int:
             "bound_ms": tm[name]["bound_ms"],
             "bound_by": tm[name]["bound_by"],
             "library_ms": tm[name]["library_ms"],
-            "device_ms": tm[name]["device_ms"],
+            "device_ms": tm[name]["device_ms"]["ms"],
+            "device_ms_seen": {k: v for k, v in tm[name]["device_ms"].items() if k != "ms"},
             "shape": tm[name]["shape"],
+            **({"launches_by_path": by_path[name]} if name in by_path else {}),
         }
         for name in replaces
     ]}
     print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
     print(f"serving: {json.dumps({k: v for k, v in lm.items() if k != 'counts'})}", flush=True)
+    print(f"hybrid serving: {json.dumps(hy['serve'])}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
@@ -1123,7 +1617,8 @@ def main() -> int:
         (out / "build.log").write_text(_cuda.build_log())
         (out / "chip_smoke.json").write_text(json.dumps(
             {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
-             "end_to_end": path["e2e"], "serving": lm, "gpu": gpu},
+             "flash_attention_d112": tm["flash_attention_d112"],
+             "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy, "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Architecture registry of the port: the dense configs it can build, their
+"""Architecture registry of the port: the configs it can build, their
 reduced smoke variants, and the shape cells.
 
 ``ARCHS`` holds the five dense architectures (llama3.2-1b, qwen2-0.5b,
-qwen3-14b, granite-20b, chameleon-34b) at their published widths;
-``smoke_config`` shrinks them exactly as the reference's does.  The MoE,
-hybrid, RWKV and encoder configs come with their families.
+qwen3-14b, granite-20b, chameleon-34b) and the zamba2-7b hybrid at their
+published widths; ``smoke_config`` shrinks them exactly as the
+reference's does.  The MoE, RWKV and encoder configs come with their
+families.
 """
 
 from __future__ import annotations
@@ -17,19 +18,19 @@ from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA32_1B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_05B
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3_14B
 from repro_torch.configs.shapes import SHAPES, ShapeCell
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, CHAMELEON_34B]
+    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, CHAMELEON_34B]
 }
 
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
-    shrink for a dense arch)."""
+    shrink)."""
     cfg = ARCHS[arch]
-    return dataclasses.replace(
-        cfg,
+    shrink: dict = dict(
         num_layers=2,
         d_model=64,
         num_heads=4,
@@ -38,6 +39,10 @@ def smoke_config(arch: str) -> ModelConfig:
         d_ff=96,
         vocab_size=256,
     )
+    if cfg.family == "hybrid":
+        # exercise the epilogue: 5 layers, shared attn every 2 -> 2 rounds + 1
+        shrink.update(num_layers=5, attn_every=2, ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    return dataclasses.replace(cfg, **shrink)
 
 
 __all__ = ["ARCHS", "SHAPES", "ShapeCell", "smoke_config"]

@@ -11,6 +11,12 @@
 // here each CTA owns one (b, h, 64-row query tile) and walks the kv tiles
 // in a loop, with the running state in registers.
 //
+// Head dims 64, 112 (zamba2-7b's shared block: 7 k-steps of m16n8k16 and 14
+// n-tiles of 8 in bf16, 28 columns a thread in float32) and 128.  The
+// reference's wrapper pads D up to a multiple of 128 for the MXU; the
+// tensor cores need only multiples of 16, so no head dim is padded here and
+// no input is copied.
+//
 // Bound on the H100 at the serve path's prefill shape (B 8, H 32, Hkv 8,
 // S 2048, D 64, causal, bf16): operations.  The causal pairs need
 // 4 * B * H * D * S (S + 1) / 2 = 137 GFLOP, 0.139 ms at 989 TFLOP/s on the
@@ -25,9 +31,11 @@
 //    tensor cores with mma.sync.m16n8k16 (bf16 in, float32 accumulate);
 //    the S accumulators are rescaled, masked and exponentiated in
 //    registers and repacked as the A fragments of P V without a trip
-//    through shared memory.  P enters the second product in bf16 (the
-//    reference keeps it in float32), and the running sum l adds up that
-//    rounded P, so numerator and denominator weigh V alike.
+//    through shared memory.  The reference keeps P in float32 for P V; a
+//    bf16 P (2^-9 relative on each weight) moved zamba2-7b's logits by up to
+//    0.1 over its 95 blocks, so P enters P V as two bf16 parts, hi = bf16(P)
+//    and lo = bf16(P - hi), two MMAs that carry P to about 2^-17; the
+//    running sum l adds up the float32 P.
 //  * float32: no tensor-core path keeps float32 exact, so 256 threads,
 //    four per query row, compute scores and the accumulator with FMAs from
 //    shared memory (rows padded by one word so no load conflicts).
@@ -83,8 +91,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -186,15 +198,13 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Args a) {
     const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
-    // P is rounded to bf16 here, once: the row sums l add up the same
-    // weights that P V multiplies, so the normalised weights sum to one
     float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      sacc[n][0] = round_bf16(exp2f(sacc[n][0] - mn_a));
-      sacc[n][1] = round_bf16(exp2f(sacc[n][1] - mn_a));
-      sacc[n][2] = round_bf16(exp2f(sacc[n][2] - mn_b));
-      sacc[n][3] = round_bf16(exp2f(sacc[n][3] - mn_b));
+      sacc[n][0] = exp2f(sacc[n][0] - mn_a);
+      sacc[n][1] = exp2f(sacc[n][1] - mn_a);
+      sacc[n][2] = exp2f(sacc[n][2] - mn_b);
+      sacc[n][3] = exp2f(sacc[n][3] - mn_b);
       ps_a += sacc[n][0] + sacc[n][1];
       ps_b += sacc[n][2] + sacc[n][3];
     }
@@ -209,16 +219,21 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Args a) {
     }
 
     // O += P V: the S accumulators of n-tiles 2j, 2j+1 are the A fragment
-    // of k-step j
+    // of k-step j, as hi and lo parts
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(sacc[2 * j][0], sacc[2 * j][1]), pack_bf16(sacc[2 * j][2], sacc[2 * j][3]),
-          pack_bf16(sacc[2 * j + 1][0], sacc[2 * j + 1][1]),
-          pack_bf16(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};
+      uint32_t ph[4], pl[4];
+      split_bf16(sacc[2 * j][0], sacc[2 * j][1], ph[0], pl[0]);
+      split_bf16(sacc[2 * j][2], sacc[2 * j][3], ph[1], pl[1]);
+      split_bf16(sacc[2 * j + 1][0], sacc[2 * j + 1][1], ph[2], pl[2]);
+      split_bf16(sacc[2 * j + 1][2], sacc[2 * j + 1][3], ph[3], pl[3]);
       const __nv_bfloat16* vr = Vt + g * VS + j * 16 + 2 * t;
 #pragma unroll
-      for (int d = 0; d < DT; ++d) mma_bf16(oacc[d], pa, ld32(vr + d * 8 * VS), ld32(vr + d * 8 * VS + 8));
+      for (int d = 0; d < DT; ++d) {
+        const uint32_t v0 = ld32(vr + d * 8 * VS), v1 = ld32(vr + d * 8 * VS + 8);
+        mma_bf16(oacc[d], ph, v0, v1);
+        mma_bf16(oacc[d], pl, v0, v1);
+      }
     }
   }
 
@@ -351,7 +366,7 @@ extern "C" {
 
 // q [B, H, S, D], k / v [B, Hkv, S, D], o [B, H, S, D], each given by its
 // element strides over (batch, head, row) with the head dim contiguous;
-// dtype 0 = float32, 1 = bfloat16 (all four alike); D in {64, 128};
+// dtype 0 = float32, 1 = bfloat16 (all four alike); D in {64, 112, 128};
 // H % Hkv == 0.  Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                            int B, int H, int Hkv, int S, int D, long long qb, long long qh,
@@ -359,7 +374,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            long long vb, long long vh, long long vs, long long ob, long long oh,
                            long long os, int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535 ||
-      (D != 64 && D != 128) || (dtype != 0 && dtype != 1)) {
+      (D != 64 && D != 112 && D != 128) || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (S <= 0) return (int)cudaSuccess;
@@ -369,14 +384,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const size_t smem = (size_t)(kBlockK * (D + 8) + D * (kBlockK + 8)) * sizeof(__nv_bfloat16);
-    return (int)(D == 64 ? run(fa_fwd_bf16<64>, 128, smem, grid, a, st)
-                         : run(fa_fwd_bf16<128>, 128, smem, grid, a, st));
+    return (int)(D == 64    ? run(fa_fwd_bf16<64>, 128, smem, grid, a, st)
+                 : D == 112 ? run(fa_fwd_bf16<112>, 128, smem, grid, a, st)
+                            : run(fa_fwd_bf16<128>, 128, smem, grid, a, st));
   }
   const size_t smem =
       (size_t)(kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1)) *
       sizeof(float);
-  return (int)(D == 64 ? run(fa_fwd_f32<64>, 256, smem, grid, a, st)
-                       : run(fa_fwd_f32<128>, 256, smem, grid, a, st));
+  return (int)(D == 64    ? run(fa_fwd_f32<64>, 256, smem, grid, a, st)
+               : D == 112 ? run(fa_fwd_f32<112>, 256, smem, grid, a, st)
+                          : run(fa_fwd_f32<128>, 256, smem, grid, a, st));
 }
 
 }  // extern "C"

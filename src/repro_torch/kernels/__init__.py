@@ -7,6 +7,7 @@ version and a launch counter.
   block_sketch   fused per-block moments + histogram
   plan           fused filter / project / group-by sketch
   flash_attention  online-softmax attention with grouped-query heads
+  mamba2_ssd     the Mamba2 SSD chunked scan (zamba2's SSM layers)
 
 Importing this package imports no kernel: the subpackages load the library
 only when a wrapper is called on a CUDA tensor.
@@ -18,11 +19,12 @@ from __future__ import annotations
 def _counters() -> dict:
     from repro_torch.kernels.block_sketch.kernel import LAUNCHES as block_sketch
     from repro_torch.kernels.flash_attention.kernel import LAUNCHES as flash_attention
+    from repro_torch.kernels.mamba2_ssd.kernel import LAUNCHES as mamba2_ssd
     from repro_torch.kernels.plan.kernel import LAUNCHES as plan_sketch
     from repro_torch.kernels.rsp_shuffle.kernel import LAUNCHES as rsp_shuffle
 
     return {"rsp_shuffle": rsp_shuffle, "block_sketch": block_sketch, "plan_sketch": plan_sketch,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd}
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,8 +7,9 @@ running sum and accumulator are float32; the output has q's dtype.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (the
   port of the Pallas ``flash_attention_pallas``) and counts the launch in
   :data:`LAUNCHES`.  It takes CUDA tensors of bfloat16 (tensor cores) or
-  float32 (FMAs), D of 64 or 128, any S, and strided views whose head dim
-  is contiguous, so the grouped layout needs no copy.  The output is laid
+  float32 (FMAs), D of 64, 112 (zamba2-7b's shared block) or 128, any S,
+  and strided views whose head dim is contiguous, so the grouped layout
+  needs no copy.  The output is laid
   out ``[B, S, H, D]`` in memory (returned as its ``[B, H, S, D]`` view),
   so the attention layer's transpose back to ``[B, S, H * D]`` is free.
 * :func:`flash_attention_plain` is the same function in plain PyTorch
@@ -24,7 +25,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref as flash
 
 LAUNCHES = _cuda.LaunchCounter("flash_attention")
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -3,7 +3,8 @@ and decode batched requests on the card; ``--ensemble k`` serves the RSP
 block ensemble (Sec. 9's combination at decode time).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --preset full
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-7b --preset full
+    python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
 
 Prints tokens per second beside the device's name.
 """
@@ -19,7 +20,7 @@ import torch
 from repro_torch.checkpoint import store as ckpt
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import build_lm
 from repro_torch.serve.engine import EnsembleServer, ServeConfig, Server
 
 
@@ -46,10 +47,10 @@ def main(argv=None) -> None:
     k = max(args.ensemble, 1)
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
         state, _ = ckpt.restore(args.ckpt_dir, device=device)
-        models = [DenseLM(cfg, params=state["params"], device=device)] * k
+        models = [build_lm(cfg, state["params"], device=device)] * k
         print(f"restored step {ckpt.latest_step(args.ckpt_dir)} from {args.ckpt_dir}")
     else:
-        models = [DenseLM(cfg, device=device, seed=args.seed + i) for i in range(k)]
+        models = [build_lm(cfg, device=device, seed=args.seed + i) for i in range(k)]
 
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), np.int32)

@@ -1,3 +1,4 @@
 """The model zoo on PyTorch: the dense decoder family (llama, qwen,
 granite, chameleon backbones) with grouped-query attention through the
-flash attention kernel."""
+flash attention kernel, and the zamba2 hybrid (Mamba2 layers through the
+mamba2_ssd kernel, one shared attention block)."""

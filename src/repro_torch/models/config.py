@@ -1,7 +1,8 @@
-"""Model configuration: the fields the dense decoder family reads.
+"""Model configuration: the fields the dense decoder and the zamba2
+hybrid families read.
 
-The reference's MoE, SSM-hybrid, RWKV and encoder fields (and its
-``use_pallas`` switch: here attention takes the kernel whenever its
+The reference's MoE, RWKV and encoder fields (and its ``use_pallas``
+switch: here attention and the SSD scan take their kernels whenever their
 tensors are on the card) come with the families that read them.
 """
 
@@ -10,12 +11,13 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.models.attention import AttentionConfig
+from repro_torch.models.mamba2 import Mamba2Config
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (moe | hybrid | rwkv | encoder not ported yet)
+    family: str                 # dense | hybrid (moe | rwkv | encoder not ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +33,13 @@ class ModelConfig:
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # SSM / hybrid (zamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_kernel: int = 4
+    ssm_chunk: int = 128
+    attn_every: int = 0         # hybrid: shared attn block period
 
     @property
     def resolved_head_dim(self) -> int:
@@ -47,5 +56,16 @@ class ModelConfig:
             rope=self.rope,
             rope_theta=self.rope_theta,
             causal=self.causal,
+            norm_eps=self.norm_eps,
+        )
+
+    def mamba_config(self) -> Mamba2Config:
+        return Mamba2Config(
+            d_model=self.d_model,
+            d_state=self.ssm_state,
+            head_dim=self.ssm_head_dim,
+            expand=self.ssm_expand,
+            conv_kernel=self.conv_kernel,
+            chunk=self.ssm_chunk,
             norm_eps=self.norm_eps,
         )

@@ -1,19 +1,38 @@
-"""The dense decoder LM (llama / qwen / granite / chameleon backbones) as
-``nn.Module``s: embedding, a ``ModuleList`` of pre-norm layers (attention +
-SwiGLU or GELU MLP), final RMS norm and a (tied or separate) unembedding.
+"""The decoder LMs as ``nn.Module``s.
+
+* :class:`DenseLM` (llama / qwen / granite / chameleon backbones):
+  embedding, a ``ModuleList`` of pre-norm layers (attention + SwiGLU or GELU
+  MLP), final RMS norm and a (tied or separate) unembedding.
+* :class:`HybridLM` (zamba2): embedding, then rounds of one invocation of
+  the single shared transformer block -- applied to ``concat(embedding,
+  hidden)`` -- followed by ``attn_every`` pre-norm Mamba2 layers, an
+  epilogue round for the remainder (81 = 13 * 6 + 3), the final RMS norm
+  and the unembedding.
 
 Parameters are float32 and laid out as the reference lays them out, so a
 reference parameter tree -- numpy arrays, layers stacked on the leading
-axis as ``model_specs`` gives them -- loads as it is
-(``DenseLM(cfg, params=tree)``), and fresh weights are drawn at the
-reference's scales from an explicit ``torch.Generator``.
+axis as ``model_specs`` gives them (the hybrid's ``rounds`` twice,
+``[rounds, attn_every, ...]``, its ``epilogue`` once) -- loads as it is
+(``DenseLM(cfg, params=tree)``, ``HybridLM(cfg, params=tree)``), and fresh
+weights are drawn at the reference's scales from an explicit
+``torch.Generator``.
 
-Decode caches are ``{"layers": {"k", "v": [L, B, Hkv, T, D], "length": int},
-"pos": int}``: the reference's stacked layout, with one length for all
-layers.  They are updated in place.
+Activations are bf16 between layers.  Where a bf16 sum feeds both a norm
+and the residual stream (attention's output added in, before the MLP's
+norm), the norm reads the float32 sum and the residual its bf16 rounding:
+the reference's layers, jitted by XLA on the host, drop the bf16 round
+trip in front of the norm's float32 cast and keep it on the residual path,
+and the port follows that to the bit.
 
-The MoE, hybrid (zamba2), RWKV and encoder families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Decode caches are updated in place.  Dense: ``{"layers": {"k", "v": [L, B,
+Hkv, T, D], "length": int}, "pos": int}``, the reference's stacked layout
+with one length for all layers.  Hybrid: ``{"layers": {"attn": {"k", "v":
+[invocations, B, Hkv, T, D], "length": int}, "mamba": {"conv": [L, B, K-1,
+Ch], "ssm": [L, B, H, P, N]}}, "pos": int}``: one KV cache per invocation
+of the shared block, one state per Mamba2 layer.
+
+The MoE, RWKV and encoder families raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,7 +45,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ffn
+from repro_torch.models import ffn, mamba2
 from repro_torch.models.common import (
     Params,
     Tree,
@@ -34,6 +53,8 @@ from repro_torch.models.common import (
     embedding_spec,
     init_params,
     iter_leaves,
+    linear,
+    linear_spec,
     rmsnorm,
     rmsnorm_spec,
     set_leaf,
@@ -43,18 +64,24 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ModelConfig
 
 NOT_PORTED = {
-    "moe": "the MoE family (router and dispatch) waits for ROADMAP section 1, item 9",
-    "hybrid": "the zamba2 hybrid (mamba2 + mamba2_ssd) waits for ROADMAP section 1, item 1",
-    "rwkv": "the RWKV6 family (rwkv6_wkv) waits for ROADMAP section 1, item 2",
-    "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 10",
+    "moe": "the MoE family (router and dispatch) waits for ROADMAP section 1, item 8",
+    "rwkv": "the RWKV6 family (rwkv6_wkv) waits for ROADMAP section 1, item 1",
+    "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 9",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in MODELS:
         if cfg.family in NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[cfg.family]}")
         raise ValueError(f"unknown family {cfg.family}")
+
+
+def _require_class(cfg: ModelConfig, cls: type) -> None:
+    _require_ported(cfg)
+    if MODELS[cfg.family] is not cls:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is built by"
+                         f" {MODELS[cfg.family].__name__}, not {cls.__name__} (build_lm picks it)")
 
 
 # ===========================================================================
@@ -74,13 +101,46 @@ def _dense_layer_specs(cfg: ModelConfig) -> Tree:
     return specs
 
 
-def model_specs(cfg: ModelConfig) -> Tree:
-    _require_dense(cfg)
-    specs: Tree = {
-        "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
-        "layers": stack_specs(_dense_layer_specs(cfg), cfg.num_layers),
-        "final_norm": rmsnorm_spec(cfg.d_model),
+def _shared_block_specs(cfg: ModelConfig) -> Tree:
+    return {
+        "in_proj": linear_spec(2 * cfg.d_model, cfg.d_model),
+        "norm1": rmsnorm_spec(cfg.d_model),
+        "attn": attn.attention_specs(cfg.attention_config()),
+        "norm2": rmsnorm_spec(cfg.d_model),
+        "mlp": ffn.swiglu_specs(cfg.d_model, cfg.d_ff),
     }
+
+
+def _mamba_layer_specs(cfg: ModelConfig) -> Tree:
+    return {"norm": rmsnorm_spec(cfg.d_model), "mamba": mamba2.mamba2_specs(cfg.mamba_config())}
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(full_rounds, layers_per_round, epilogue_mamba_layers)."""
+    period = max(cfg.attn_every, 1)
+    full = cfg.num_layers // period
+    return full, period, cfg.num_layers - full * period
+
+
+def model_specs(cfg: ModelConfig) -> Tree:
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        full, period, rem = hybrid_layout(cfg)
+        layer = _mamba_layer_specs(cfg)
+        specs: Tree = {
+            "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
+            "rounds": stack_specs(stack_specs(layer, period), full),
+            "shared": _shared_block_specs(cfg),
+            "final_norm": rmsnorm_spec(cfg.d_model),
+        }
+        if rem:
+            specs["epilogue"] = stack_specs(layer, rem)
+    else:
+        specs = {
+            "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
+            "layers": stack_specs(_dense_layer_specs(cfg), cfg.num_layers),
+            "final_norm": rmsnorm_spec(cfg.d_model),
+        }
     if not cfg.tie_embeddings:
         specs["unembed"] = embedding_spec(cfg.vocab_size, cfg.d_model)
     return specs
@@ -136,16 +196,48 @@ class DenseLayer(nn.Module):
         a_in = rmsnorm(self.norm1, h, eps=self.cfg.norm_eps)
         a_out, new_cache = attn.attention_apply(
             self.attn, a_in, self.acfg, positions=positions, cache=cache, impl=attn_impl)
-        h = h + a_out
-        f_in = rmsnorm(self.norm2, h, eps=self.cfg.norm_eps)
+        # the norm reads the float32 sum and the residual its bf16 rounding
+        # (see the module's notes)
+        h32 = h.float() + a_out.float()
+        f_in = rmsnorm(self.norm2, h32, eps=self.cfg.norm_eps).to(h.dtype)
         if self.cfg.mlp_type == "gelu":
             f_out = ffn.gelu_mlp_apply(self.mlp, f_in)
         else:
             f_out = ffn.swiglu_apply(self.mlp, f_in)
-        return h + f_out, new_cache
+        return h32.to(h.dtype) + f_out, new_cache
 
 
-class DenseLM(nn.Module):
+def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int):
+    """The model's parameter tree on ``device``: ``params`` checked and
+    converted, or drawn from ``torch.Generator(device)`` seeded with
+    ``seed``; returns (tree, device)."""
+    specs = model_specs(cfg)
+    dev = resolve_device(device)
+    if params is None:
+        return init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev), dev
+    return params_to_tensors(specs, params, dev), dev
+
+
+class _LM(nn.Module):
+    """What both LMs share: embedding, final norm, unembedding, and the
+    forward that unembeds every position."""
+
+    def _init_ends(self, cfg: ModelConfig, params: Tree) -> None:
+        self.cfg = cfg
+        self.embed = Params(params["embed"])
+        self.final_norm = Params(params["final_norm"])
+        self.unembed = None if cfg.tie_embeddings else Params(params["unembed"])
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        table = self.embed if self.cfg.tie_embeddings else self.unembed
+        return unembed_logits(table, h)
+
+    def forward(self, tokens: torch.Tensor, *, caches: Any = None):
+        h, new_caches = self.hidden(tokens, caches=caches)
+        return self.logits(h), new_caches
+
+
+class DenseLM(_LM):
     """A dense decoder LM on ``device`` (the card unless ``"cpu"`` is asked
     for).  ``params`` is a reference-layout tree (numpy arrays or tensors);
     without it the weights are drawn from ``torch.Generator(device)`` seeded
@@ -154,18 +246,11 @@ class DenseLM(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
                  seed: int = 0):
         super().__init__()
-        specs = model_specs(cfg)
-        dev = resolve_device(device)
-        if params is None:
-            params = init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev)
-        else:
-            params = params_to_tensors(specs, params, dev)
-        self.cfg = cfg
-        self.embed = Params(params["embed"])
+        _require_class(cfg, DenseLM)
+        params, _ = _build_params(cfg, params, device, seed)
+        self._init_ends(cfg, params)
         self.layers = nn.ModuleList(
             DenseLayer(cfg, _layer_tree(params["layers"], i)) for i in range(cfg.num_layers))
-        self.final_norm = Params(params["final_norm"])
-        self.unembed = None if cfg.tie_embeddings else Params(params["unembed"])
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
         """Final-normed hidden states [B, S, d] (bf16) and the new caches."""
@@ -189,20 +274,130 @@ class DenseLM(nn.Module):
             new_caches = {"layers": layers, "pos": pos0 + S}
         return h, new_caches
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        table = self.embed if self.cfg.tie_embeddings else self.unembed
-        return unembed_logits(table, h)
 
-    def forward(self, tokens: torch.Tensor, *, caches: Any = None):
-        h, new_caches = self.hidden(tokens, caches=caches)
-        return self.logits(h), new_caches
+class SharedBlock(nn.Module):
+    """zamba2's shared transformer block on ``concat(embedding, hidden)``:
+    an input projection, then a pre-norm attention and SwiGLU layer; its
+    output is added to the hidden stream."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.acfg = cfg.attention_config()
+        for name in ("in_proj", "norm1", "attn", "norm2", "mlp"):
+            setattr(self, name, Params(params[name]))
+
+    def attend(self, h, x_emb, positions, cache=None, *, attn_impl: str = "auto"):
+        """The block's input projection ``z`` and its attention output."""
+        z = linear(self.in_proj, torch.cat([x_emb, h], dim=-1))
+        a_in = rmsnorm(self.norm1, z, eps=self.cfg.norm_eps)
+        a_out, new_cache = attn.attention_apply(
+            self.attn, a_in, self.acfg, positions=positions, cache=cache, impl=attn_impl)
+        return z, a_out, new_cache
+
+    def forward(self, h, x_emb, positions, cache=None, *, attn_impl: str = "auto"):
+        z, a_out, new_cache = self.attend(h, x_emb, positions, cache, attn_impl=attn_impl)
+        z32 = z.float() + a_out.float()
+        f_in = rmsnorm(self.norm2, z32, eps=self.cfg.norm_eps).to(z.dtype)
+        z = z32.to(z.dtype) + ffn.swiglu_apply(self.mlp, f_in)
+        return h + z, new_cache
+
+
+class MambaLayer(nn.Module):
+    """Pre-norm Mamba2 layer: h + mamba2(norm(h))."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.mcfg = cfg.mamba_config()
+        self.norm = Params(params["norm"])
+        self.mamba = Params(params["mamba"])
+
+    def mix(self, h, state=None, *, ssd_impl: str = "auto"):
+        """The mixer's output mamba2(norm(h)) and its new state."""
+        m_in = rmsnorm(self.norm, h, eps=self.cfg.norm_eps)
+        return mamba2.mamba2_apply(self.mamba, m_in, self.mcfg, state=state, impl=ssd_impl)
+
+    def forward(self, h, state=None, *, ssd_impl: str = "auto"):
+        m_out, new_state = self.mix(h, state, ssd_impl=ssd_impl)
+        return h + m_out, new_state
+
+
+class HybridLM(_LM):
+    """The zamba2 hybrid on ``device`` (the card unless ``"cpu"`` is asked
+    for): Mamba2 layers with one shared attention block invoked before every
+    ``attn_every`` of them.  ``params`` is a reference-layout tree; without
+    it the weights are drawn from ``torch.Generator(device)`` seeded with
+    ``seed``, at the reference's scales (a stacked leaf's layer axes count
+    in its fan-in, as the reference counts them)."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        _require_class(cfg, HybridLM)
+        params, _ = _build_params(cfg, params, device, seed)
+        self._init_ends(cfg, params)
+        full, self.period, rem = hybrid_layout(cfg)
+        self.shared = SharedBlock(cfg, params["shared"])
+        layers = []
+        for r in range(full):
+            round_params = _layer_tree(params["rounds"], r)
+            layers += [MambaLayer(cfg, _layer_tree(round_params, k)) for k in range(self.period)]
+        layers += [MambaLayer(cfg, _layer_tree(params["epilogue"], k)) for k in range(rem)]
+        self.layers = nn.ModuleList(layers)
+
+    def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto",
+               ssd_impl: str = "auto"):
+        """Final-normed hidden states [B, S, d] (bf16) and the new caches.
+        The shared block runs before layers 0, attn_every, 2 attn_every, ...;
+        its k-th invocation keeps KV cache k."""
+        h = embed(self.embed, tokens)
+        x_emb = h
+        S = tokens.shape[1]
+        pos0 = caches["pos"] if caches is not None else 0
+        positions = torch.arange(S, device=tokens.device) + pos0
+        length = None
+        for i, layer in enumerate(self.layers):
+            if i % self.period == 0:
+                cache = None
+                if caches is not None:
+                    ac = caches["layers"]["attn"]
+                    k = i // self.period
+                    cache = {"k": ac["k"][k], "v": ac["v"][k], "length": ac["length"]}
+                h, new_cache = self.shared(h, x_emb, positions, cache, attn_impl=attn_impl)
+                if new_cache is not None:
+                    length = new_cache["length"]
+            state = None
+            if caches is not None:
+                mc = caches["layers"]["mamba"]
+                state = {"conv": mc["conv"][i], "ssm": mc["ssm"][i]}
+            h, new_state = layer(h, state, ssd_impl=ssd_impl)
+            if new_state is not None:
+                state["conv"].copy_(new_state["conv"])
+                state["ssm"].copy_(new_state["ssm"])
+        h = rmsnorm(self.final_norm, h, eps=self.cfg.norm_eps)
+        new_caches = None
+        if caches is not None:
+            layers = dict(caches["layers"], attn=dict(caches["layers"]["attn"], length=length))
+            new_caches = {"layers": layers, "pos": pos0 + S}
+        return h, new_caches
+
+
+LM = DenseLM | HybridLM
+MODELS = {"dense": DenseLM, "hybrid": HybridLM}
+
+
+def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0) -> LM:
+    """The model class of ``cfg``'s family, built on ``device``."""
+    _require_ported(cfg)
+    return MODELS[cfg.family](cfg, params, device=device, seed=seed)
 
 
 # ===========================================================================
 # Top-level forward / decode (the reference's function names)
 # ===========================================================================
 
-def forward_lm(model: DenseLM, tokens: torch.Tensor, *, caches: Any = None):
+def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None):
     """Returns (logits [B, S, vocab] bf16, new_caches, aux loss 0)."""
     logits, new_caches = model(tokens, caches=caches)
     return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -210,21 +405,28 @@ def forward_lm(model: DenseLM, tokens: torch.Tensor, *, caches: Any = None):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                 device="cuda") -> dict:
-    """Every layer's ``attention.init_cache``, stacked on a leading axis."""
-    _require_dense(cfg)
+    """Zeroed decode caches: every attention layer's (dense) or every shared
+    block invocation's (hybrid) ``attention.init_cache`` stacked on a leading
+    axis, and every Mamba2 layer's ``init_mamba_state`` (hybrid), the conv
+    windows in ``dtype`` and the SSM states in float32."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-    return {
-        "layers": {
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "length": 0,
-        },
-        "pos": 0,
-    }
+
+    def kv(n: int) -> dict:
+        shape = (n, batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev), "length": 0}
+
+    if cfg.family == "dense":
+        return {"layers": kv(cfg.num_layers), "pos": 0}
+    full, _, rem = hybrid_layout(cfg)
+    state = mamba2.init_mamba_state(cfg.mamba_config(), batch, dtype, dev)
+    mamba = {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=dev)
+             for name, t in state.items()}
+    return {"layers": {"attn": kv(full + (1 if rem else 0)), "mamba": mamba}, "pos": 0}
 
 
-def decode_step(model: DenseLM, caches, tokens: torch.Tensor):
+def decode_step(model: LM, caches, tokens: torch.Tensor):
     """One serve step: tokens [B, 1] -> (logits [B, 1, V], new_caches)."""
     logits, new_caches = model(tokens, caches=caches)
     return logits, new_caches

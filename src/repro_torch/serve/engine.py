@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill, then KV-cache decode.
+"""Batched serving engine: prefill, then KV-cache (and SSM-state) decode,
+for either model class (``DenseLM``, ``HybridLM``).
 
 ``EnsembleServer`` realises the paper's asymptotic-ensemble idea at serve
 time: the log-probabilities of k models trained on disjoint RSP block
@@ -26,7 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import api, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import LM
 
 
 @dataclasses.dataclass
@@ -35,7 +36,7 @@ class ServeConfig:
     seed: int = 0
 
 
-def _on_device(cfg: ModelConfig, model: DenseLM, device: torch.device) -> DenseLM:
+def _on_device(cfg: ModelConfig, model: LM, device: torch.device) -> LM:
     if model.cfg != cfg:
         raise ValueError(f"the model was built for {model.cfg.name}, not {cfg.name}")
     return model.to(device)
@@ -65,10 +66,10 @@ class _Clock:
 
 
 class Server:
-    """Serves one :class:`DenseLM` on ``device`` (the card unless ``"cpu"``
-    is asked for)."""
+    """Serves one model (``DenseLM`` or ``HybridLM``) on ``device`` (the
+    card unless ``"cpu"`` is asked for)."""
 
-    def __init__(self, cfg: ModelConfig, model: DenseLM, serve_cfg: ServeConfig | None = None,
+    def __init__(self, cfg: ModelConfig, model: LM, serve_cfg: ServeConfig | None = None,
                  *, device="cuda"):
         if cfg.family == "encoder":
             raise ValueError("encoder-only archs do not decode")
@@ -130,9 +131,9 @@ def ensemble_logprobs(logits: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class EnsembleServer:
-    """Serves the average of k base :class:`DenseLM`s (greedy)."""
+    """Serves the average of k base models of one config (greedy)."""
 
-    def __init__(self, cfg: ModelConfig, models: Sequence[DenseLM],
+    def __init__(self, cfg: ModelConfig, models: Sequence[LM],
                  serve_cfg: ServeConfig | None = None, *, device="cuda"):
         if cfg.family == "encoder":
             raise ValueError("encoder-only archs do not decode")

@@ -8,8 +8,9 @@ neither ``jax`` nor ``repro``, so it runs on a machine with the card alone:
 
 Tolerances: shuffles, histograms, counts and ``nsel`` exact; moments within
 1e-5 relative (the kernels sum in another order than the plain versions);
-flash attention within 2e-5 in float32 and 2e-2 in bfloat16, the
-reference's own tolerances for its Pallas kernel (``tests/test_kernels.py``).
+flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
+scan within 2e-4, the reference's own tolerances for its Pallas kernels
+(``tests/test_kernels.py``).
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -25,6 +26,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain
@@ -161,6 +163,7 @@ FLASH_SHAPES = [
     (1, 48, 1, 130, 128),    # granite-20b's MQA (G = 48)
     (2, 2, 2, 1, 64),        # a single row
     (1, 8, 8, 1000, 64),     # MHA, ragged S over many tiles
+    (1, 32, 32, 200, 112),   # zamba2-7b's shared block, D = 112, ragged S
 ]
 
 
@@ -211,3 +214,76 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_cuda(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="but the block is on"):
         flash_attention_cuda(q, k.cpu(), v)
+
+
+def _ssd_arrays(B, L, H, decay, seed, with_h0=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, H, 64)).astype(np.float32)
+    if decay == "weak":
+        # xbar / sqrt(L) keeps the nearly undecayed state O(1) (chip_smoke.py)
+        x *= L ** -0.5
+        dA = rng.uniform(-1e-3, 0.0, size=(B, L, H)).astype(np.float32)
+    elif decay == "strong":
+        dA = np.full((B, L, H), -30.0, np.float32)
+    else:
+        dA = -np.log1p(np.exp(rng.normal(size=(B, L, H)))).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, L, 64)).astype(np.float32) for _ in range(2))
+    h0 = rng.normal(size=(B, H, 64, 64)).astype(np.float32) if with_h0 else None
+    return [torch.from_numpy(a) for a in (x, dA, Bm, Cm)], (
+        None if h0 is None else torch.from_numpy(h0))
+
+
+SSD_CASES = {
+    # name: B, L, H, decay, h0
+    "two chunks": (2, 256, 8, "softplus", False),
+    "weak decay over 16 chunks": (1, 2048, 4, "weak", False),
+    "strong decay": (1, 384, 6, "strong", False),
+    "from h0": (2, 256, 3, "softplus", True),
+    "zamba2 heads, B = 1": (1, 512, 112, "softplus", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+def test_ssd_kernel_matches_plain(dev, name):
+    B, L, H, decay, with_h0 = SSD_CASES[name]
+    arrays, h0 = _ssd_arrays(B, L, H, decay, seed=L + H, with_h0=with_h0)
+    arrays = [a.to(dev) for a in arrays]
+    h0 = None if h0 is None else h0.to(dev)
+    y, h = ssd_cuda(*arrays, h0=h0)
+    want_y, want_h = ssd_plain(*arrays, chunk=128, h0=h0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_auto_impl_pads_a_ragged_length_and_counts(dev):
+    arrays, _ = _ssd_arrays(2, 300, 4, "softplus", seed=3)
+    arrays = [a.to(dev) for a in arrays]
+    kernels.reset_launch_counts()
+    y, h = ssd(*arrays, chunk=128)
+    assert kernels.launch_counts()["mamba2_ssd"] == 1
+    want_y, want_h = ssd(*arrays, chunk=128, impl="torch")
+    assert y.shape == (2, 300, 4, 64)
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(dev):
+    arrays, _ = _ssd_arrays(1, 128, 2, "softplus", seed=1)
+    x, dA, Bm, Cm = (a.to(dev) for a in arrays)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="float32"):
+        ssd_cuda(x.double(), dA, Bm, Cm)
+    with pytest.raises(ValueError, match="but the block is on"):
+        ssd_cuda(x, dA.cpu(), Bm, Cm)
+    with pytest.raises(ValueError, match="multiple of the kernel's chunk"):
+        ssd_cuda(x[:, :100].contiguous(), dA[:, :100].contiguous(), Bm[:, :100].contiguous(),
+                 Cm[:, :100].contiguous())
+    with pytest.raises(ValueError, match="head dim 64"):
+        ssd_cuda(x[..., :32].contiguous(), dA, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dA, Bm, Cm)
+    with pytest.raises(ValueError, match="chunk 128"):
+        ssd(x, dA, Bm, Cm, chunk=64)
+    assert kernels.launch_counts()["mamba2_ssd"] == 0

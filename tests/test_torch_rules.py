@@ -20,7 +20,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
-from repro_torch.models.transformer import DenseLM, init_caches
+from repro_torch.kernels.mamba2_ssd import ssd_cuda
+from repro_torch.models.transformer import DenseLM, HybridLM, init_caches
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, compile_plan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda
@@ -39,7 +40,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.rsp, repro_torch.kernels.plan, "
         "repro_torch.data, repro_torch.obs, repro_torch.kernels.flash_attention, "
-        "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store\n"
+        "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store, "
+        "repro_torch.kernels.mamba2_ssd, repro_torch.models.mamba2\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'jaxlib') "
         "or m.startswith(('jax.', 'repro.', 'jaxlib.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -90,6 +92,8 @@ LM_ENTRY_POINTS = {
     "Server": lambda: Server(smoke_config("llama3.2-1b"), _host_model()),
     "EnsembleServer": lambda: EnsembleServer(smoke_config("llama3.2-1b"), [_host_model()] * 2),
     "init_caches": lambda: init_caches(smoke_config("llama3.2-1b"), 1, 8),
+    "HybridLM": lambda: HybridLM(smoke_config("zamba2-7b")),
+    "init_caches(hybrid)": lambda: init_caches(smoke_config("zamba2-7b"), 1, 8),
     "restore": lambda: store.restore(str(ROOT / "no_such_checkpoint"), 0),
     "launch.serve": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main([]),
 }
@@ -174,6 +178,9 @@ def _on_another_device():
     q, kv = torch.zeros((1, 4, 16, 64)), torch.zeros((1, 2, 16, 64), device=meta)
     return {
         "flash_attention": lambda: flash_attention_cuda(q, kv, kv),
+        "mamba2_ssd": lambda: ssd_cuda(torch.zeros((1, 128, 2, 64)),
+                                       *(torch.zeros(s, device=meta)
+                                         for s in ((1, 128, 2), (1, 128, 64), (1, 128, 64)))),
         "rsp_shuffle": lambda: rsp_shuffle_cuda(x, tp, ip, tile_rows=32),
         "block_sketch": lambda: block_sketch_cuda(x, lo, invw, bins=4),
         "plan_sketch": lambda: plan_sketch_cuda(x, arrays, None, None, bins=0),
@@ -204,8 +211,10 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
     Server(cfg, DenseLM(cfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=3)
     EnsembleServer(cfg, [DenseLM(cfg, device="cpu", seed=s) for s in (1, 2)],
                    device="cpu").generate(prompts, max_new_tokens=2)
+    hcfg = smoke_config("zamba2-7b")
+    Server(hcfg, HybridLM(hcfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=2)
     assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "mamba2_ssd": 0}
 
 
 def test_cuda_build_is_keyed_by_sources(tmp_path):
@@ -214,5 +223,6 @@ def test_cuda_build_is_keyed_by_sources(tmp_path):
     key = _cuda.source_hash()
     assert len(key) == 16 and key == _cuda.source_hash()
     assert {p.name for p in _cuda._sources()} == {
-        "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu"}
+        "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu",
+        "mamba2_ssd.cu"}
     assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
