@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
-main path, dense LM serving and zamba2 hybrid serving.
+main path, dense LM serving, zamba2 hybrid serving, and rwkv6 scoring, loss
+and serving.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds:
 
-1. build     -- compile the five CUDA kernels (``src/repro_torch/csrc``) with
+1. build     -- compile the six CUDA kernels (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
                 ``build/``;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
@@ -23,7 +24,13 @@ Phases, one line each with its seconds:
                 zamba2-7b's prefill shape, with weak decay (dA in
                 [-1e-3, 0]: the state crosses all 16 chunks), with
                 dA = -30, at a ragged L from an initial state, and at
-                B = 1;
+                B = 1; rwkv6_wkv's y and h_final within 2e-4 (1 + |plain|)
+                at rwkv6-1.6b's prefill shape [8, 2048, 32, 64] with the
+                model's decays, with weak decay (w in [0.999, 1): the
+                state crosses all 128 chunks), with w = 1e-6 and a quarter
+                of w = 0 (the clamped log), at a ragged T from an initial
+                state and at B = 1, and one small case against the step
+                recurrence;
 3. main path -- a class-sorted HIGGS-shaped corpus (N x 29 float32, label in
                 the last column) partitioned into K blocks on the card by the
                 ``cuda`` backend (checked bit for bit against the plain
@@ -80,7 +87,29 @@ Phases, one line each with its seconds:
                 SSD (state not carried across chunks, h_final zeroed) must
                 refuse both, which the layer-by-layer part does; its
                 numbers as for llama; the SSD kernel and flash at D = 112
-                are timed at their serving shapes.
+                are timed at their serving shapes;
+8. rwkv      -- rwkv6-1.6b at full width and depth (24 layers, d_model
+                2048, 32 heads of 64, d_ff 7168, vocab 65,536; random
+                weights from the seed), after the zamba2 model is freed:
+                (a) scoring: ``make_forward_fn`` on 8 x 2048 tokens (every
+                position's logits) and ``make_loss_fn`` on 8 x 2049, 24
+                rwkv6_wkv launches each, held against the same calls
+                through the plain WKV (logits as the hybrid's sequence
+                share, the loss path's cross entropy at each of the
+                16,384 positions within NLL_TOL) and layer by layer
+                (each layer fed the plain pass's input: the time mix's
+                output within 2e-2 (1 + |b|), the WKV's y and state within
+                2e-4 (1 + |b|), none beyond), beside the plain forward at
+                chunk 8 against 16; (b) serving: ``Server.generate`` of 8
+                prompts of 2048 tokens, 32 new tokens, greedy (24 launches
+                in the prefill, none in decode), teacher-forced through
+                the plain WKV from a fresh float32 state, the states after
+                the prompt compared, and the served prefill layer by
+                layer; (c) the same checks on two known-wrong kernels
+                (state not carried across chunks, bonus u dropped) must
+                refuse both, and name the parts that refuse; (d) the
+                numbers as for llama, the forward's and the loss's seconds,
+                and the WKV kernel timed at the prefill shape.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
@@ -915,17 +944,22 @@ def logit_deviation(got, want) -> dict:
             "logits": diff.numel()}
 
 
-def compare_hidden(model, h_a, h_b, chunk: int = 256) -> dict:
-    """The logits of hidden states ``h_a`` against those of ``h_b`` at every
-    position, ``chunk`` positions at a time, as ``logit_deviation`` counts
-    them."""
-    parts = [logit_deviation(model.logits(h_a[:, i:i + chunk]), model.logits(h_b[:, i:i + chunk]))
-             for i in range(0, h_a.shape[1], chunk)]
+def _combined(parts: list[dict]) -> dict:
+    """``logit_deviation``s of the chunks of one comparison, combined."""
     n = sum(p["logits"] for p in parts)
     return {"bad": sum(p["bad"] for p in parts),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
             "argmax_agreement": sum(p["argmax_agreement"] * p["logits"] for p in parts) / n,
             "logits": n}
+
+
+def compare_hidden(model, h_a, h_b, chunk: int = 256) -> dict:
+    """The logits of hidden states ``h_a`` against those of ``h_b`` at every
+    position, ``chunk`` positions at a time, as ``logit_deviation`` counts
+    them."""
+    return _combined([
+        logit_deviation(model.logits(h_a[:, i:i + chunk]), model.logits(h_b[:, i:i + chunk]))
+        for i in range(0, h_a.shape[1], chunk)])
 
 
 def teacher_forced(model, tokens, step_logits, plain: dict | None = None) -> dict:
@@ -983,6 +1017,68 @@ def _zero_output(q, k, v, causal):
 
 # known-wrong attentions the teacher-forced check must refuse
 CONTROLS = {"non-causal": _non_causal, "zero output": _zero_output}
+
+
+def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_gb: float,
+                  gpu: str, forward: bool = False) -> dict:
+    """After a timed ``Server.generate`` (its ``stats`` and peak memory):
+    one profiled generate of ``prompts`` (the device's busy time and idle
+    share, its largest device items), one profiled prefill from fresh
+    float32 caches (where its time goes on the device) and, with
+    ``forward``, one profiled stateless forward of the prompts.  Prints the
+    serving lines beside the card and returns the numbers."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.transformer import init_caches
+
+    cfg = model.cfg
+    B, P = prompts.shape
+    t0 = time.perf_counter()
+    wall, busy, by_name, gen_events = profiled(
+        lambda: server.generate(prompts, max_new_tokens=new))
+    idle = None if busy is None else 1 - busy / wall
+    seq = torch.from_numpy(prompts).to(device=server.device, dtype=torch.int64)
+    caches = init_caches(cfg, B, P + new, torch.float32, server.device)
+    passes = {}
+    with torch.no_grad():
+        passes["prefill"] = profiled(lambda: api.make_prefill_fn(model)(caches, {"tokens": seq}))
+        if forward:
+            passes["forward"] = profiled(lambda: api.make_forward_fn(model)({"tokens": seq}))
+    del caches, seq
+    pf_events = passes["prefill"][3]
+    step_events = (gen_events - pf_events) / (new - 1)
+
+    def top(by: dict, n: int) -> list:
+        return [(name[:60], sec) for name, sec in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
+
+    decode_tps = B * (new - 1) / stats["decode_s"]
+    serve = {
+        "prefill_s": stats["prefill_s"], "first_token_s": stats["first_token_s"],
+        "decode_s": stats["decode_s"], "decode_tokens_per_s": decode_tps,
+        "total_s": stats["total_s"], "peak_gb": peak_gb, "profiled_wall_s": wall,
+        "device_busy_s": busy, "idle_share": idle, "top": top(by_name, 6),
+        **{f"{name}_profile": {"wall_s": p[0], "device_busy_s": p[1], "top": top(p[2], 8)}
+           for name, p in passes.items()},
+        "device_events": {"generate": gen_events, "prefill": pf_events,
+                          "per_decode_step": step_events},
+    }
+    phase(f"{tag} profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy"
+          f" {busy} s; " + "; ".join(
+              f"one profiled {name}: wall {serve[f'{name}_profile']['wall_s']:.3f} s, device"
+              f" busy {serve[f'{name}_profile']['device_busy_s']} s, top"
+              f" {json.dumps(serve[f'{name}_profile']['top'])}" for name in passes)
+          + f"; device events: generate {gen_events}, prefill {pf_events}, so"
+          f" {step_events:.1f} a decode step")
+    for line in (f"prefill seconds {stats['prefill_s']:.4f}",
+                 f"time to first token {stats['first_token_s']:.4f} s",
+                 f"decode tokens/s {decode_tps:.1f} ({B} x {new - 1} tokens"
+                 f" in {stats['decode_s']:.4f} s)",
+                 f"peak device memory {peak_gb:.3f} GB",
+                 f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
+        print(f"serve {cfg.name} {B} x {P} + {new}: {line} [{gpu}]", flush=True)
+    return serve
 
 
 def lm_serving(args, device, gpu: str) -> dict:
@@ -1064,48 +1160,12 @@ def lm_serving(args, device, gpu: str) -> dict:
     phase("lm controls", t0, json.dumps(controls))
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    wall, busy, by_name, gen_events = profiled(
-        lambda: server.generate(prompts, max_new_tokens=SERVE_NEW))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    idle = None if busy is None else 1 - busy / wall
-    # the prefill alone: where its time goes on the device
-    seq = torch.from_numpy(prompts).to(device=device, dtype=torch.int64)
-    caches = init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, torch.float32, device)
-    with torch.no_grad():
-        p_wall, p_busy, p_by_name, pf_events = profiled(
-            lambda: api.make_prefill_fn(model)(caches, {"tokens": seq}))
-    del caches, seq
-    step_events = (gen_events - pf_events) / (SERVE_NEW - 1)
-    p_top = sorted(p_by_name.items(), key=lambda kv: -kv[1])[:8]
-    phase("lm profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy {busy} s;"
-          f" one profiled prefill: wall {p_wall:.3f} s, device busy {p_busy} s,"
-          f" top {json.dumps([(n[:60], t) for n, t in p_top])}; device events: generate"
-          f" {gen_events}, prefill {pf_events}, so {step_events:.1f} a decode step")
-    decode_tps = SERVE_BATCH * (SERVE_NEW - 1) / stats["decode_s"]
-    serve = {
-        "prefill_s": stats["prefill_s"], "first_token_s": stats["first_token_s"],
-        "decode_s": stats["decode_s"], "decode_tokens_per_s": decode_tps,
-        "total_s": stats["total_s"], "peak_gb": peak_gb, "profiled_wall_s": wall,
-        "device_busy_s": busy, "idle_share": idle,
-        "top": [(name[:60], sec) for name, sec in top],
-        "prefill_profile": {"wall_s": p_wall, "device_busy_s": p_busy,
-                            "top": [(name[:60], sec) for name, sec in p_top]},
-        "device_events": {"generate": gen_events, "prefill": pf_events,
-                          "per_decode_step": step_events},
+    serve = serve_profile("lm", model, server, prompts, SERVE_NEW, stats, peak_gb, gpu)
+    serve.update({
         "prefill_flops": pf_flops, "prefill_bound_s": pf_bound_s, "weight_bytes": weight_bytes,
         "cache_bytes": cache_bytes, "decode_step_bound_s": step_bound_s,
         "teacher_forced": tf, "controls": controls,
-    }
-    for line in (f"prefill seconds {stats['prefill_s']:.4f}",
-                 f"time to first token {stats['first_token_s']:.4f} s",
-                 f"decode tokens/s {decode_tps:.1f} ({SERVE_BATCH} x {SERVE_NEW - 1} tokens"
-                 f" in {stats['decode_s']:.4f} s)",
-                 f"peak device memory {peak_gb:.3f} GB",
-                 f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
-                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
-        print(f"serve {cfg.name} {SERVE_BATCH} x {SERVE_PROMPT} + {SERVE_NEW}: {line}"
-              f" [{gpu}]", flush=True)
+    })
     del server, model
     torch.cuda.empty_cache()
 
@@ -1289,8 +1349,7 @@ def hybrid_serving(args, device, gpu: str) -> dict:
 
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
-    from repro_torch.models import api
-    from repro_torch.models.transformer import HybridLM, hybrid_layout, init_caches
+    from repro_torch.models.transformer import HybridLM, hybrid_layout
     from repro_torch.serve import Server
 
     cfg = ARCHS[HYBRID_ARCH]
@@ -1385,49 +1444,15 @@ def hybrid_serving(args, device, gpu: str) -> dict:
     phase("hybrid controls", t0, json.dumps(controls))
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    wall, busy, by_name, gen_events = profiled(
-        lambda: server.generate(prompts, max_new_tokens=HY_NEW))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    idle = None if busy is None else 1 - busy / wall
-    seq = torch.from_numpy(prompts).to(device=device, dtype=torch.int64)
-    caches = init_caches(cfg, HY_BATCH, T, torch.float32, device)
-    with torch.no_grad():
-        p_wall, p_busy, p_by_name, pf_events = profiled(
-            lambda: api.make_prefill_fn(model)(caches, {"tokens": seq}))
-    del caches, seq
-    step_events = (gen_events - pf_events) / (HY_NEW - 1)
-    p_top = sorted(p_by_name.items(), key=lambda kv: -kv[1])[:8]
-    phase("hybrid profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy"
-          f" {busy} s; one profiled prefill: wall {p_wall:.3f} s, device busy {p_busy} s,"
-          f" top {json.dumps([(n[:60], t) for n, t in p_top])}; device events: generate"
-          f" {gen_events}, prefill {pf_events}, so {step_events:.1f} a decode step")
-    decode_tps = HY_BATCH * (HY_NEW - 1) / stats["decode_s"]
-    serve = {
-        "prefill_s": stats["prefill_s"], "first_token_s": stats["first_token_s"],
-        "decode_s": stats["decode_s"], "decode_tokens_per_s": decode_tps,
-        "total_s": stats["total_s"], "peak_gb": peak_gb, "profiled_wall_s": wall,
-        "device_busy_s": busy, "idle_share": idle,
-        "top": [(name[:60], sec) for name, sec in top],
-        "prefill_profile": {"wall_s": p_wall, "device_busy_s": p_busy,
-                            "top": [(name[:60], sec) for name, sec in p_top]},
-        "device_events": {"generate": gen_events, "prefill": pf_events,
-                          "per_decode_step": step_events},
+    serve = serve_profile("hybrid", model, server, prompts, HY_NEW, stats, peak_gb, gpu)
+    serve.update({
         "prefill_flops_bf16": pf_flops, "ssd_flops_per_launch": ssd_ops,
         "prefill_bound_s": pf_bound_s, "weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
         "ssm_bytes": ssm_bytes, "decode_step_bytes": step_bytes,
         "decode_step_bound_s": step_bound_s, "teacher_forced": tf,
         "layer_by_layer": layers,
         "controls": controls,
-    }
-    for line in (f"prefill seconds {stats['prefill_s']:.4f}",
-                 f"time to first token {stats['first_token_s']:.4f} s",
-                 f"decode tokens/s {decode_tps:.1f} ({HY_BATCH} x {HY_NEW - 1} tokens"
-                 f" in {stats['decode_s']:.4f} s)",
-                 f"peak device memory {peak_gb:.3f} GB",
-                 f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
-                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
-        print(f"serve {cfg.name} {HY_BATCH} x {HY_PROMPT} + {HY_NEW}: {line} [{gpu}]", flush=True)
+    })
     del server, model
     torch.cuda.empty_cache()
     return {"counts": counts, "serve": serve}
@@ -1497,6 +1522,561 @@ def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# RWKV6: the rwkv6_wkv kernel, rwkv6-1.6b at full width
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+RW_BATCH, RW_PROMPT, RW_NEW = 8, 2048, 32
+WKV_TOL = 2e-4    # tests/test_kernels.py:159-160, held as |a - b| <= tol (1 + |b|)
+# the loss path's per-position cross entropy (logsumexp minus the gold
+# logit, [8, 2048]) through the kernel against the plain one: none of the
+# 16,384 positions more than NLL_TOL apart.  A sound run moves a position
+# by the bf16 rounding of its gold logit.  On the H100 the sound run's
+# largest gap was 0.0186 and the plain chunk-8 floor's 0.0159; the
+# controls' were 0.309 (no carry, 1,197 positions beyond 0.05) and 0.208
+# (u dropped, 5,344 beyond): 0.05 lies between (PERF.md section 6)
+NLL_TOL = 0.05
+WKV_CASES = {
+    # name: (B, T, H, decay, h0); C = 64, the kernel's chunk 16
+    "rwkv6-1.6b prefill": (8, 2048, 32, "model", False),
+    "weak decay, w in [0.999, 1)": (2, 2048, 32, "weak", False),
+    "strong decay, w = 1e-6 and a quarter 0": (2, 1024, 32, "strong", False),
+    "ragged T = 2080, from h0": (2, 2080, 32, "model", True),
+    "B = 1": (1, 2048, 32, "model", False),
+}
+
+
+def wkv_inputs(B, T, H, decay, device, seed, with_h0=False):
+    """r, k, v [B, T, H, 64], the decay w in (0, 1), u [H, 64] and, with
+    ``with_h0``, h0 [B, H, 64, 64], float32 on the card."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, 64), generator=g, device=device) for _ in range(3))
+    if decay == "weak":
+        # the state sums T nearly undecayed steps: k / sqrt(T) keeps it O(1),
+        # as the SSD's weak case scales xbar; at unit scale y reaches ~1e2
+        # by cancellation, where two float32 orders differ beyond 2e-4
+        k = k * T ** -0.5
+        w = 1 - 1e-3 * torch.rand((B, T, H, 64), generator=g, device=device)
+    elif decay == "strong":
+        w = torch.where(torch.rand((B, T, H, 64), generator=g, device=device) < 0.25,
+                        torch.zeros((), device=device), torch.full((), 1e-6, device=device))
+    else:   # as the model draws them: exp(-exp(w0 + noise)), w0 ~ N(0, 0.5)
+        w0 = 0.5 * torch.randn((H, 64), generator=g, device=device)
+        w = torch.exp(-torch.exp(w0 + 0.3 * torch.randn((B, T, H, 64), generator=g,
+                                                        device=device)))
+    u = 0.5 * torch.randn((H, 64), generator=g, device=device)
+    h0 = torch.randn((B, H, 64, 64), generator=g, device=device) if with_h0 else None
+    return (r, k, v, w, u), h0
+
+
+def wkv_parity(args, device) -> float:
+    """The WKV kernel (through ``ops.wkv6``, which pads a ragged T) against
+    its plain chunked version at every case, y and h_final, and one small
+    case against the step recurrence; returns the largest absolute
+    deviation."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_scan
+
+    worst = 0.0
+    for i, (name, (B, T, H, decay, with_h0)) in enumerate(WKV_CASES.items()):
+        arrays, h0 = wkv_inputs(B, T, H, decay, device, args.seed + 200 + i, with_h0)
+        got = wkv6(*arrays, h0=h0, impl="cuda")
+        want = wkv6(*arrays, h0=h0, impl="torch")
+        torch.cuda.synchronize()
+        for part, a, b in (("y", got[0], want[0]), ("h_final", got[1], want[1])):
+            check(a.shape == b.shape, f"wkv {name} {part}: shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"wkv {name} {part}: non-finite output")
+            diff = (a - b).abs()
+            bad = int((diff > WKV_TOL * (1 + b.abs())).sum())
+            check(bad == 0, f"wkv {name} {part}: {bad} values beyond {WKV_TOL} (1 + |b|)"
+                  f" (largest deviation {float(diff.max()):.3g})")
+            worst = max(worst, float(diff.max()))
+            print(f"  wkv {name} {part}: max |kernel - plain| {float(diff.max()):.3g},"
+                  f" max |plain| {float(b.abs().max()):.3g}", flush=True)
+        if decay == "weak":
+            # the case has the power to see a kernel that drops the carry
+            cut, _ = _wkv_no_carry(*arrays, None)
+            far = int(((cut - want[0]).abs() > WKV_TOL * (1 + want[0].abs())).sum())
+            print(f"  wkv {name}: the state not carried across chunks puts {far} of"
+                  f" {cut.numel()} values of y beyond the tolerance", flush=True)
+            check(far > 0, f"wkv {name}: a kernel without the inter-chunk carry passes")
+            del cut
+        del arrays, h0, got, want
+    # the step recurrence, the reference's oracle, on a small case
+    arrays, h0 = wkv_inputs(2, 100, 4, "model", device, args.seed + 210, True)
+    got = wkv6(*arrays, h0=h0, impl="cuda")
+    want = wkv6_scan(*arrays, h0=h0)
+    for part, a, b in (("y", got[0], want[0]), ("h_final", got[1], want[1])):
+        diff = (a - b).abs()
+        bad = int((diff > WKV_TOL * (1 + b.abs())).sum())
+        check(bad == 0, f"wkv against the recurrence {part}: {bad} values beyond {WKV_TOL}"
+              f" (1 + |b|) (largest deviation {float(diff.max()):.3g})")
+        print(f"  wkv against the step recurrence, [2, 100, 4, 64] from h0, {part}: max"
+              f" |kernel - recurrence| {float(diff.max()):.3g}", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def wkv_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
+    """(operations, bytes) of one WKV pass, counted from the kernel: per
+    (b, h, chunk) the prefix sums, the two decayed operands (a subtraction,
+    an exp and a product each), A once -- 5 operations a channel of each
+    strictly lower pair --, the bonus, the inter-chunk product, the
+    intra-chunk sum and the state update (2 operations a multiply-add); r,
+    k, v, logw and u read once, y and h_final written once."""
+    nc = -(-T // Q)
+    pairs = Q * (Q - 1) // 2
+    per_chunk = (Q * C + 5 * Q * C + C + 5 * pairs * C + 3 * Q * C
+                 + 2 * Q * C * C + 2 * pairs * C + 3 * Q * C
+                 + 2 * Q * C * C + 2 * C * C)
+    ops = B * H * nc * per_chunk
+    nbytes = 4 * (5 * B * T * H * C + H * C + B * H * C * C)
+    return ops, nbytes
+
+
+def rwkv_flops(cfg, batch: int, seq: int, every_position: bool) -> tuple[int, int]:
+    """(bf16, float32) operations of a pass over ``batch x seq`` tokens:
+    every bf16 projection (r, k, v, g, o, the channel mix's key, value and
+    receptance; 2 a multiply-add) over every token and the unembedding of
+    every position or of the last; the float32 low-rank products of the
+    ddlerp and the decay.  The WKV's operations are counted apart
+    (``wkv_work``)."""
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.lora_rank
+    matrix = 6 * d * d + 2 * d * f
+    lora = 10 * d * r + 2 * d * r
+    tokens = batch * seq
+    bf16 = 2 * cfg.num_layers * matrix * tokens + 2 * d * cfg.vocab_size * (
+        tokens if every_position else batch)
+    return bf16, 2 * cfg.num_layers * lora * tokens
+
+
+@contextlib.contextmanager
+def wkv_replaced(stand_in):
+    """Run the model with ``stand_in(r, k, v, w, u, h0)`` in place of the
+    WKV kernel; the plain version (``impl="torch"``) stays the yardstick."""
+    from repro_torch.models import rwkv6
+
+    real = rwkv6.wkv6
+
+    def patched(r, k, v, w, u, *, h0=None, impl="auto"):
+        if impl == "torch":
+            return real(r, k, v, w, u, h0=h0, impl=impl)
+        return stand_in(r, k, v, w, u, h0)
+
+    rwkv6.wkv6 = patched
+    try:
+        yield
+    finally:
+        rwkv6.wkv6 = real
+
+
+def _wkv_plain(r, k, v, w, u, h0):
+    from repro_torch.kernels.rwkv6_wkv import wkv6
+
+    return wkv6(r, k, v, w, u, h0=h0, impl="torch")
+
+
+@contextlib.contextmanager
+def logits_captured(model, into: list):
+    """Append the logits of every forward of ``model`` to ``into`` (a
+    forward hook): what the loss path computed its cross entropy from."""
+    handle = model.register_forward_hook(lambda m, args, output: into.append(output[0]))
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def _wkv_no_carry(r, k, v, w, u, h0):
+    """Every chunk of 16 from a zero state: the chunks go through the kernel
+    as batch rows of their own; h_final is the last chunk's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rwkv6_wkv import wkv6
+
+    B, T, H, C = r.shape
+    pad = (-T) % 16
+    w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    padded = [F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v)] + [w]
+    nc = (T + pad) // 16
+    rows = [t.reshape(B * nc, 16, H, C).contiguous() for t in padded]
+    y, h = wkv6(*rows, u, impl="cuda")
+    return y.reshape(B, T + pad, H, C)[:, :T], h.reshape(B, nc, H, C, C)[:, -1]
+
+
+def _wkv_no_bonus(r, k, v, w, u, h0):
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import wkv6
+
+    return wkv6(r, k, v, w, torch.zeros_like(u), h0=h0, impl="cuda")
+
+
+# known-wrong WKV kernels the checks must refuse
+WKV_CONTROLS = {"state not carried across chunks": _wkv_no_carry,
+                "diagonal bonus u dropped": _wkv_no_bonus}
+
+
+def compare_logits(got, want, chunk: int = 256) -> dict:
+    """``logit_deviation`` of two [B, S, V] logit tensors, ``chunk``
+    positions at a time."""
+    return _combined([logit_deviation(got[:, i:i + chunk], want[:, i:i + chunk])
+                      for i in range(0, got.shape[1], chunk)])
+
+
+def rwkv_layer_by_layer(model, seq, caches=None) -> dict:
+    """Each RWKV6 layer fed its input from a pass through the plain WKV
+    (forward pre-hooks on the layers), and its time mix run from that input
+    once through the kernel (``wkv_impl="auto"``) and once through the plain
+    version: the time mix's output held to LAYER_TOL (1 + |b|), the WKV's
+    y and final state to WKV_TOL (1 + |b|).  With ``caches`` (a fresh
+    float32 state) the pass is a served prefill: each time mix starts from
+    its layer's state.  Layers see the same input on both sides, so no
+    rounding is carried from one layer to the next."""
+    import torch
+
+    out: dict = {}
+
+    def hook(layer, args, kwargs):
+        h = args[0]
+        state = args[1] if len(args) > 1 else kwargs.get("state")
+        t_state = state["time"] if state is not None else None
+        res = {impl: layer.time_mix(h, t_state, wkv_impl=impl) for impl in ("auto", "torch")}
+        _tally(out, "time-mix output", res["auto"][0], res["torch"][0], LAYER_TOL)
+        _tally(out, "wkv y", res["auto"][2][0], res["torch"][2][0], WKV_TOL)
+        _tally(out, "wkv state", res["auto"][2][1], res["torch"][2][1], WKV_TOL)
+
+    hooks = [layer.register_forward_pre_hook(hook, with_kwargs=True) for layer in model.layers]
+    try:
+        with torch.no_grad():
+            model.hidden(seq, caches=caches, wkv_impl="torch")
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def rwkv_scoring(model, batch_tokens, floor: bool = True) -> dict:
+    """Scoring: ``make_forward_fn`` on the first S tokens and ``make_loss_fn``
+    on all S + 1, each timed and its WKV launches counted, then held
+    against the same calls through the plain WKV: every position's logits
+    (TF_RATE's share beyond TF_TOL (1 + |b|)), the loss path's per-position
+    cross entropy (NLL_TOL, none beyond), and layer by layer.  With
+    ``floor``, also the plain calls at chunk 8 against chunk 16: what two
+    sound versions differ by."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import api
+    from repro_torch.models.common import token_nll
+
+    seq, gold = batch_tokens[:, :-1], batch_tokens[:, 1:]
+    forward, loss_fn = api.make_forward_fn(model), api.make_loss_fn(model)
+
+    def per_position(seen: list, loss) -> torch.Tensor:
+        """The cross entropy [B, S] of the logits the loss path computed."""
+        nll = token_nll(seen.pop(), gold)
+        check(abs(float(nll.mean()) - float(loss)) <= 1e-6 * abs(float(loss)),
+              f"the captured cross entropy's mean {float(nll.mean())} is not the loss {float(loss)}")
+        return nll
+
+    def loss_nll():
+        seen: list = []
+        with logits_captured(model, seen):
+            loss, _ = loss_fn({"tokens": batch_tokens})
+        return float(loss), per_position(seen, loss)
+
+    out: dict = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = forward({"tokens": seq})
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        out["forward_counts"] = kernels.launch_counts()   # the forward path ends here
+        kernels.reset_launch_counts()
+        seen: list = []
+        with logits_captured(model, seen):
+            t0 = time.perf_counter()
+            loss, _ = loss_fn({"tokens": batch_tokens})
+            torch.cuda.synchronize()
+            out["loss_s"] = time.perf_counter() - t0
+        out["loss_counts"] = kernels.launch_counts()      # the loss path ends here
+        out["loss"] = float(loss)
+        nll = per_position(seen, loss)
+        check(bool(torch.isfinite(logits).all()), "scoring logits are not finite")
+        check(tuple(logits.shape) == (*seq.shape, model.cfg.vocab_size),
+              f"scoring logits {tuple(logits.shape)}")
+        with wkv_replaced(_wkv_plain):
+            plain = forward({"tokens": seq})
+            out["plain_loss"], plain_nll = loss_nll()
+        out["logits"] = compare_logits(logits, plain)
+        del logits
+        out["nll"] = nll_deviation(nll, plain_nll)
+        out["loss_rel_err"] = abs(out["loss"] - out["plain_loss"]) / abs(out["plain_loss"])
+        if floor:
+            from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6_plain
+
+            def chunk8(r, k, v, w, u, h0):
+                return wkv6_plain(r, k, v, log_decay(w), u, h0=h0, chunk=8)
+
+            with wkv_replaced(chunk8):
+                other = forward({"tokens": seq})
+                other_loss, other_nll = loss_nll()
+            out["plain_floor"] = {"logits": compare_logits(other, plain),
+                                  "nll": nll_deviation(other_nll, plain_nll),
+                                  "loss_rel_err": abs(other_loss - out["plain_loss"])
+                                  / abs(out["plain_loss"])}
+            del other
+        del plain
+    out["layers"] = rwkv_layer_by_layer(model, seq)
+    return out
+
+
+def nll_deviation(got, want) -> dict:
+    """How far two per-position cross entropies are apart: the largest
+    gap, the positions beyond NLL_TOL, and the positions beyond a ladder of
+    gaps (what a limit between a sound run and a wrong one is read from)."""
+    diff = (got - want).abs()
+    return {"positions": diff.numel(), "max_abs_err": float(diff.max()),
+            "bad": int((diff > NLL_TOL).sum()), "tolerance": NLL_TOL,
+            "beyond": {str(t): int((diff > t).sum()) for t in (0.01, 0.02, 0.05, 0.1, 0.2, 0.5)}}
+
+
+def scoring_refusals(sc: dict) -> list[str]:
+    """The parts of the scoring check that refuse ``sc``."""
+    parts = []
+    if sc["logits"]["bad"] > TF_RATE["sequence"] * sc["logits"]["logits"]:
+        parts.append("every-position logits")
+    if sc["nll"]["bad"] > 0:
+        parts.append("loss: per-position cross entropy")
+    parts += [f"layer by layer: {name}" for name, t in sc["layers"].items() if t["bad"] > 0]
+    return parts
+
+
+def rwkv_served_check(model, prompts, tokens, step_logits) -> dict:
+    """The served sequence teacher-forced through the plain WKV from a fresh
+    float32 state (the served path's own numerics: a stateless forward
+    shifts in bf16): its prompt's prefill and one decode step a new token,
+    the logits that chose each new token held against the served ones;
+    the states after the prompt, a prefill through the kernel against one
+    through the plain version, held to LAYER_TOL (1 + |b|); and the served
+    prefill layer by layer."""
+    import torch
+
+    from repro_torch.models.transformer import init_caches
+
+    cfg = model.cfg
+    B, P = prompts.shape
+    seq = torch.as_tensor(tokens, device=step_logits.device, dtype=torch.int64)
+    new = tokens.shape[1] - P
+    out: dict = {}
+    with torch.no_grad():
+        states = {}
+        for impl in ("auto", "torch"):
+            caches = init_caches(cfg, B, P + new, torch.float32, seq.device)
+            h, caches = model.hidden(seq[:, :P], caches=caches, wkv_impl=impl)
+            states[impl] = (model.logits(h[:, -1:]), caches)
+        got, want = states["auto"][1]["layers"], states["torch"][1]["layers"]
+        after: dict = {}
+        for part, name in (("time", "shift"), ("time", "wkv"), ("channel", "shift")):
+            _tally(after, f"{part} {name}", got[part][name], want[part][name], LAYER_TOL)
+        out["states_after_prompt"] = after
+        logits, caches = states.pop("torch")     # decoding goes on from the plain prefill
+        del states, got, want
+        steps = [logits[:, -1]]
+        for t in range(new - 1):
+            logits, caches = model(seq[:, P + t:P + t + 1], caches=caches)
+            steps.append(logits[:, -1])
+        out["served"] = logit_deviation(torch.stack(steps, 1), step_logits)
+        del caches
+    fresh = init_caches(cfg, B, P, torch.float32, seq.device)
+    out["prefill_layers"] = rwkv_layer_by_layer(model, seq[:, :P], caches=fresh)
+    return out
+
+
+def served_refusals(sv: dict) -> list[str]:
+    parts = []
+    if sv["served"]["bad"] > TF_RATE["served"] * sv["served"]["logits"]:
+        parts.append("served logits")
+    parts += [f"state after the prompt: {n}" for n, t in sv["states_after_prompt"].items()
+              if t["bad"] > 0]
+    parts += [f"prefill layer by layer: {n}" for n, t in sv["prefill_layers"].items()
+              if t["bad"] > 0]
+    return parts
+
+
+def rwkv_serving(args, device, gpu: str) -> dict:
+    """Score and serve rwkv6-1.6b at full width and depth."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.common import iter_leaves
+    from repro_torch.models.transformer import RWKVLM
+    from repro_torch.serve import Server
+
+    cfg = ARCHS[RWKV_ARCH]
+    rcfg = cfg.rwkv_config()
+    H, C = rcfg.num_heads, rcfg.head_dim
+    rng = np.random.default_rng(args.seed + 11)
+    t0 = time.perf_counter()
+    model = RWKVLM(cfg, device=device, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = 4 * n_params
+    wkv_bytes = cfg.num_layers * RW_BATCH * H * C * C * 4
+    shift_bytes = 2 * cfg.num_layers * RW_BATCH * cfg.d_model * 4
+    phase("rwkv model", t0, f"{cfg.name}: {n_params:,} float32 parameters"
+          f" ({weight_bytes / 1e9:.3f} GB), seed {args.seed}; float32 WKV states of"
+          f" {cfg.num_layers} layers {wkv_bytes / 1e9:.4f} GB, shift states"
+          f" {shift_bytes / 1e9:.4f} GB")
+    n_specs = sum(math.prod(s.shape) for _, s in iter_leaves(api.model_specs(cfg)))
+    check(n_params == n_specs, f"{cfg.name} holds {n_params:,} parameters, its specs {n_specs:,}")
+    # least times: the bf16 projections at the tensor-core peak, the float32
+    # low-rank products at the FMA peak and the 24 WKV passes at their bound;
+    # a decode step reads every weight but the embedding table (B rows of
+    # it) and reads and writes the WKV and shift states
+    wkv_ops, wkv_nbytes = wkv_work(RW_BATCH, RW_PROMPT, H)
+    wkv_bound_s = bound_ms(wkv_nbytes, wkv_ops)[0] / 1e3
+    bounds = {}
+    for name, every in (("prefill", False), ("forward", True)):
+        bf, f32 = rwkv_flops(cfg, RW_BATCH, RW_PROMPT, every)
+        bounds[name] = {"bf16_flops": bf, "f32_flops": f32, "bf16_s": bf / BF16_OPS_PER_S,
+                        "f32_s": f32 / FP32_OPS_PER_S, "wkv_s": cfg.num_layers * wkv_bound_s,
+                        "bound_s": bf / BF16_OPS_PER_S + f32 / FP32_OPS_PER_S
+                        + cfg.num_layers * wkv_bound_s}
+    table = model.embed.table
+    step_bytes = (weight_bytes - 4 * table.numel() + 4 * RW_BATCH * cfg.d_model
+                  + 2 * (wkv_bytes + shift_bytes))
+    step_bound_s = step_bytes / HBM_BYTES_PER_S
+    for name, b in bounds.items():
+        print(f"rwkv {cfg.name} bounds: {name} {b['bf16_flops'] / 1e12:.2f} TFLOP bf16"
+              f" ({b['bf16_s']:.4f} s at the bf16 peak), {b['f32_flops'] / 1e12:.3f} TFLOP"
+              f" float32 low-rank ({b['f32_s']:.4f} s), {cfg.num_layers} WKV passes"
+              f" ({b['wkv_s']:.4f} s), {b['bound_s']:.4f} s in all", flush=True)
+    print(f"rwkv {cfg.name} bounds: decode step {step_bytes / 1e9:.3f} GB,"
+          f" {step_bound_s * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, so at most"
+          f" {RW_BATCH / step_bound_s:.0f} tokens/s", flush=True)
+
+    # (a) scoring: every position's logits and the loss, through the kernel
+    batch_tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (RW_BATCH, RW_PROMPT + 1), np.int64)).to(device)
+    with torch.no_grad():      # warm-up at the full shape: cuBLAS plans, allocator blocks
+        api.make_loss_fn(model)({"tokens": batch_tokens.flip(0)})
+    t0 = time.perf_counter()
+    sc = rwkv_scoring(model, batch_tokens)
+    phase("rwkv scoring", t0, json.dumps(sc))
+    for what in ("forward_counts", "loss_counts"):
+        check(sc[what]["rwkv6_wkv"] == cfg.num_layers,
+              f"the {what.split('_')[0]} launched rwkv6_wkv {sc[what]['rwkv6_wkv']} times,"
+              f" not {cfg.num_layers}")
+    refused = scoring_refusals(sc)
+    check(not refused, f"scoring through the kernel refused by: {refused}"
+          f" ({json.dumps({k: sc[k] for k in ('logits', 'nll', 'layers')})})")
+    fwd_tps = RW_BATCH * RW_PROMPT / sc["forward_s"]
+    print(f"rwkv {cfg.name} scoring {RW_BATCH} x {RW_PROMPT}: forward {sc['forward_s']:.4f} s"
+          f" ({fwd_tps:.0f} tokens/s), loss {sc['loss_s']:.4f} s (loss {sc['loss']:.6f},"
+          f" plain {sc['plain_loss']:.6f}) [{gpu}]", flush=True)
+
+    # (b) serving
+    server = Server(cfg, model, device=device)
+    prompts = rng.integers(0, cfg.vocab_size, (RW_BATCH, RW_PROMPT), np.int32)
+    server.generate(prompts[::-1].copy(), max_new_tokens=2)      # warm-up at the full prompt
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    tokens, step_logits = server.generate(prompts, max_new_tokens=RW_NEW, return_logits=True)
+    counts = kernels.launch_counts()            # the serving path ends here
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = dict(server.last_stats)
+    phase("rwkv serve", t0, f"Server.generate {RW_BATCH} x {RW_PROMPT} + {RW_NEW};"
+          f" launches {json.dumps(counts)}")
+    check(counts["rwkv6_wkv"] == cfg.num_layers,
+          f"Server.generate launched rwkv6_wkv {counts['rwkv6_wkv']} times, not {cfg.num_layers}")
+    check(tokens.shape == (RW_BATCH, RW_PROMPT + RW_NEW), f"tokens {tokens.shape}")
+    check(bool((tokens[:, :RW_PROMPT] == prompts).all()), "the prompts came back changed")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size, "token ids out of range")
+    check(bool(torch.isfinite(step_logits).all()), "served logits are not finite")
+    t0 = time.perf_counter()
+    sv = rwkv_served_check(model, prompts, tokens, step_logits)
+    phase("rwkv teacher forcing", t0, f"{json.dumps(sv)} (tolerance {TF_TOL} (1 + |b|))")
+    refused = served_refusals(sv)
+    check(not refused, f"serving through the kernel refused by: {refused}")
+    del step_logits
+
+    # (c) controls: serve and score with known-wrong kernels; both must be refused
+    t0 = time.perf_counter()
+    controls = {}
+    for name, stand_in in WKV_CONTROLS.items():
+        with wkv_replaced(stand_in):
+            c_sc = rwkv_scoring(model, batch_tokens, floor=False)
+            ctokens, clogits = server.generate(prompts, max_new_tokens=RW_NEW,
+                                               return_logits=True)
+            c_sv = rwkv_served_check(model, prompts, ctokens, clogits)
+        del clogits
+        by = {"scoring": scoring_refusals(c_sc), "serving": served_refusals(c_sv)}
+        controls[name] = {"scoring": {k: c_sc[k] for k in ("logits", "nll", "loss_rel_err",
+                                                           "layers")},
+                          "serving": c_sv, "refused_by": by}
+        print(f"  control {name}: refused by {json.dumps(by)}", flush=True)
+        check(by["scoring"] and by["serving"],
+              f"the checks passed a run with {name}: refused by {json.dumps(by)}")
+    phase("rwkv controls", t0, json.dumps(controls))
+    torch.cuda.empty_cache()
+
+    serve = serve_profile("rwkv", model, server, prompts, RW_NEW, stats, peak_gb, gpu,
+                          forward=True)
+    serve.update({
+        "bounds": bounds, "weight_bytes": weight_bytes, "wkv_state_bytes": wkv_bytes,
+        "decode_step_bytes": step_bytes, "decode_step_bound_s": step_bound_s,
+        "served_check": sv, "controls": controls,
+    })
+    scoring = {k: v for k, v in sc.items()}
+    scoring["forward_tokens_per_s"] = fwd_tps
+    del server, model, batch_tokens
+    torch.cuda.empty_cache()
+    return {"counts": {"forward": sc["forward_counts"], "loss": sc["loss_counts"],
+                       "generate": counts},
+            "scoring": scoring, "serve": serve}
+
+
+def wkv_times(args, device) -> dict:
+    """The WKV kernel at rwkv6-1.6b's prefill shape beside its bound and its
+    plain version.  No single PyTorch call computes the recurrence."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6_cuda, wkv6_plain
+
+    B, T, H, decay, _ = WKV_CASES["rwkv6-1.6b prefill"]
+    (r, k, v, w, u), _ = wkv_inputs(B, T, H, decay, device, args.seed)
+    logw = log_decay(w)
+    ops, nbytes = wkv_work(B, T, H)
+    b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    out = {
+        "ms": time_cuda(lambda i: wkv6_cuda(r, k, v, logw, u), reps=REPS),
+        "plain_ms": time_cuda(lambda i: wkv6_plain(r, k, v, logw, u), reps=3),
+        "library_ms": None,
+        "device_ms": device_ms(lambda i: wkv6_cuda(r, k, v, logw, u), REPS, "wkv6_fwd"),
+        "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "shape": f"r/k/v/logw [{B}, {T}, {H}, 64] f32, u [{H}, 64], chunk 16,"
+                 f" {B * H} CTAs",
+    }
+    del r, k, v, w, u, logw
+    torch.cuda.empty_cache()
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1555,10 +2135,16 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["mamba2_ssd"] = ssd_parity(args, device)
     phase("ssd parity", t0, f"max |kernel - plain| {errs['mamba2_ssd']:.3g}")
+    t0 = time.perf_counter()
+    errs["rwkv6_wkv"] = wkv_parity(args, device)
+    phase("wkv parity", t0, f"max |kernel - plain| {errs['rwkv6_wkv']:.3g}")
 
     path = main_path(args, device)
     lm = lm_serving(args, device, gpu)
     hy = hybrid_serving(args, device, gpu)
+    t0 = time.perf_counter()
+    rw = rwkv_serving(args, device, gpu)
+    phase("rwkv", t0)
 
     t0 = time.perf_counter()
     tm = times(args, device)
@@ -1569,6 +2155,8 @@ def main() -> int:
           f" {json.dumps(tm['flash_attention_d112'])} [{gpu}]", flush=True)
     tm["mamba2_ssd"] = ssd_times(args, device)
     print(f"mamba2_ssd times: {json.dumps(tm['mamba2_ssd'])} [{gpu}]", flush=True)
+    tm["rwkv6_wkv"] = wkv_times(args, device)
+    print(f"rwkv6_wkv times: {json.dumps(tm['rwkv6_wkv'])} [{gpu}]", flush=True)
     phase("times", t0)
 
     replaces = {
@@ -1577,15 +2165,21 @@ def main() -> int:
         "plan_sketch": "src/repro/kernels/plan/kernel.py:129",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
         "mamba2_ssd": "src/repro/kernels/mamba2_ssd/kernel.py:69",
+        "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:76",
     }
     launches = {k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch", "plan_sketch")}
     # flash's row: llama3.2-1b's generate; zamba2-7b's is in launches_by_path
     launches["flash_attention"] = lm["counts"]["flash_attention"]
     launches["mamba2_ssd"] = hy["counts"]["mamba2_ssd"]
+    # rwkv6_wkv's row: rwkv6-1.6b's stateless forward; the loss and the
+    # generate are in launches_by_path
+    launches["rwkv6_wkv"] = rw["counts"]["forward"]["rwkv6_wkv"]
     by_path = {
         "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
                             "zamba2-7b generate": hy["counts"]["flash_attention"]},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},
+        "rwkv6_wkv": {f"rwkv6-1.6b {p}": rw["counts"][p]["rwkv6_wkv"]
+                      for p in ("forward", "loss", "generate")},
     }
     record = {"kernels": [
         {
@@ -1610,6 +2204,8 @@ def main() -> int:
     print(f"end_to_end: {json.dumps(path['e2e'])}", flush=True)
     print(f"serving: {json.dumps({k: v for k, v in lm.items() if k != 'counts'})}", flush=True)
     print(f"hybrid serving: {json.dumps(hy['serve'])}", flush=True)
+    print(f"rwkv scoring: {json.dumps(rw['scoring'])}", flush=True)
+    print(f"rwkv serving: {json.dumps(rw['serve'])}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
@@ -1618,7 +2214,8 @@ def main() -> int:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
              "flash_attention_d112": tm["flash_attention_d112"],
-             "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy, "gpu": gpu},
+             "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
+             "rwkv": rw, "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

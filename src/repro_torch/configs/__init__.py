@@ -2,10 +2,10 @@
 reduced smoke variants, and the shape cells.
 
 ``ARCHS`` holds the five dense architectures (llama3.2-1b, qwen2-0.5b,
-qwen3-14b, granite-20b, chameleon-34b) and the zamba2-7b hybrid at their
-published widths; ``smoke_config`` shrinks them exactly as the
-reference's does.  The MoE, RWKV and encoder configs come with their
-families.
+qwen3-14b, granite-20b, chameleon-34b), the zamba2-7b hybrid and
+rwkv6-1.6b at their published widths; ``smoke_config`` shrinks them
+exactly as the reference's does.  The MoE and encoder configs come with
+their families.
 """
 
 from __future__ import annotations
@@ -17,12 +17,14 @@ from repro_torch.configs.granite_20b import CONFIG as GRANITE_20B
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA32_1B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_05B
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3_14B
+from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6_1_6B
 from repro_torch.configs.shapes import SHAPES, ShapeCell
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, CHAMELEON_34B]
+    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, RWKV6_1_6B,
+                        CHAMELEON_34B]
 }
 
 
@@ -42,6 +44,8 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.family == "hybrid":
         # exercise the epilogue: 5 layers, shared attn every 2 -> 2 rounds + 1
         shrink.update(num_layers=5, attn_every=2, ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.family == "rwkv":
+        shrink.update(rwkv_head_dim=16, lora_rank=8, num_heads=4, num_kv_heads=4)
     return dataclasses.replace(cfg, **shrink)
 
 

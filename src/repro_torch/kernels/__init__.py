@@ -8,6 +8,7 @@ version and a launch counter.
   plan           fused filter / project / group-by sketch
   flash_attention  online-softmax attention with grouped-query heads
   mamba2_ssd     the Mamba2 SSD chunked scan (zamba2's SSM layers)
+  rwkv6_wkv      the RWKV6 WKV recurrence (rwkv6's time mix)
 
 Importing this package imports no kernel: the subpackages load the library
 only when a wrapper is called on a CUDA tensor.
@@ -22,9 +23,10 @@ def _counters() -> dict:
     from repro_torch.kernels.mamba2_ssd.kernel import LAUNCHES as mamba2_ssd
     from repro_torch.kernels.plan.kernel import LAUNCHES as plan_sketch
     from repro_torch.kernels.rsp_shuffle.kernel import LAUNCHES as rsp_shuffle
+    from repro_torch.kernels.rwkv6_wkv.kernel import LAUNCHES as rwkv6_wkv
 
     return {"rsp_shuffle": rsp_shuffle, "block_sketch": block_sketch, "plan_sketch": plan_sketch,
-            "flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd}
+            "flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd, "rwkv6_wkv": rwkv6_wkv}
 
 
 def launch_counts() -> dict[str, int]:

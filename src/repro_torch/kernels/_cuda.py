@@ -59,6 +59,7 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *([_L] * 12), _I, _F, _P],
     ),
     "mamba2_ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rwkv6_wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,0 +1,74 @@
+"""The public WKV6 recurrence: the decay's log, padding and the impl
+dispatcher.
+
+``wkv6(r, k, v, w, u, h0=None, impl=...)`` returns (y ``[B, T, H, C]``,
+h_final ``[B, H, C, C]``), both float32, with the reference wrapper's
+semantics (``repro/kernels/rwkv6_wkv/ops.py``): the decay w arrives in
+(0, 1) and becomes ``logw = log(max(w, 1e-38))`` -- a decay that
+underflowed to 0 takes the clamped log, -87.5 -- and T is padded to a
+multiple of the chunk with identity steps (log-decay 0, k = 0, which leave
+the state as it is), y cut back to T.
+
+* ``impl="torch"`` -- the plain chunked form (any device), at
+  ``Q = min(16, T)`` as the reference takes it.
+* ``impl="cuda"``  -- the CUDA kernel (CUDA tensors only; a CPU tensor
+  raises), always at its chunk of 16: a sequence shorter than 16 is one
+  padded chunk, the same sums, since a padded step adds nothing to any
+  position.
+* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise.
+
+Unlike the reference's Pallas path, which runs only without a state
+(``repro/models/rwkv6.py:144``), both impls start from ``h0`` when it is
+given: ``wkv6_scan(..., h0=h0)``'s function.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rwkv6_wkv.kernel import CHUNK, wkv6_cuda, wkv6_plain
+
+IMPLS = ("auto", "torch", "cuda")
+LOG_DECAY_FLOOR = 1e-38   # the reference's clamp before the log
+
+
+def resolve_impl(impl: str, x: torch.Tensor) -> str:
+    """``auto`` -> ``cuda`` on a CUDA tensor, ``torch`` otherwise."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (one of {IMPLS})")
+    if impl == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    return impl
+
+
+def log_decay(w: torch.Tensor) -> torch.Tensor:
+    """``log(max(w, 1e-38))`` in float32."""
+    return torch.log(torch.clamp_min(w.to(torch.float32), LOG_DECAY_FLOOR))
+
+
+def wkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    h0: torch.Tensor | None = None,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    logw = log_decay(w)
+    if resolve_impl(impl, r) == "torch":
+        return wkv6_plain(r, k, v, logw, u, h0=h0, chunk=CHUNK)
+    T = r.shape[1]
+    pad = (-T) % CHUNK
+    args = []
+    for t in (r, k, v, logw):
+        t = t.to(torch.float32)
+        if pad:
+            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+        args.append(t.contiguous())
+    if h0 is not None:
+        h0 = h0.to(torch.float32).contiguous()
+    y, h = wkv6_cuda(*args, u.to(torch.float32).contiguous(), h0=h0)
+    return (y[:, :T] if pad else y), h

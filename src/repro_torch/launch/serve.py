@@ -5,6 +5,7 @@ block ensemble (Sec. 9's combination at decode time).
     python -m repro_torch.launch.serve --arch llama3.2-1b --preset full
     python -m repro_torch.launch.serve --arch zamba2-7b --preset full
     python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset full
 
 Prints tokens per second beside the device's name.
 """

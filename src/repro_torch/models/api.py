@@ -1,10 +1,13 @@
-"""Public model API: specs and the functions that make the serve steps.
+"""Public model API: specs and the functions that make the forward, loss
+and serve steps.
 
 The step functions close over a model -- a :class:`~repro_torch.models.
-transformer.DenseLM` or :class:`~repro_torch.models.transformer.HybridLM`,
-which holds its parameters -- and take ``(caches, batch)`` with
-``batch = {"tokens": [B, S]}``, where the reference's take
-``(params, caches, batch)``.
+transformer.DenseLM`, :class:`~repro_torch.models.transformer.HybridLM` or
+:class:`~repro_torch.models.transformer.RWKVLM`, which holds its
+parameters.  The serve steps take ``(caches, batch)`` with ``batch =
+{"tokens": [B, S]}``, where the reference's take ``(params, caches,
+batch)``; the forward and the loss take ``(batch)`` where the reference's
+take ``(params, batch)``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,25 @@ from repro_torch.models.transformer import LM
 
 def model_specs(cfg: ModelConfig):
     return transformer.model_specs(cfg)
+
+
+def make_loss_fn(model: LM):
+    """The training loss: ``batch = {"tokens": [B, S + 1]}`` -> (loss,
+    {"ce", "aux"})."""
+    def f(batch):
+        return transformer.loss_fn(model, batch)
+
+    return f
+
+
+def make_forward_fn(model: LM):
+    """The stateless forward: ``batch = {"tokens": [B, S]}`` -> every
+    position's logits [B, S, V] (bf16)."""
+    def f(batch):
+        logits, _, _ = transformer.forward_lm(model, batch["tokens"])
+        return logits
+
+    return f
 
 
 def make_prefill_fn(model: LM):

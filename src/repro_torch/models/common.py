@@ -144,6 +144,10 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(x.dtype)
 
 
+def layernorm_spec(d: int) -> Tree:
+    return {"scale": ParamSpec((d,), "ones"), "bias": ParamSpec((d,), "zeros")}
+
+
 def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.to(torch.float32)
     mu = x32.mean(dim=-1, keepdim=True)
@@ -190,3 +194,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's cross entropy [...] in float32: ``logsumexp`` minus
+    the gold logit."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return logz - gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean of ``token_nll`` over the (optionally masked) positions."""
+    nll = token_nll(logits, labels)
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -1,8 +1,8 @@
-"""Model configuration: the fields the dense decoder and the zamba2
-hybrid families read.
+"""Model configuration: the fields the dense decoder, the zamba2 hybrid
+and the RWKV6 families read.
 
-The reference's MoE, RWKV and encoder fields (and its ``use_pallas``
-switch: here attention and the SSD scan take their kernels whenever their
+The reference's MoE and encoder fields (and its ``use_pallas`` switch:
+here attention, the SSD scan and the WKV take their kernels whenever their
 tensors are on the card) come with the families that read them.
 """
 
@@ -12,12 +12,13 @@ import dataclasses
 
 from repro_torch.models.attention import AttentionConfig
 from repro_torch.models.mamba2 import Mamba2Config
+from repro_torch.models.rwkv6 import RWKV6Config
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | hybrid (moe | rwkv | encoder not ported yet)
+    family: str                 # dense | hybrid | rwkv (moe | encoder not ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,6 +41,9 @@ class ModelConfig:
     conv_kernel: int = 4
     ssm_chunk: int = 128
     attn_every: int = 0         # hybrid: shared attn block period
+    # rwkv
+    rwkv_head_dim: int = 64
+    lora_rank: int = 32
 
     @property
     def resolved_head_dim(self) -> int:
@@ -67,5 +71,14 @@ class ModelConfig:
             expand=self.ssm_expand,
             conv_kernel=self.conv_kernel,
             chunk=self.ssm_chunk,
+            norm_eps=self.norm_eps,
+        )
+
+    def rwkv_config(self) -> RWKV6Config:
+        return RWKV6Config(
+            d_model=self.d_model,
+            d_ff=self.d_ff,
+            head_dim=self.rwkv_head_dim,
+            lora_rank=self.lora_rank,
             norm_eps=self.norm_eps,
         )

@@ -3,7 +3,8 @@
 
 The activations repeat the reference's arithmetic in the activations' own
 dtype, one rounding per operation, constants rounded to that dtype first:
-``jax.nn.silu`` is ``x * (1 / (1 + exp(-x)))`` and ``jax.nn.gelu`` (tanh
+``jax.nn.sigmoid`` is ``1 / (1 + exp(-x))``, ``jax.nn.silu`` is ``x *
+sigmoid(x)`` and ``jax.nn.gelu`` (tanh
 approximation, its default) is ``x * (0.5 * (1 + tanh(c * (x + 0.044715 *
 x**3))))``.  PyTorch's fused ``F.silu`` / ``F.gelu`` round once from float32
 and give other bf16 values for about a third of the inputs.
@@ -22,8 +23,12 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(torch.exp(-x) + _const(1.0, x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.reciprocal(torch.exp(-x) + _const(1.0, x))
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,16 @@
   hidden)`` -- followed by ``attn_every`` pre-norm Mamba2 layers, an
   epilogue round for the remainder (81 = 13 * 6 + 3), the final RMS norm
   and the unembedding.
+* :class:`RWKVLM` (rwkv6): embedding, an input layer norm, a ``ModuleList``
+  of RWKV6 layers (layer norm, time mix, residual; layer norm, channel mix,
+  residual), an output layer norm and the separate unembedding.
 
 Parameters are float32 and laid out as the reference lays them out, so a
 reference parameter tree -- numpy arrays, layers stacked on the leading
 axis as ``model_specs`` gives them (the hybrid's ``rounds`` twice,
 ``[rounds, attn_every, ...]``, its ``epilogue`` once) -- loads as it is
-(``DenseLM(cfg, params=tree)``, ``HybridLM(cfg, params=tree)``), and fresh
+(``DenseLM(cfg, params=tree)``, ``HybridLM(cfg, params=tree)``,
+``RWKVLM(cfg, params=tree)``), and fresh
 weights are drawn at the reference's scales from an explicit
 ``torch.Generator``.
 
@@ -22,17 +26,23 @@ and the residual stream (attention's output added in, before the MLP's
 norm), the norm reads the float32 sum and the residual its bf16 rounding:
 the reference's layers, jitted by XLA on the host, drop the bf16 round
 trip in front of the norm's float32 cast and keep it on the residual path,
-and the port follows that to the bit.
+and the port follows that to the bit.  The RWKV6 layer's residual sum
+after the time mix feeds the channel mix's layer norm the same way.
 
 Decode caches are updated in place.  Dense: ``{"layers": {"k", "v": [L, B,
 Hkv, T, D], "length": int}, "pos": int}``, the reference's stacked layout
 with one length for all layers.  Hybrid: ``{"layers": {"attn": {"k", "v":
 [invocations, B, Hkv, T, D], "length": int}, "mamba": {"conv": [L, B, K-1,
 Ch], "ssm": [L, B, H, P, N]}}, "pos": int}``: one KV cache per invocation
-of the shared block, one state per Mamba2 layer.
+of the shared block, one state per Mamba2 layer.  RWKV6: ``{"layers":
+{"time": {"shift": [L, B, 1, d], "wkv": [L, B, H, C, C]}, "channel":
+{"shift": [L, B, 1, d]}}, "pos": int}``; the channel mix's shift comes back
+in the activations' dtype (bf16), as the reference's does, so a float32
+one is replaced by a bf16 copy at the first pass.
 
-The MoE, RWKV and encoder families raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+The training losses ``lm_loss`` / ``loss_fn`` take the model and a batch
+of ``tokens [B, S + 1]``.  The MoE and encoder families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ffn, mamba2
+from repro_torch.models import ffn, mamba2, rwkv6
 from repro_torch.models.common import (
     Params,
     Tree,
@@ -53,11 +63,14 @@ from repro_torch.models.common import (
     embedding_spec,
     init_params,
     iter_leaves,
+    layernorm,
+    layernorm_spec,
     linear,
     linear_spec,
     rmsnorm,
     rmsnorm_spec,
     set_leaf,
+    softmax_cross_entropy,
     stack_specs,
     unembed_logits,
 )
@@ -65,7 +78,6 @@ from repro_torch.models.config import ModelConfig
 
 NOT_PORTED = {
     "moe": "the MoE family (router and dispatch) waits for ROADMAP section 1, item 8",
-    "rwkv": "the RWKV6 family (rwkv6_wkv) waits for ROADMAP section 1, item 1",
     "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 9",
 }
 
@@ -115,6 +127,16 @@ def _mamba_layer_specs(cfg: ModelConfig) -> Tree:
     return {"norm": rmsnorm_spec(cfg.d_model), "mamba": mamba2.mamba2_specs(cfg.mamba_config())}
 
 
+def _rwkv_layer_specs(cfg: ModelConfig) -> Tree:
+    rcfg = cfg.rwkv_config()
+    return {
+        "ln1": layernorm_spec(cfg.d_model),
+        "time": rwkv6.rwkv6_timemix_specs(rcfg),
+        "ln2": layernorm_spec(cfg.d_model),
+        "channel": rwkv6.rwkv6_channelmix_specs(rcfg),
+    }
+
+
 def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     """(full_rounds, layers_per_round, epilogue_mamba_layers)."""
     period = max(cfg.attn_every, 1)
@@ -135,6 +157,13 @@ def model_specs(cfg: ModelConfig) -> Tree:
         }
         if rem:
             specs["epilogue"] = stack_specs(layer, rem)
+    elif cfg.family == "rwkv":
+        specs = {
+            "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
+            "ln_in": layernorm_spec(cfg.d_model),
+            "layers": stack_specs(_rwkv_layer_specs(cfg), cfg.num_layers),
+            "ln_out": layernorm_spec(cfg.d_model),
+        }
     else:
         specs = {
             "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
@@ -219,13 +248,14 @@ def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int):
 
 
 class _LM(nn.Module):
-    """What both LMs share: embedding, final norm, unembedding, and the
-    forward that unembeds every position."""
+    """What the LMs share: embedding, the norms at the ends of the stack,
+    unembedding, and the forward that unembeds every position."""
 
-    def _init_ends(self, cfg: ModelConfig, params: Tree) -> None:
+    def _init_ends(self, cfg: ModelConfig, params: Tree, norms=("final_norm",)) -> None:
         self.cfg = cfg
         self.embed = Params(params["embed"])
-        self.final_norm = Params(params["final_norm"])
+        for name in norms:
+            setattr(self, name, Params(params[name]))
         self.unembed = None if cfg.tie_embeddings else Params(params["unembed"])
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -233,6 +263,7 @@ class _LM(nn.Module):
         return unembed_logits(table, h)
 
     def forward(self, tokens: torch.Tensor, *, caches: Any = None):
+        """Every position's logits and the new caches."""
         h, new_caches = self.hidden(tokens, caches=caches)
         return self.logits(h), new_caches
 
@@ -383,8 +414,80 @@ class HybridLM(_LM):
         return h, new_caches
 
 
-LM = DenseLM | HybridLM
-MODELS = {"dense": DenseLM, "hybrid": HybridLM}
+class RWKVLayer(nn.Module):
+    """RWKV6 layer: h + time_mix(ln1(h)), then + channel_mix(ln2(h))."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.rcfg = cfg.rwkv_config()
+        for name in ("ln1", "time", "ln2", "channel"):
+            setattr(self, name, Params(params[name]))
+
+    def time_mix(self, h, state=None, *, wkv_impl: str = "auto"):
+        """The time mix's output, its new state and the WKV's (y, h_final)."""
+        t_in = layernorm(self.ln1, h, eps=self.cfg.norm_eps)
+        return rwkv6.rwkv6_timemix_apply(self.time, t_in, self.rcfg, state=state,
+                                         wkv_impl=wkv_impl)
+
+    def forward(self, h, state=None, *, wkv_impl: str = "auto"):
+        t_out, new_t, _ = self.time_mix(h, state["time"] if state is not None else None,
+                                        wkv_impl=wkv_impl)
+        # the norm reads the float32 sum and the residual its bf16 rounding
+        # (see the module's notes)
+        h32 = h.float() + t_out.float()
+        c_in = layernorm(self.ln2, h32, eps=self.cfg.norm_eps).to(h.dtype)
+        c_out, new_c = rwkv6.rwkv6_channelmix_apply(
+            self.channel, c_in, self.rcfg, state=state["channel"] if state is not None else None)
+        new_state = None if state is None else {"time": new_t, "channel": new_c}
+        return h32.to(h.dtype) + c_out, new_state
+
+
+class RWKVLM(_LM):
+    """The RWKV6 LM on ``device`` (the card unless ``"cpu"`` is asked for).
+    ``params`` is a reference-layout tree; without it the weights are drawn
+    from ``torch.Generator(device)`` seeded with ``seed``, at the
+    reference's scales."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        _require_class(cfg, RWKVLM)
+        params, _ = _build_params(cfg, params, device, seed)
+        self._init_ends(cfg, params, norms=("ln_in", "ln_out"))
+        self.layers = nn.ModuleList(
+            RWKVLayer(cfg, _layer_tree(params["layers"], i)) for i in range(cfg.num_layers))
+
+    def hidden(self, tokens: torch.Tensor, *, caches: Any = None, wkv_impl: str = "auto"):
+        """Output-normed hidden states [B, S, d] (bf16) and the new caches.
+        Every pass of more than one token runs each layer's WKV through
+        ``wkv_impl`` (the kernel on the card by default); a decode step is
+        one recurrence step."""
+        h = layernorm(self.ln_in, embed(self.embed, tokens), eps=self.cfg.norm_eps)
+        layers = None
+        if caches is not None:
+            lc = caches["layers"]
+            channel = lc["channel"]["shift"]
+            if channel.dtype != h.dtype:     # the reference's cast (see the module's notes)
+                channel = channel.to(h.dtype)
+            layers = {"time": dict(lc["time"]), "channel": {"shift": channel}}
+        for i, layer in enumerate(self.layers):
+            state = None
+            if layers is not None:
+                state = {part: {name: t[i] for name, t in ts.items()} for part, ts in layers.items()}
+            h, new_state = layer(h, state, wkv_impl=wkv_impl)
+            if new_state is not None:
+                for part, ts in new_state.items():
+                    for name, t in ts.items():
+                        state[part][name].copy_(t)
+        new_caches = None
+        if layers is not None:
+            new_caches = {"layers": layers, "pos": caches["pos"] + tokens.shape[1]}
+        return layernorm(self.ln_out, h, eps=self.cfg.norm_eps), new_caches
+
+
+LM = DenseLM | HybridLM | RWKVLM
+MODELS = {"dense": DenseLM, "hybrid": HybridLM, "rwkv": RWKVLM}
 
 
 def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0) -> LM:
@@ -403,12 +506,28 @@ def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None):
     return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
 
 
+def lm_loss(model: LM, batch: dict):
+    """Next-token cross entropy of ``batch["tokens"]`` [B, S + 1]: the
+    first S tokens predict the last S; returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    logits, _, aux = forward_lm(model, tokens[:, :-1])
+    ce = softmax_cross_entropy(logits, tokens[:, 1:])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def loss_fn(model: LM, batch: dict):
+    """The family's training loss (the LM families: ``lm_loss``)."""
+    return lm_loss(model, batch)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                 device="cuda") -> dict:
     """Zeroed decode caches: every attention layer's (dense) or every shared
     block invocation's (hybrid) ``attention.init_cache`` stacked on a leading
     axis, and every Mamba2 layer's ``init_mamba_state`` (hybrid), the conv
-    windows in ``dtype`` and the SSM states in float32."""
+    windows in ``dtype`` and the SSM states in float32, or every RWKV6
+    layer's ``init_rwkv_state`` (rwkv), the shifts in ``dtype`` and the WKV
+    states in float32."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -417,12 +536,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev), "length": 0}
 
+    def stacked(state: dict) -> dict:
+        return {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=dev)
+                for name, t in state.items()}
+
     if cfg.family == "dense":
         return {"layers": kv(cfg.num_layers), "pos": 0}
+    if cfg.family == "rwkv":
+        state = rwkv6.init_rwkv_state(cfg.rwkv_config(), batch, dtype, dev)
+        return {"layers": {part: stacked(s) for part, s in state.items()}, "pos": 0}
     full, _, rem = hybrid_layout(cfg)
-    state = mamba2.init_mamba_state(cfg.mamba_config(), batch, dtype, dev)
-    mamba = {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=dev)
-             for name, t in state.items()}
+    mamba = stacked(mamba2.init_mamba_state(cfg.mamba_config(), batch, dtype, dev))
     return {"layers": {"attn": kv(full + (1 if rem else 0)), "mamba": mamba}, "pos": 0}
 
 

@@ -1,5 +1,8 @@
-"""Batched serving engine: prefill, then KV-cache (and SSM-state) decode,
-for either model class (``DenseLM``, ``HybridLM``).
+"""Batched serving engine: prefill, then KV-cache, SSM-state or RWKV-state
+decode, for every model class (``DenseLM``, ``HybridLM``, ``RWKVLM``).
+The caches are float32, as the reference's ``Server`` makes them: a
+served RWKV6 pass shifts its tokens in float32 where a stateless one
+shifts in bf16.
 
 ``EnsembleServer`` realises the paper's asymptotic-ensemble idea at serve
 time: the log-probabilities of k models trained on disjoint RSP block
@@ -66,8 +69,8 @@ class _Clock:
 
 
 class Server:
-    """Serves one model (``DenseLM`` or ``HybridLM``) on ``device`` (the
-    card unless ``"cpu"`` is asked for)."""
+    """Serves one model (``DenseLM``, ``HybridLM`` or ``RWKVLM``) on
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
 
     def __init__(self, cfg: ModelConfig, model: LM, serve_cfg: ServeConfig | None = None,
                  *, device="cuda"):

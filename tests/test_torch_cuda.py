@@ -9,8 +9,8 @@ neither ``jax`` nor ``repro``, so it runs on a machine with the card alone:
 Tolerances: shuffles, histograms, counts and ``nsel`` exact; moments within
 1e-5 relative (the kernels sum in another order than the plain versions);
 flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
-scan within 2e-4, the reference's own tolerances for its Pallas kernels
-(``tests/test_kernels.py``).
+scan and the WKV within 2e-4, the reference's own tolerances for its Pallas
+kernels (``tests/test_kernels.py``).
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -30,6 +30,7 @@ from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain
+from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -287,3 +288,79 @@ def test_ssd_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="chunk 128"):
         ssd(x, dA, Bm, Cm, chunk=64)
     assert kernels.launch_counts()["mamba2_ssd"] == 0
+
+
+def _wkv_arrays(B, T, H, decay, seed, with_h0=False):
+    """r, k, v [B, T, H, 64], the decay w in (0, 1), u [H, 64] and h0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, T, H, 64)).astype(np.float32) for _ in range(3))
+    if decay == "weak":
+        # k / sqrt(T) keeps the nearly undecayed state O(1) (chip_smoke.py)
+        k *= T ** -0.5
+        w = rng.uniform(0.999, 1.0, size=(B, T, H, 64))
+    elif decay == "underflow":   # 1e-6, a quarter underflowed to 0
+        w = np.where(rng.random((B, T, H, 64)) < 0.25, 0.0, 1e-6)
+    else:                        # the model's: exp(-exp(w0 + noise)), w0 ~ N(0, 0.5)
+        w0 = 0.5 * rng.normal(size=(H, 64))
+        w = np.exp(-np.exp(w0 + 0.3 * rng.normal(size=(B, T, H, 64))))
+    u = 0.5 * rng.normal(size=(H, 64))
+    h0 = rng.normal(size=(B, H, 64, 64)).astype(np.float32) if with_h0 else None
+    return [torch.from_numpy(a) for a in (r, k, v, w.astype(np.float32), u.astype(np.float32))], (
+        None if h0 is None else torch.from_numpy(h0))
+
+
+WKV_CASES = {
+    # name: B, T, H, decay, h0
+    "model decays": (2, 512, 4, "model", False),
+    "weak decay over 64 chunks": (1, 1024, 2, "weak", False),
+    "strong decay with underflow": (1, 256, 4, "underflow", False),
+    "from h0": (2, 256, 3, "model", True),
+    "rwkv6-1.6b heads, B = 1": (1, 256, 32, "model", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WKV_CASES))
+def test_wkv_kernel_matches_plain(dev, name):
+    B, T, H, decay, with_h0 = WKV_CASES[name]
+    arrays, h0 = _wkv_arrays(B, T, H, decay, seed=T + H, with_h0=with_h0)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    h0 = None if h0 is None else h0.to(dev)
+    logw = log_decay(w)
+    y, h = wkv6_cuda(r, k, v, logw, u, h0=h0)
+    want_y, want_h = wkv6_plain(r, k, v, logw, u, h0=h0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_wkv_auto_impl_pads_a_ragged_length_from_h0_and_counts(dev):
+    arrays, h0 = _wkv_arrays(2, 37, 3, "model", seed=4, with_h0=True)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    h0 = h0.to(dev)
+    kernels.reset_launch_counts()
+    y, h = wkv6(r, k, v, w, u, h0=h0)
+    assert kernels.launch_counts()["rwkv6_wkv"] == 1
+    assert y.shape == (2, 37, 3, 64) and h.shape == (2, 3, 64, 64)
+    for want_y, want_h in (wkv6(r, k, v, w, u, h0=h0, impl="torch"),
+                           wkv6_scan(r, k, v, w, u, h0=h0)):
+        torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_wkv_kernel_refuses_what_it_does_not_take(dev):
+    arrays, _ = _wkv_arrays(1, 32, 2, "model", seed=1)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    logw = log_decay(w)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_cuda(r.double(), k, v, logw, u)
+    with pytest.raises(ValueError, match="but the block is on"):
+        wkv6_cuda(r, k, v, logw.cpu(), u)
+    with pytest.raises(ValueError, match="multiple of the kernel's chunk"):
+        wkv6_cuda(*(a[:, :20].contiguous() for a in (r, k, v, logw)), u)
+    with pytest.raises(ValueError, match="head dim 64"):
+        wkv6_cuda(*(a[..., :32].contiguous() for a in (r, k, v, logw)), u[:, :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, logw, u)
+    assert kernels.launch_counts()["rwkv6_wkv"] == 0

@@ -21,7 +21,8 @@ from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
 from repro_torch.kernels.mamba2_ssd import ssd_cuda
-from repro_torch.models.transformer import DenseLM, HybridLM, init_caches
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_cuda
+from repro_torch.models.transformer import DenseLM, HybridLM, RWKVLM, init_caches
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, compile_plan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda
@@ -41,7 +42,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import sys, repro_torch, repro_torch.rsp, repro_torch.kernels.plan, "
         "repro_torch.data, repro_torch.obs, repro_torch.kernels.flash_attention, "
         "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store, "
-        "repro_torch.kernels.mamba2_ssd, repro_torch.models.mamba2\n"
+        "repro_torch.kernels.mamba2_ssd, repro_torch.models.mamba2, "
+        "repro_torch.kernels.rwkv6_wkv, repro_torch.models.rwkv6\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'jaxlib') "
         "or m.startswith(('jax.', 'repro.', 'jaxlib.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -94,6 +96,8 @@ LM_ENTRY_POINTS = {
     "init_caches": lambda: init_caches(smoke_config("llama3.2-1b"), 1, 8),
     "HybridLM": lambda: HybridLM(smoke_config("zamba2-7b")),
     "init_caches(hybrid)": lambda: init_caches(smoke_config("zamba2-7b"), 1, 8),
+    "RWKVLM": lambda: RWKVLM(smoke_config("rwkv6-1.6b")),
+    "init_caches(rwkv)": lambda: init_caches(smoke_config("rwkv6-1.6b"), 1, 8),
     "restore": lambda: store.restore(str(ROOT / "no_such_checkpoint"), 0),
     "launch.serve": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main([]),
 }
@@ -163,6 +167,11 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
         flash_attention_cuda(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention_cuda(torch.zeros((1, 3, 16, 64)), kv, kv)
+    rkvw, u = torch.full((1, 16, 2, 64), 0.5), torch.zeros((2, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6(rkvw, rkvw, rkvw, rkvw, u, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6_cuda(rkvw, rkvw, rkvw, rkvw, u)
 
 
 def _on_another_device():
@@ -181,6 +190,9 @@ def _on_another_device():
         "mamba2_ssd": lambda: ssd_cuda(torch.zeros((1, 128, 2, 64)),
                                        *(torch.zeros(s, device=meta)
                                          for s in ((1, 128, 2), (1, 128, 64), (1, 128, 64)))),
+        "rwkv6_wkv": lambda: wkv6_cuda(*(torch.zeros((1, 16, 2, 64)) for _ in range(3)),
+                                       torch.zeros((1, 16, 2, 64), device=meta),
+                                       torch.zeros((2, 64))),
         "rsp_shuffle": lambda: rsp_shuffle_cuda(x, tp, ip, tile_rows=32),
         "block_sketch": lambda: block_sketch_cuda(x, lo, invw, bins=4),
         "plan_sketch": lambda: plan_sketch_cuda(x, arrays, None, None, bins=0),
@@ -213,8 +225,10 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
                    device="cpu").generate(prompts, max_new_tokens=2)
     hcfg = smoke_config("zamba2-7b")
     Server(hcfg, HybridLM(hcfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=2)
+    rcfg = smoke_config("rwkv6-1.6b")
+    Server(rcfg, RWKVLM(rcfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=2)
     assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
-                                       "flash_attention": 0, "mamba2_ssd": 0}
+                                       "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
 
 
 def test_cuda_build_is_keyed_by_sources(tmp_path):
@@ -224,5 +238,5 @@ def test_cuda_build_is_keyed_by_sources(tmp_path):
     assert len(key) == 16 and key == _cuda.source_hash()
     assert {p.name for p in _cuda._sources()} == {
         "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu",
-        "mamba2_ssd.cu"}
+        "mamba2_ssd.cu", "rwkv6_wkv.cu"}
     assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
