@@ -9,7 +9,10 @@ Phases, one line each with its seconds:
 
 1. build     -- compile the six CUDA kernels (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
-                ``build/``;
+                ``build/``, and print the registers, spills and shared
+                memory of the kernels redesigned for Hopper (flash's
+                wgmma + TMA kernel at each head dim, the shuffle's staged
+                and row kernels) from the ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative and histograms
@@ -673,7 +676,8 @@ def times(args, device) -> dict:
     from repro_torch.kernels.plan import PlanArrays, QueryPlan
     from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
     from repro_torch.kernels.rsp_shuffle import (
-        flat_gather_index, partition_permutations, rsp_shuffle_cuda, rsp_shuffle_plain)
+        flat_gather_index, partition_permutations, rsp_shuffle_cuda, rsp_shuffle_plain,
+        shuffle_path)
 
     P = K = BLOCKS
     R = args.records // P
@@ -687,13 +691,17 @@ def times(args, device) -> dict:
     xf = x.reshape(P * R, F)
     nbytes = 2 * x.numel() * 4 + tp.numel() * 4 + ip.numel() * 4
     b, by = bound_ms(nbytes, 0)
+    # the staged kernel at the HIGGS tile (1100 x 116 B), the row kernel at
+    # --records 1100000's (110 x 116 B)
+    path = shuffle_path(delta, F * 4, x_ptr=x.data_ptr())
     out["rsp_shuffle"] = {
         "ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), reps=5),
         "plain_ms": time_cuda(lambda i: rsp_shuffle_plain(x, tp, ip, tile_rows=delta), reps=5),
         "library_ms": time_cuda(lambda i: xf.index_select(0, flat), reps=5),
         "device_ms": device_ms(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), 5,
-                               "rsp_shuffle_kernel"),
-        "bound_ms": b, "bound_by": by, "shape": f"[{P}, {R}, {F}] f32, tile {delta}, one launch",
+                               f"rsp_shuffle_{path}"),
+        "bound_ms": b, "bound_by": by,
+        "shape": f"[{P}, {R}, {F}] f32, tile {delta}, one launch, {path} kernel",
     }
     del x, xf, flat, tp, ip
 
@@ -1511,7 +1519,7 @@ def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
         "library_ms": time_cuda(
             lambda i: F.scaled_dot_product_attention(qc, ke, ve, is_causal=causal), reps=REPS),
         "device_ms": device_ms(lambda i: flash_attention_cuda(q, k, v, causal=causal), REPS,
-                               "fa_fwd_bf16"),
+                               "fa_wgmma_bf16"),
         "bound_ms": b, "bound_by": by, "flops": flops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": flops / BF16_OPS_PER_S * 1e3,
         "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16, causal,"
@@ -2077,6 +2085,52 @@ def wkv_times(args, device) -> dict:
     return out
 
 
+# the kernels redesigned for Hopper, by their names in the build log
+REDESIGNED = {
+    "fa_wgmma_bf16<64>": "fa_wgmma_bf16ILi64E", "fa_wgmma_bf16<112>": "fa_wgmma_bf16ILi112E",
+    "fa_wgmma_bf16<128>": "fa_wgmma_bf16ILi128E",
+    "rsp_shuffle_staged<u32>": "rsp_shuffle_stagedIjE",
+    "rsp_shuffle_staged<u16>": "rsp_shuffle_stagedItE",
+    "rsp_shuffle_rows<u32>": "rsp_shuffle_rowsIjE", "rsp_shuffle_rows<u16>": "rsp_shuffle_rowsItE",
+}
+
+
+def ptxas_report(log: str, kernels: dict) -> dict:
+    """Registers, spills and static shared memory of each named kernel,
+    from the ``-Xptxas -v`` lines of the build log, with the dynamic shared
+    memory its launcher asks for (flash: ``flash_attention_smem_bytes``;
+    the staged shuffle: ``staged_smem_bytes`` of the HIGGS tile)."""
+    import re
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.rsp_shuffle import staged_smem_bytes
+
+    lines = log.splitlines()
+    out = {}
+    for name, mangled in kernels.items():
+        info = {}
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and mangled in line:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+                if m:
+                    info["spill_stores"], info["spill_loads"] = int(m[1]), int(m[2])
+                for nxt in lines[i + 1:i + 4]:
+                    if "Used" in nxt:
+                        r = re.search(r"Used (\d+) registers", nxt)
+                        sm = re.search(r"(\d+) bytes smem", nxt)
+                        info["registers"] = int(r[1]) if r else None
+                        info["static_smem"] = int(sm[1]) if sm else 0
+                        break
+        check("registers" in info, f"the build log has no ptxas report of {name}")
+        if name.startswith("fa_wgmma_bf16"):
+            d = int(name.split("<")[1].rstrip(">"))
+            info["dynamic_smem"] = _cuda.library().flash_attention_smem_bytes(d)
+        elif name == "rsp_shuffle_staged<u32>":
+            info["dynamic_smem_higgs_tile"] = staged_smem_bytes(1100, 29 * 4)
+        out[name] = info
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2125,6 +2179,8 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "error" in line.lower():
             print(f"  ptxas: {line.strip()}")
+    for name, info in ptxas_report(_cuda.build_log(), REDESIGNED).items():
+        print(f"  kernel {name}: {json.dumps(info)}", flush=True)
 
     t0 = time.perf_counter()
     errs = parity(args, device)

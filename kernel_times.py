@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time the flash_attention and rsp_shuffle kernels of one checkout, or of
+two checkouts in turns on the same card.
+
+    python3 kernel_times.py                  # this checkout
+    python3 kernel_times.py --against DIR    # DIR, this, this, DIR
+
+DIR is another checkout of the repository (for example the parent commit
+unpacked with ``git archive`` into an ignored directory); each run is a
+process of its own that imports the port from that checkout's ``src/``
+and builds its kernels into that checkout's ``build/``.  A run times, with
+``chip_smoke.py``'s helpers, flash attention in bf16 at llama3.2-1b's and
+zamba2-7b's prefill shapes (causal, the serve path's strided layout) and
+the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100:
+``ms`` is CUDA events around back-to-back wrapper calls, ``device_ms`` the
+kernel's own device time from ``torch.profiler``, beside one
+``scaled_dot_product_attention`` (K/V head-expanded) or ``index_select``
+call on the same inputs.  Each run prints one JSON line; with --against,
+the last line holds each checkout's medians and their ratio.  Needs one
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+REPS = 20
+SHUFFLE_REPS = 5
+
+
+def one(src: Path, seed: int) -> dict:
+    """Time the kernels of the port under ``src`` (this process only)."""
+    sys.path.insert(0, str(src))
+    sys.path.insert(1, str(ROOT))
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rsp_shuffle import (
+        flat_gather_index, partition_permutations, rsp_shuffle_cuda)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device is available")
+    device = torch.device("cuda", 0)
+    out = {"src": str(src), "gpu": cs.nvidia_smi()}
+    for case, key in (("llama3.2-1b prefill", "flash_llama"),
+                      ("zamba2-7b shared block", "flash_zamba2")):
+        B, H, Hkv, S, D, causal, strided = cs.FLASH_CASES[case]
+        q, k, v = cs.flash_inputs(B, H, Hkv, S, D, torch.bfloat16, device, seed, strided)
+        ke = k.repeat_interleave(H // Hkv, dim=1).contiguous()
+        ve = v.repeat_interleave(H // Hkv, dim=1).contiguous()
+        qc = q.contiguous()
+        run = lambda i: flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        out[key] = {
+            "ms": cs.time_cuda(run, reps=REPS),
+            "device_ms": cs.device_ms(run, REPS, "fa_")["ms"],
+            "library_ms": cs.time_cuda(
+                lambda i: F.scaled_dot_product_attention(qc, ke, ve, is_causal=causal),
+                reps=REPS),
+        }
+        del q, k, v, ke, ve, qc
+        torch.cuda.empty_cache()
+
+    P = K = cs.BLOCKS
+    R, F_ = 110_000, 29
+    delta = R // K
+    x = torch.randn((P, R, F_), device=device)
+    tp, ip = (torch.from_numpy(a).to(device)
+              for a in partition_permutations(seed, P, K, delta))
+    flat = flat_gather_index(tp, ip, delta)
+    xf = x.reshape(P * R, F_)
+    run = lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta)  # noqa: E731
+    out["shuffle"] = {
+        "ms": cs.time_cuda(run, reps=SHUFFLE_REPS),
+        "device_ms": cs.device_ms(run, SHUFFLE_REPS, "rsp_shuffle")["ms"],
+        "library_ms": cs.time_cuda(lambda i: xf.index_select(0, flat), reps=SHUFFLE_REPS),
+    }
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another checkout, timed before and after this one")
+    ap.add_argument("--src", type=Path, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if args.src is not None:
+        print(json.dumps(one(args.src, args.seed)), flush=True)
+        return 0
+    order = [ROOT]
+    if args.against is not None:
+        other = args.against.resolve()
+        if not (other / "src" / "repro_torch" / "__init__.py").is_file():
+            print(f"kernel_times: no port under {other}", file=sys.stderr)
+            return 1
+        order = [other, ROOT, ROOT, other]
+    runs = []
+    for tree in order:
+        res = subprocess.run([sys.executable, __file__, "--src", str(tree / "src"),
+                              "--seed", str(args.seed)],
+                             stdout=subprocess.PIPE, text=True)
+        if res.returncode != 0:
+            print(f"kernel_times: the run of {tree} failed", file=sys.stderr)
+            return res.returncode
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append((tree, json.loads(line)))
+    if args.against is not None:
+        summary = {}
+        for key in ("flash_llama", "flash_zamba2", "shuffle"):
+            for metric in ("ms", "device_ms", "library_ms"):
+                # device_ms is None where the profiler missed a launch
+                mine = [r[key][metric] for t, r in runs if t == ROOT and r[key][metric]]
+                theirs = [r[key][metric] for t, r in runs if t != ROOT and r[key][metric]]
+                if mine and theirs:
+                    m, o = statistics.median(mine), statistics.median(theirs)
+                    summary[f"{key} {metric}"] = {"this": m, "against": o, "against / this": o / m}
+        print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

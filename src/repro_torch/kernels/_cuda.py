@@ -41,8 +41,9 @@ _F = ctypes.c_float
 
 # C signatures of the exported functions: name -> (restype, argtypes)
 _SIGNATURES = {
-    "rsp_shuffle_launch": (_I, [_P, _P, _P, _P, _L, _L, _I, _I, _P]),
+    "rsp_shuffle_launch": (_I, [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "repro_smem_optin": (_I, []),
     "block_sketch_num_ctas": (_I, [_L]),
     "block_sketch_smem_bytes": (_L, [_I, _I, _I, _I]),
     "block_sketch_launch": (
@@ -55,6 +56,7 @@ _SIGNATURES = {
         [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
          _P, _P, _P, _P, _P, _P],
     ),
+    "flash_attention_smem_bytes": (_I, [_I]),
     "flash_attention_launch": (
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *([_L] * 12), _I, _F, _P],
     ),

@@ -8,6 +8,8 @@ from repro_torch.kernels.rsp_shuffle.kernel import (
     rsp_shuffle,
     rsp_shuffle_cuda,
     rsp_shuffle_plain,
+    shuffle_path,
+    staged_smem_bytes,
 )
 from repro_torch.kernels.rsp_shuffle.ops import (
     make_permutations,
@@ -27,4 +29,6 @@ __all__ = [
     "rsp_shuffle_cuda",
     "rsp_shuffle_plain",
     "rsp_shuffle_ref",
+    "shuffle_path",
+    "staged_smem_bytes",
 ]

@@ -11,7 +11,11 @@ bit for bit; the kernel takes rows of an even number of bytes), ``tile_perm`` ``
 
 * :func:`rsp_shuffle_cuda` launches ``csrc/rsp_shuffle.cu`` (the port of
   the Pallas ``rsp_shuffle_pallas``; all batches in one launch) and counts
-  the launch in :data:`LAUNCHES`.  CUDA tensors only.
+  the launch in :data:`LAUNCHES`.  CUDA tensors only.  :func:`shuffle_path`
+  picks its kernel: ``staged`` (the source tile staged in shared memory by
+  bulk copies, the output written 16 bytes a store) where a tile's bytes
+  are a multiple of 16, the base pointers 16-byte aligned and the tile fits
+  in shared memory; ``rows`` (one warp per output row) elsewhere.
 * :func:`rsp_shuffle_plain` is the same gather in plain PyTorch, on any
   device.
 """
@@ -23,6 +27,27 @@ import torch
 from repro_torch.kernels import _cuda
 
 LAUNCHES = _cuda.LaunchCounter("rsp_shuffle")
+
+# shared memory a block may opt into on the H100 (227 KB)
+SMEM_OPTIN_H100 = 232_448
+
+
+def staged_smem_bytes(tile_rows: int, row_bytes: int) -> int:
+    """Shared memory of the staged kernel: the tile, its intra-tile
+    permutation padded to 16 bytes, and one 8-byte barrier."""
+    return tile_rows * row_bytes + -(-tile_rows * 4 // 16) * 16 + 8
+
+
+def shuffle_path(tile_rows: int, row_bytes: int, *, x_ptr: int = 0, out_ptr: int = 0,
+                 smem_limit: int = SMEM_OPTIN_H100) -> str:
+    """Which kernel a launch takes: ``"staged"`` when the tile's bytes are a
+    multiple of 16 (so every tile of every batch starts 16-byte aligned),
+    both base addresses are 16-byte aligned and the tile fits in
+    ``smem_limit`` bytes of shared memory; ``"rows"`` otherwise."""
+    if ((tile_rows * row_bytes) % 16 or x_ptr % 16 or out_ptr % 16
+            or staged_smem_bytes(tile_rows, row_bytes) > smem_limit):
+        return "rows"
+    return "staged"
 
 
 def _batched(x, tile_perm, intra_perm, tile_rows: int):
@@ -78,10 +103,13 @@ def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tenso
     if b > 65535:
         raise ValueError("the kernel takes at most 65535 batches per launch")
     out = torch.empty_like(xb)
+    row_bytes = d * xb.element_size()
     lib = _cuda.library()
+    path = shuffle_path(tile_rows, row_bytes, x_ptr=xb.data_ptr(), out_ptr=out.data_ptr(),
+                        smem_limit=lib.repro_smem_optin())
     code = lib.rsp_shuffle_launch(
         xb.data_ptr(), tp.data_ptr(), ip.data_ptr(), out.data_ptr(),
-        b, r, tile_rows, d * xb.element_size(), _cuda.stream_handle(xb.device),
+        b, r, tile_rows, row_bytes, int(path == "staged"), _cuda.stream_handle(xb.device),
     )
     _cuda.check(code, "rsp_shuffle kernel")
     LAUNCHES.add()

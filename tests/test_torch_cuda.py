@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
-from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain
+from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain, shuffle_path
 from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
 
 pytestmark = pytest.mark.cuda
@@ -73,6 +73,30 @@ def test_rsp_shuffle_kernel_copies_the_plain_gather(dev, dtype, d):
     assert torch.equal(got, rsp_shuffle_plain(x, tp, ip, tile_rows=110))
     # an unbatched call is the first batch
     assert torch.equal(rsp_shuffle_cuda(x[0], tp[0], ip[0], tile_rows=110), got[0])
+
+
+SHUFFLE_TILES = {
+    # name: (dtype, row elements, tile rows, tiles, batches, path)
+    "staged: HIGGS tile 1100 x 29 float32": (torch.float32, 29, 1100, 3, 4, "staged"),
+    "rows: tile of 2100 x 116 B, over 227 KB": (torch.float32, 29, 2100, 2, 2, "rows"),
+    "staged: bf16 rows of 58 B, tile 1104": (torch.bfloat16, 29, 1104, 3, 2, "staged"),
+    "rows: bf16 rows of 58 B, tile 110": (torch.bfloat16, 29, 110, 3, 2, "rows"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHUFFLE_TILES))
+def test_rsp_shuffle_kernel_paths_copy_the_plain_gather(dev, name):
+    dtype, d, tile, n_tiles, batch, path = SHUFFLE_TILES[name]
+    x = torch.from_numpy(_data(batch * n_tiles * tile, d, seed=tile)).reshape(batch, -1, d)
+    x = x.to(dtype).to(dev)
+    assert shuffle_path(tile, d * x.element_size(), x_ptr=x.data_ptr()) == path
+    tp, ip = (torch.from_numpy(a).to(dev) for a in _perms(tile, batch, n_tiles, tile))
+    kernels.reset_launch_counts()
+    got = rsp_shuffle_cuda(x, tp, ip, tile_rows=tile)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rsp_shuffle"] == 1
+    want = rsp_shuffle_plain(x, tp, ip, tile_rows=tile)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("n,f,bins", [(4096, 6, 16), (1037, 29, 128), (5000, 8, 0), (300, 64, 1024)])
@@ -187,8 +211,29 @@ def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("S", [127, 128, 129])
+def test_flash_attention_kernel_at_the_tile_edges(dev, S, D, causal):
+    # one 128-row query tile and kv tile, one row short of it, one row over
+    q, k, v = _qkv(2, 4, 2, S, D, torch.bfloat16, dev, seed=S + D)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_takes_the_grouped_layout_as_strided_views(dev):
-    B, S, Hkv, G, D = 2, 150, 2, 3, 64
+    _grouped_layout_matches_plain(dev, 64)
+
+
+def test_flash_attention_takes_the_serve_layout_at_d112(dev):
+    # zamba2-7b's shared block: D = 112 rows of 224 bytes in [B, S, heads, D]
+    _grouped_layout_matches_plain(dev, 112)
+
+
+def _grouped_layout_matches_plain(dev, D):
+    B, S, Hkv, G = 2, 150, 2, 3
     g = torch.Generator(device="cpu").manual_seed(1)
     # as the attention layer makes them: [B, S, heads, D] transposed, no copy
     q = torch.randn((B, S, Hkv, G, D), generator=g).bfloat16().to(dev).permute(0, 2, 3, 1, 4)

@@ -25,6 +25,8 @@ from repro_torch.kernels.rsp_shuffle import (
     partition_permutations,
     rsp_shuffle_plain,
     rsp_shuffle_ref,
+    shuffle_path,
+    staged_smem_bytes,
 )
 
 
@@ -90,6 +92,35 @@ def test_make_permutations_are_permutations_and_seeded():
     stacked = partition_permutations(5, 3, 10, 7)
     assert all(a.flags.c_contiguous and a.dtype == np.int32 for a in (tp, ip, *stacked))
     np.testing.assert_array_equal(stacked[1][1], make_permutations(5, 1, 10, 7)[1])
+
+
+SHUFFLE_PATHS = {
+    # name: (tile_rows, row_bytes, x_ptr, path)
+    "HIGGS tile 1100 x 116 B": (1100, 116, 0, "staged"),
+    "HIGGS tile 110 (12,760 B, not a multiple of 16)": (110, 116, 0, "rows"),
+    "tile over 227 KB": (2100, 116, 0, "rows"),
+    "bf16 rows of 58 B, tile 1104": (1104, 58, 0, "staged"),
+    "bf16 rows of 58 B, tile 110": (110, 58, 0, "rows"),
+    "x 8 bytes off a 16-byte boundary": (1100, 116, 8, "rows"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHUFFLE_PATHS))
+def test_shuffle_path_picks_the_kernel_by_tile_bytes_alignment_and_shared_memory(name):
+    tile_rows, row_bytes, x_ptr, path = SHUFFLE_PATHS[name]
+    assert shuffle_path(tile_rows, row_bytes, x_ptr=x_ptr) == path
+
+
+def test_staged_smem_bytes_is_the_tile_its_permutation_and_a_barrier():
+    # 127,600 B of tile, 4,400 B of int32 permutation, one 8-byte mbarrier
+    assert staged_smem_bytes(1100, 116) == 127_600 + 4_400 + 8
+    # the permutation is padded to 16 bytes so the barrier stays aligned
+    assert staged_smem_bytes(3, 16) == 48 + 16 + 8
+    # the largest tile (in rows of 4: 16-byte multiples) that fits on the H100 is staged,
+    # four rows more are not
+    rows = max(t for t in range(1, 2100) if staged_smem_bytes(t * 4, 116) <= 232_448) * 4
+    assert shuffle_path(rows, 116) == "staged" and shuffle_path(rows + 4, 116) == "rows"
+    assert shuffle_path(rows + 4, 116, smem_limit=10**6) == "staged"
 
 
 # ---------------------------------------------------------------------------
