@@ -12,7 +12,8 @@ Phases, one line each with its seconds:
                 ``build/``, and print the registers, spills and shared
                 memory of the kernels redesigned for Hopper (flash's
                 wgmma + TMA kernel at each head dim, the shuffle's staged
-                and row kernels) from the ``-Xptxas -v`` log;
+                and row kernels, the SSD's ssd_state and ssd_scan, the
+                WKV's wkv6_chunks) from the ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative and histograms
@@ -33,7 +34,10 @@ Phases, one line each with its seconds:
                 state crosses all 128 chunks), with w = 1e-6 and a quarter
                 of w = 0 (the clamped log), at a ragged T from an initial
                 state and at B = 1, and one small case against the step
-                recurrence;
+                recurrence; and each of flash, the SSD and the WKV once at
+                a smoke config's width through ``impl="auto"``, which pads
+                it to the kernel's (flash D = 16, the SSD's P = N = 16 at
+                chunk 8, the WKV's C = 16), with the launch counted;
 3. main path -- a class-sorted HIGGS-shaped corpus (N x 29 float32, label in
                 the last column) partitioned into K blocks on the card by the
                 ``cuda`` backend (checked bit for bit against the plain
@@ -792,6 +796,8 @@ FLASH_CASES = {
     "non-causal": (4, 32, 8, 512, 128, False, False),
     "zamba2-7b shared block": (8, 32, 32, 2048, 112, True, True),
 }
+# a smoke config's attention (head dim 16), run through impl="auto": B, H, Hkv, S, D
+FLASH_SMOKE = (2, 4, 2, 300, 16)
 
 
 def flash_inputs(B, H, Hkv, S, D, dtype, device, seed, strided):
@@ -834,6 +840,24 @@ def flash_parity(args, device) -> float:
             print(f"  flash {name} {str(dtype).split('.')[1]}: max |kernel - plain|"
                   f" {float(diff.max()):.3g} (tolerance {tol})", flush=True)
             del q, k, v, got, want, diff, bad
+    # a smoke config's head dim through auto, which pads D to the kernel's 64
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        B, H, Hkv, S, D = FLASH_SMOKE
+        q, k, v = flash_inputs(B, H, Hkv, S, D, dtype, device, args.seed + 50, True)
+        before = fa.LAUNCHES.value
+        got = fa.flash_attention(q, k, v, causal=True, impl="auto")
+        check(fa.LAUNCHES.value == before + 1, "flash at D = 16: auto did not launch the kernel")
+        want = flash_attention_plain(q, k, v, causal=True)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        check(got.shape == want.shape and bad == 0,
+              f"flash at D = 16 {dtype}: {bad} values beyond {tol} (largest {float(diff.max()):.3g})")
+        worst = max(worst, float(diff.max()))
+        print(f"  flash smoke D = 16 through auto {str(dtype).split('.')[1]}: max |kernel -"
+              f" plain| {float(diff.max()):.3g} (tolerance {tol})", flush=True)
     torch.cuda.empty_cache()
     return worst
 
@@ -853,6 +877,9 @@ SSD_CASES = {
     "ragged L = 2080, from h0": (2, 2080, 112, "softplus", True),
     "B = 1": (1, 2048, 112, "softplus", False),
 }
+# zamba2's smoke config (SSM head and state 16, chunk 8) through impl="auto":
+# B, L, H, P, N
+SSD_SMOKE = (2, 300, 8, 16, 16)
 
 
 def ssd_inputs(B, L, H, decay, device, seed, with_h0=False):
@@ -913,6 +940,28 @@ def ssd_parity(args, device) -> float:
             check(far > 0, f"ssd {name}: a scan without the inter-chunk carry passes")
             del cut
         del arrays, h0, got, want
+    # zamba2's smoke config (P = N = 16, chunk 8) through auto, which pads P
+    # and N to 64 and runs the kernel at its chunk of 128
+    from repro_torch.kernels import mamba2_ssd
+
+    g = torch.Generator(device=device).manual_seed(args.seed + 150)
+    B, L, H, P, N = SSD_SMOKE
+    x = torch.randn((B, L, H, P), generator=g, device=device)
+    dA = -torch.nn.functional.softplus(torch.randn((B, L, H), generator=g, device=device))
+    Bm, Cm = (torch.randn((B, L, N), generator=g, device=device) for _ in range(2))
+    h0 = torch.randn((B, H, P, N), generator=g, device=device)
+    before = mamba2_ssd.LAUNCHES.value
+    got = ssd(x, dA, Bm, Cm, chunk=8, h0=h0, impl="auto")
+    check(mamba2_ssd.LAUNCHES.value == before + 1, "ssd at P = N = 16: auto did not launch")
+    want = ssd(x, dA, Bm, Cm, chunk=8, h0=h0, impl="torch")
+    for part, a, b in (("y", got[0], want[0]), ("h_final", got[1], want[1])):
+        diff = (a - b).abs()
+        bad = int((diff > SSD_TOL * (1 + b.abs())).sum())
+        check(a.shape == b.shape and bad == 0, f"ssd smoke {part}: {bad} values beyond"
+              f" {SSD_TOL} (1 + |b|) (largest deviation {float(diff.max()):.3g})")
+        worst = max(worst, float(diff.max()))
+        print(f"  ssd smoke P = N = 16, chunk 8 through auto, from h0, {part}: max |kernel -"
+              f" plain| {float(diff.max()):.3g}", flush=True)
     torch.cuda.empty_cache()
     return worst
 
@@ -1467,27 +1516,38 @@ def hybrid_serving(args, device, gpu: str) -> dict:
 
 
 def ssd_times(args, device) -> dict:
-    """The SSD kernel at zamba2-7b's prefill shape beside its bound and its
-    plain version.  No single PyTorch call computes the scan."""
+    """The SSD kernels at zamba2-7b's prefill shape beside their bound and
+    their plain version.  No single PyTorch call computes the scan.
+    ``bound_ms`` is the function's own: its float32 operations at the FMA
+    rate against its bytes; ``x3_bound_ms`` is the bound of the kernels'
+    arithmetic: each float32 product as six bf16 products at the dense bf16
+    rate (``csrc/mma_x3.cuh``), against the bytes with the chunk-start
+    states written and read back."""
     import torch
 
-    from repro_torch.kernels.mamba2_ssd import head_tile, ssd_cuda, ssd_plain
+    from repro_torch.kernels.mamba2_ssd import KERNELS, head_tile, ssd_cuda, ssd_plain
 
     B, L, H, decay, _ = SSD_CASES["zamba2-7b prefill"]
     arrays, _ = ssd_inputs(B, L, H, decay, device, args.seed)
-    ht = head_tile(B, H, torch.cuda.get_device_properties(device).multi_processor_count)
+    nc = L // 128
+    ht = head_tile(B * nc, H, torch.cuda.get_device_properties(device).multi_processor_count)
     ops, nbytes = ssd_work(B, L, H)
     b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    state_bytes = 2 * 4 * B * nc * H * 64 * 64
+    b3, by3 = bound_ms(nbytes + state_bytes, 6 * ops, BF16_OPS_PER_S)
     out = {
         "ms": time_cuda(lambda i: ssd_cuda(*arrays), reps=REPS),
         "plain_ms": time_cuda(lambda i: ssd_plain(*arrays, chunk=128), reps=3),
         "library_ms": None,
-        "device_ms": device_ms(lambda i: ssd_cuda(*arrays), REPS, "ssd_fwd"),
+        "device_ms": device_ms(lambda i: ssd_cuda(*arrays), REPS, *KERNELS),
+        "kernels_per_call": len(KERNELS),
         "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "x3_bound_ms": b3, "x3_bound_by": by3, "state_bytes": state_bytes,
         "head_tile": ht,
         "shape": f"xbar [{B}, {L}, {H}, 64], dA [{B}, {L}, {H}], B/C [{B}, {L}, 64] f32,"
-                 f" chunk 128, {H // ht * B} CTAs of {ht} heads",
+                 f" chunk 128; ssd_state {B * H} CTAs, ssd_scan {B * nc * H // ht} CTAs of"
+                 f" {ht} heads",
     }
     del arrays
     torch.cuda.empty_cache()
@@ -1553,6 +1613,7 @@ WKV_CASES = {
     "ragged T = 2080, from h0": (2, 2080, 32, "model", True),
     "B = 1": (1, 2048, 32, "model", False),
 }
+WKV_SMOKE_C = 16   # rwkv6's smoke head dim, run through impl="auto"
 
 
 def wkv_inputs(B, T, H, decay, device, seed, with_h0=False):
@@ -1625,6 +1686,24 @@ def wkv_parity(args, device) -> float:
               f" (1 + |b|) (largest deviation {float(diff.max()):.3g})")
         print(f"  wkv against the step recurrence, [2, 100, 4, 64] from h0, {part}: max"
               f" |kernel - recurrence| {float(diff.max()):.3g}", flush=True)
+    # rwkv6's smoke config (head dim 16) through auto, which pads C to 64
+    from repro_torch.kernels import rwkv6_wkv
+
+    (r, k, v, w, u), h0 = wkv_inputs(2, 100, 4, "model", device, args.seed + 220, True)
+    r, k, v, w = (t[..., :WKV_SMOKE_C].contiguous() for t in (r, k, v, w))
+    u, h0 = u[:, :WKV_SMOKE_C].contiguous(), h0[:, :, :WKV_SMOKE_C, :WKV_SMOKE_C].contiguous()
+    before = rwkv6_wkv.LAUNCHES.value
+    got = wkv6(r, k, v, w, u, h0=h0, impl="auto")
+    check(rwkv6_wkv.LAUNCHES.value == before + 1, "wkv at C = 16: auto did not launch")
+    want = wkv6(r, k, v, w, u, h0=h0, impl="torch")
+    for part, a, b in (("y", got[0], want[0]), ("h_final", got[1], want[1])):
+        diff = (a - b).abs()
+        bad = int((diff > WKV_TOL * (1 + b.abs())).sum())
+        check(a.shape == b.shape and bad == 0, f"wkv smoke {part}: {bad} values beyond"
+              f" {WKV_TOL} (1 + |b|) (largest deviation {float(diff.max()):.3g})")
+        worst = max(worst, float(diff.max()))
+        print(f"  wkv smoke C = 16 through auto, [2, 100, 4, 16] from h0, {part}: max |kernel -"
+              f" plain| {float(diff.max()):.3g}", flush=True)
     torch.cuda.empty_cache()
     return worst
 
@@ -2060,23 +2139,38 @@ def rwkv_serving(args, device, gpu: str) -> dict:
 
 def wkv_times(args, device) -> dict:
     """The WKV kernel at rwkv6-1.6b's prefill shape beside its bound and its
-    plain version.  No single PyTorch call computes the recurrence."""
+    plain version.  No single PyTorch call computes the recurrence.
+    ``bound_ms`` is the function's own (every operation at the FMA rate);
+    ``x3_bound_ms`` is the bound of the kernel's arithmetic: its three
+    products on the tensor cores (the inter-chunk term, A' v and the state
+    update) as six bf16 products each at the dense bf16 rate
+    (``csrc/mma_x3.cuh``) and the rest at the FMA rate, against the same
+    bytes (nothing is materialised)."""
     import torch
 
-    from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.rwkv6_wkv import KERNELS, log_decay, wkv6_cuda, wkv6_plain
 
     B, T, H, decay, _ = WKV_CASES["rwkv6-1.6b prefill"]
     (r, k, v, w, u), _ = wkv_inputs(B, T, H, decay, device, args.seed)
     logw = log_decay(w)
     ops, nbytes = wkv_work(B, T, H)
     b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    Q, C, pairs = 16, 64, 16 * 15 // 2
+    chunks = B * H * (T // Q)
+    mma_ops = chunks * (2 * 2 * Q * C * C + 2 * Q * Q * C)     # as the kernel runs them
+    counted = chunks * (2 * 2 * Q * C * C + 2 * pairs * C)     # the same in wkv_work
+    ops3_ms = (6 * mma_ops / BF16_OPS_PER_S + (ops - counted) / FP32_OPS_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {
         "ms": time_cuda(lambda i: wkv6_cuda(r, k, v, logw, u), reps=REPS),
         "plain_ms": time_cuda(lambda i: wkv6_plain(r, k, v, logw, u), reps=3),
         "library_ms": None,
-        "device_ms": device_ms(lambda i: wkv6_cuda(r, k, v, logw, u), REPS, "wkv6_fwd"),
+        "device_ms": device_ms(lambda i: wkv6_cuda(r, k, v, logw, u), REPS, *KERNELS),
+        "kernels_per_call": len(KERNELS),
         "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "bytes_ms": bytes_ms, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "x3_bound_ms": max(bytes_ms, ops3_ms),
+        "x3_bound_by": "bytes" if bytes_ms >= ops3_ms else "operations",
         "shape": f"r/k/v/logw [{B}, {T}, {H}, 64] f32, u [{H}, 64], chunk 16,"
                  f" {B * H} CTAs",
     }
@@ -2092,6 +2186,7 @@ REDESIGNED = {
     "rsp_shuffle_staged<u32>": "rsp_shuffle_stagedIjE",
     "rsp_shuffle_staged<u16>": "rsp_shuffle_stagedItE",
     "rsp_shuffle_rows<u32>": "rsp_shuffle_rowsIjE", "rsp_shuffle_rows<u16>": "rsp_shuffle_rowsItE",
+    "ssd_state": "ssd_state", "ssd_scan": "ssd_scan", "wkv6_chunks": "wkv6_chunks",
 }
 
 
@@ -2254,6 +2349,8 @@ def main() -> int:
             "device_ms_seen": {k: v for k, v in tm[name]["device_ms"].items() if k != "ms"},
             "shape": tm[name]["shape"],
             **({"launches_by_path": by_path[name]} if name in by_path else {}),
+            **{k: tm[name][k] for k in ("kernels_per_call", "x3_bound_ms", "x3_bound_by")
+               if k in tm[name]},
         }
         for name in replaces
     ]}

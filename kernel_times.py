@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash_attention and rsp_shuffle kernels of one checkout, or of
-two checkouts in turns on the same card.
+"""Time the flash_attention, rsp_shuffle, mamba2_ssd and rwkv6_wkv kernels
+of one checkout, or of two checkouts in turns on the same card.
 
     python3 kernel_times.py                  # this checkout
     python3 kernel_times.py --against DIR    # DIR, this, this, DIR
@@ -11,11 +11,15 @@ process of its own that imports the port from that checkout's ``src/``
 and builds its kernels into that checkout's ``build/``.  A run times, with
 ``chip_smoke.py``'s helpers, flash attention in bf16 at llama3.2-1b's and
 zamba2-7b's prefill shapes (causal, the serve path's strided layout) and
-the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100:
-``ms`` is CUDA events around back-to-back wrapper calls, ``device_ms`` the
-kernel's own device time from ``torch.profiler``, beside one
-``scaled_dot_product_attention`` (K/V head-expanded) or ``index_select``
-call on the same inputs.  Each run prints one JSON line; with --against,
+the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100,
+the SSD scan at zamba2-7b's prefill shape (xbar [8, 2048, 112, 64]) and the
+WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32: ``ms`` is CUDA events
+around back-to-back wrapper calls, ``device_ms`` the device time of the
+kernels one call launches (summed; a checkout names them in its
+``KERNELS``, one from before that has one kernel of the old name) from
+``torch.profiler``, beside one ``scaled_dot_product_attention`` (K/V
+head-expanded) or ``index_select`` call on the same inputs (no PyTorch
+call computes the SSD or the WKV).  Each run prints one JSON line; with --against,
 the last line holds each checkout's medians and their ratio.  Needs one
 CUDA card.
 """
@@ -82,6 +86,29 @@ def one(src: Path, seed: int) -> dict:
         "device_ms": cs.device_ms(run, SHUFFLE_REPS, "rsp_shuffle")["ms"],
         "library_ms": cs.time_cuda(lambda i: xf.index_select(0, flat), reps=SHUFFLE_REPS),
     }
+    del x, tp, ip, flat, xf
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels import mamba2_ssd, rwkv6_wkv
+
+    B, L, H, decay, _ = cs.SSD_CASES["zamba2-7b prefill"]
+    arrays, _ = cs.ssd_inputs(B, L, H, decay, device, seed)
+    run = lambda i: mamba2_ssd.ssd_cuda(*arrays)  # noqa: E731
+    out["ssd"] = {
+        "ms": cs.time_cuda(run, reps=REPS),
+        "device_ms": cs.device_ms(run, REPS, *getattr(mamba2_ssd, "KERNELS", ("ssd_fwd",)))["ms"],
+        "library_ms": None,
+    }
+    del arrays
+    B, T, H, decay, _ = cs.WKV_CASES["rwkv6-1.6b prefill"]
+    (r, k, v, w, u), _ = cs.wkv_inputs(B, T, H, decay, device, seed)
+    logw = rwkv6_wkv.log_decay(w)
+    run = lambda i: rwkv6_wkv.wkv6_cuda(r, k, v, logw, u)  # noqa: E731
+    out["wkv"] = {
+        "ms": cs.time_cuda(run, reps=REPS),
+        "device_ms": cs.device_ms(run, REPS, *getattr(rwkv6_wkv, "KERNELS", ("wkv6_fwd",)))["ms"],
+        "library_ms": None,
+    }
     return out
 
 
@@ -115,7 +142,7 @@ def main() -> int:
         runs.append((tree, json.loads(line)))
     if args.against is not None:
         summary = {}
-        for key in ("flash_llama", "flash_zamba2", "shuffle"):
+        for key in ("flash_llama", "flash_zamba2", "shuffle", "ssd", "wkv"):
             for metric in ("ms", "device_ms", "library_ms"):
                 # device_ms is None where the profiler missed a launch
                 mine = [r[key][metric] for t, r in runs if t == ROOT and r[key][metric]]

@@ -6,6 +6,7 @@ the CUDA kernel (``kernel.py``, source ``csrc/mamba2_ssd.cu``).
 
 from repro_torch.kernels.mamba2_ssd.kernel import (
     CHUNK,
+    KERNELS,
     LAUNCHES,
     head_tile,
     ssd_cuda,
@@ -17,6 +18,7 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_recurrence
 __all__ = [
     "CHUNK",
     "IMPLS",
+    "KERNELS",
     "LAUNCHES",
     "head_tile",
     "ssd",

@@ -10,9 +10,12 @@
 * :func:`ssd_plain` is the same function in plain PyTorch (``ref.py``'s
   chunked form), on any device.
 
-A CTA owns one batch row and a tile of ``Ht`` heads and walks the chunks
-in order; :func:`head_tile` picks ``Ht`` so that the CTAs fill the card's
-SMs in as few waves as the work allows.
+A call is two launches (``KERNELS``): ``ssd_state`` walks each (batch row,
+head)'s chunks and writes the state at every chunk's start into a scratch
+``[B, L / 128, H, 64, 64]`` and h_final; ``ssd_scan`` computes every
+(batch row, chunk, tile of ``Ht`` heads)'s y in parallel.
+:func:`head_tile` picks ``Ht`` so that the scan's CTAs fill the card's SMs
+in as few waves as the work allows.
 """
 
 from __future__ import annotations
@@ -25,19 +28,22 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked as ssd_plain
 
 LAUNCHES = _cuda.LaunchCounter("mamba2_ssd")
+KERNELS = ("ssd_state", "ssd_scan")   # the device kernels one call launches
 
 CHUNK = 128        # the kernel's chunk length Q
 HEAD_DIM = 64      # P
 STATE_DIM = 64     # N
-# the share of a head's work per chunk that C B^T adds, once per CTA:
-# Q (Q + 1) / 2 * N multiply-adds against about 3 Q P N / 2 for a head
-_CB_SHARE = 1 / 3
+# the share of a head's work that C B^T adds, once per scan CTA: a warp's
+# nine tiles of C B^T take 216 MMAs against 408 for a head's two products
+_CB_SHARE = 0.5
 
 
 def head_tile(batch: int, heads: int, sms: int) -> int:
     """The divisor ``Ht`` of ``heads`` whose grid of ``batch * heads / Ht``
-    CTAs (one resident CTA an SM: the kernel's shared memory is 218 KB)
-    takes the fewest head-chunks of time: waves * (Ht + C B^T's share)."""
+    CTAs (one resident CTA an SM: the scan's shared memory is 211 KB)
+    takes the fewest head-chunks of time: waves * (Ht + C B^T's share).
+    The scan's grid has a CTA per batch row and chunk: ``batch`` is
+    B * L / 128."""
     best, cost = 1, math.inf
     for ht in range(1, heads + 1):
         if heads % ht:
@@ -88,16 +94,17 @@ def ssd_cuda(
                          f" got {P} and {N}")
     if L <= 0 or L % CHUNK:
         raise ValueError(f"L = {L} must be a positive multiple of the kernel's chunk {CHUNK}")
-    if B > 65535:
-        raise ValueError("the kernel takes B <= 65535")
+    if B > 65535 or L // CHUNK > 65535:
+        raise ValueError("the kernel takes B <= 65535 and L <= 128 * 65535")
     y = torch.empty_like(xbar)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=xbar.device)
+    hs = torch.empty((B, L // CHUNK, H, P, N), dtype=torch.float32, device=xbar.device)
     sms = torch.cuda.get_device_properties(xbar.device).multi_processor_count
-    ht = head_tile(B, H, sms)
+    ht = head_tile(B * (L // CHUNK), H, sms)
     lib = _cuda.library()
     code = lib.mamba2_ssd_launch(
         xbar.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(),
+        h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(), hs.data_ptr(),
         B, L, H, ht, _cuda.stream_handle(xbar.device),
     )
     _cuda.check(code, "mamba2_ssd kernel")
@@ -105,5 +112,5 @@ def ssd_cuda(
     return y, h
 
 
-__all__ = ["CHUNK", "HEAD_DIM", "LAUNCHES", "STATE_DIM", "check_shapes", "head_tile",
+__all__ = ["CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES", "STATE_DIM", "check_shapes", "head_tile",
            "ssd_cuda", "ssd_plain"]

@@ -6,13 +6,22 @@
 * ``impl="torch"`` -- the plain chunked form (any device), at ``chunk``.
 * ``impl="cuda"``  -- the CUDA kernel (CUDA tensors only; a CPU tensor
   raises).  It runs at its own chunk of 128 and takes only ``chunk=128``,
-  the zamba2 config's; the sequence is padded to a multiple of 128 with
-  zero inputs and zero log-decay (the padded steps leave the state as it
-  is), as the reference's wrapper pads (``repro/kernels/mamba2_ssd/
-  ops.py``), and y is cut back to L.  A prompt shorter than 128 is one
-  padded chunk, where the reference takes one chunk of its own length:
-  the same sums, since a padded step adds nothing to any position.
-* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise.
+  the zamba2 config's, and P = N = 64; the sequence is padded to a
+  multiple of 128 with zero inputs and zero log-decay (the padded steps
+  leave the state as it is), as the reference's wrapper pads
+  (``repro/kernels/mamba2_ssd/ops.py``), and y is cut back to L.  A prompt
+  shorter than 128 is one padded chunk, where the reference takes one
+  chunk of its own length: the same sums, since a padded step adds
+  nothing to any position.
+* ``impl="auto"``  -- the kernel for a CUDA tensor, the plain version
+  otherwise.  On the card it runs the kernel at its chunk of 128 for any
+  ``chunk``: the chunk only blocks the same sums, as the reference's
+  ``Q = min(chunk, L)`` treats it.  A head dim P or state dim N below 64
+  is zero-padded up to 64 (xbar's P, the N of B and C, both of h0): a
+  padded state row or column starts at 0 and takes 0 at every step, so it
+  stays 0 and adds nothing to y, whose padded columns are 0 and are cut
+  off with the state's.  Above 64 there is no width to pad to, and the
+  kernel raises.
 
 Unlike the reference's Pallas path, which drops ``h0``
 (``repro/models/mamba2.py:206``), both impls start from ``h0`` when it is
@@ -24,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba2_ssd.kernel import CHUNK, ssd_cuda, ssd_plain
+from repro_torch.kernels.mamba2_ssd.kernel import CHUNK, HEAD_DIM, STATE_DIM, ssd_cuda, ssd_plain
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -50,17 +59,32 @@ def ssd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     if resolve_impl(impl, xbar) == "torch":
         return ssd_plain(xbar, dA, Bm, Cm, chunk=chunk, h0=h0)
-    if chunk != CHUNK:
+    if impl == "cuda" and chunk != CHUNK:
         raise ValueError(f"the kernel runs at chunk {CHUNK}, not {chunk}")
-    L = xbar.shape[1]
+    return run_padded(ssd_cuda, xbar, dA, Bm, Cm, h0=h0, widths=impl == "auto")
+
+
+def run_padded(run, xbar, dA, Bm, Cm, *, h0=None, widths: bool = True):
+    """``run(xbar, dA, Bm, Cm, h0=...)`` on float32 contiguous tensors with L
+    padded to a multiple of :data:`CHUNK` and, with ``widths``, P and N
+    padded up to 64; y and the state are cut back."""
+    _, L, _, P = xbar.shape
+    N = Bm.shape[-1]
     pad = (-L) % CHUNK
-    args = []
-    for t in (xbar, dA, Bm, Cm):
-        t = t.to(torch.float32)
-        if pad:
-            t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
-        args.append(t.contiguous())
+    dp = HEAD_DIM - P if widths and P < HEAD_DIM else 0
+    dn = STATE_DIM - N if widths and N < STATE_DIM else 0
+    xbar = _pad(xbar, (0, dp, 0, 0, 0, pad))
+    dA = _pad(dA, (0, 0, 0, pad))
+    Bm, Cm = (_pad(t, (0, dn, 0, pad)) for t in (Bm, Cm))
     if h0 is not None:
-        h0 = h0.to(torch.float32).contiguous()
-    y, h = ssd_cuda(*args, h0=h0)
+        h0 = _pad(h0, (0, dn, 0, dp))
+    y, h = run(xbar, dA, Bm, Cm, h0=h0)
+    if dp or dn:
+        y, h = y[..., :P], h[..., :P, :N].contiguous()
     return (y[:, :L] if pad else y), h
+
+
+def _pad(t: torch.Tensor, pads: tuple[int, ...]) -> torch.Tensor:
+    # float32, contiguous, zero-padded; no copy where nothing changes
+    t = t.to(torch.float32)
+    return (F.pad(t, pads) if any(pads) else t).contiguous()

@@ -7,6 +7,7 @@ the CUDA kernel (``kernel.py``, source ``csrc/rwkv6_wkv.cu``).
 
 from repro_torch.kernels.rwkv6_wkv.kernel import (
     CHUNK,
+    KERNELS,
     LAUNCHES,
     wkv6_cuda,
     wkv6_plain,
@@ -17,6 +18,7 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked, wkv6_scan
 __all__ = [
     "CHUNK",
     "IMPLS",
+    "KERNELS",
     "LAUNCHES",
     "log_decay",
     "wkv6",

@@ -9,7 +9,9 @@
 * :func:`wkv6_plain` is the same function in plain PyTorch (``ref.py``'s
   chunked form), on any device.
 
-One CTA owns one (batch row, head) and walks the chunks in order.
+One CTA owns one (batch row, head) and walks the chunks in order: producer
+warps compute each chunk's state-independent terms ahead, consumer warps
+carry the state through its two products on the tensor cores.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked as wkv6_plain
 
 LAUNCHES = _cuda.LaunchCounter("rwkv6_wkv")
+KERNELS = ("wkv6_chunks",)   # the device kernels one call launches
 
 CHUNK = 16       # the kernel's chunk length Q
 HEAD_DIM = 64    # C = V
@@ -77,4 +80,4 @@ def wkv6_cuda(
     return y, h
 
 
-__all__ = ["CHUNK", "HEAD_DIM", "LAUNCHES", "check_shapes", "wkv6_cuda", "wkv6_plain"]
+__all__ = ["CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES", "check_shapes", "wkv6_cuda", "wkv6_plain"]

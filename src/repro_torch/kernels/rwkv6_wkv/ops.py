@@ -15,7 +15,13 @@ the state as it is), y cut back to T.
   raises), always at its chunk of 16: a sequence shorter than 16 is one
   padded chunk, the same sums, since a padded step adds nothing to any
   position.
-* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise.
+* ``impl="auto"``  -- the kernel for a CUDA tensor, the plain version
+  otherwise.  On the card a head dim C below 64 is zero-padded up to 64:
+  r, k, v, u and h0 with zeros, logw with 0.  A padded key channel has
+  decay 1 and k = 0, so its state row starts at 0 and stays 0; a padded
+  value column has v = 0, so its state column and y's stay 0.  Both are
+  cut off.  Above 64 there is no width to pad to, and the kernel raises.
+  (``impl="cuda"`` takes C = 64 only.)
 
 Unlike the reference's Pallas path, which runs only without a state
 (``repro/models/rwkv6.py:144``), both impls start from ``h0`` when it is
@@ -27,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_wkv.kernel import CHUNK, wkv6_cuda, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv.kernel import CHUNK, HEAD_DIM, wkv6_cuda, wkv6_plain
 
 IMPLS = ("auto", "torch", "cuda")
 LOG_DECAY_FLOOR = 1e-38   # the reference's clamp before the log
@@ -60,15 +66,27 @@ def wkv6(
     logw = log_decay(w)
     if resolve_impl(impl, r) == "torch":
         return wkv6_plain(r, k, v, logw, u, h0=h0, chunk=CHUNK)
-    T = r.shape[1]
+    return run_padded(wkv6_cuda, r, k, v, logw, u, h0=h0, widths=impl == "auto")
+
+
+def run_padded(run, r, k, v, logw, u, *, h0=None, widths: bool = True):
+    """``run(r, k, v, logw, u, h0=...)`` on float32 contiguous tensors with
+    T padded to a multiple of :data:`CHUNK` with identity steps and, with
+    ``widths``, C padded up to 64; y and the state are cut back."""
+    T, C = r.shape[1], r.shape[-1]
     pad = (-T) % CHUNK
-    args = []
-    for t in (r, k, v, logw):
-        t = t.to(torch.float32)
-        if pad:
-            t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        args.append(t.contiguous())
+    dc = HEAD_DIM - C if widths and C < HEAD_DIM else 0
+    r, k, v, logw = (_pad(t, (0, dc, 0, 0, 0, pad)) for t in (r, k, v, logw))
+    u = _pad(u, (0, dc))
     if h0 is not None:
-        h0 = h0.to(torch.float32).contiguous()
-    y, h = wkv6_cuda(*args, u.to(torch.float32).contiguous(), h0=h0)
+        h0 = _pad(h0, (0, dc, 0, dc))
+    y, h = run(r, k, v, logw, u, h0=h0)
+    if dc:
+        y, h = y[..., :C], h[..., :C, :C].contiguous()
     return (y[:, :T] if pad else y), h
+
+
+def _pad(t: torch.Tensor, pads: tuple[int, ...]) -> torch.Tensor:
+    # float32, contiguous, zero-padded; no copy where nothing changes
+    t = t.to(torch.float32)
+    return (F.pad(t, pads) if any(pads) else t).contiguous()

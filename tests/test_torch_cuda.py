@@ -6,6 +6,9 @@ neither ``jax`` nor ``repro``, so it runs on a machine with the card alone:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
+The smoke configs (head dim 16, SSM head and state 16 at chunk 8, rwkv head
+16) run on the card through ``impl="auto"``, which pads each kernel's width.
+
 Tolerances: shuffles, histograms, counts and ``nsel`` exact; moments within
 1e-5 relative (the kernels sum in another order than the plain versions);
 flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import smoke_config
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
 from repro_torch.kernels.flash_attention import (
@@ -31,6 +35,9 @@ from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain, shuffle_path
 from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
+from repro_torch.models import api
+from repro_torch.models.transformer import build_lm
+from repro_torch.serve import Server
 
 pytestmark = pytest.mark.cuda
 
@@ -331,7 +338,7 @@ def test_ssd_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dA, Bm, Cm)
     with pytest.raises(ValueError, match="chunk 128"):
-        ssd(x, dA, Bm, Cm, chunk=64)
+        ssd(x, dA, Bm, Cm, chunk=64, impl="cuda")
     assert kernels.launch_counts()["mamba2_ssd"] == 0
 
 
@@ -409,3 +416,35 @@ def test_wkv_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, logw, u)
     assert kernels.launch_counts()["rwkv6_wkv"] == 0
+
+
+# the kernels each family's prefill launches through impl="auto"
+SMOKE_KERNELS = {"dense": ("flash_attention",), "hybrid": ("mamba2_ssd", "flash_attention"),
+                 "rwkv": ("rwkv6_wkv",)}
+SMOKE_ARCHS = ["llama3.2-1b", "qwen2-0.5b", "qwen3-14b", "granite-20b", "chameleon-34b",
+               "zamba2-7b", "rwkv6-1.6b"]
+# the card's logits against the CPU run's: the reference's decode-vs-forward
+# tolerance (tests/test_models_smoke.py), |a - b| <= 8e-2 (1 + |b|)
+SMOKE_TOL = 8e-2
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_smoke_arch_runs_its_kernels_on_the_card(dev, arch):
+    """A smoke config's forward on the card launches the family's kernels
+    at the padded widths, gives the CPU run's logits, and serves."""
+    cfg = smoke_config(arch)
+    cpu = build_lm(cfg, device="cpu", seed=5)
+    card = build_lm(cfg, device="cpu", seed=5).to(dev)
+    tokens = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 40), np.int64))
+    want = api.make_forward_fn(cpu)({"tokens": tokens}).float()
+    kernels.reset_launch_counts()
+    got = api.make_forward_fn(card)({"tokens": tokens.to(dev)}).float().cpu()
+    counts = kernels.launch_counts()
+    for name in SMOKE_KERNELS[cfg.family]:
+        assert counts[name] >= 1, (name, counts)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    diff = (got - want).abs()
+    assert not bool((diff > SMOKE_TOL * (1 + want.abs())).any()), float(diff.max())
+    out = Server(cfg, card, device=dev).generate(tokens[:, :24].numpy(), max_new_tokens=4)
+    assert out.shape == (2, 28)
