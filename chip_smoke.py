@@ -13,12 +13,17 @@ Phases, one line each with its seconds:
                 memory of the kernels redesigned for Hopper (flash's
                 wgmma + TMA kernel at each head dim, the shuffle's staged
                 and row kernels, the SSD's ssd_state and ssd_scan, the
-                WKV's wkv6_chunks) from the ``-Xptxas -v`` log;
+                WKV's wkv6_chunks, block_sketch_fused and the main path's
+                plan_sketch_fused) from the ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
-                and plan_sketch stats within 1e-5 relative and histograms
-                equal (plan cases: predicate, projection, G=2, empty
-                selection, labels out of range, ragged row count);
+                and plan_sketch stats within 1e-5 relative, histograms
+                and nsel equal (plan cases: predicate, projection, G=2,
+                empty selection, labels out of range, ragged row count,
+                and both read paths); 20 calls of block_sketch and of
+                queries (b)'s and (c)'s plans on one block give the same
+                bits, and so does a copy of the block that is not 16-byte
+                aligned (the scalar load path);
                 flash_attention within 2e-2 in bf16 and 2e-5 in float32
                 (the reference's own tolerances) at llama3.2-1b's prefill
                 shape in the serve path's strided layout, qwen2-0.5b's,
@@ -53,11 +58,15 @@ Phases, one line each with its seconds:
                 functions that take the caller's time;
 5. times     -- each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
-                it, so host work that outlasts the kernel shows) beside its
+                it -- for the sketches the launchers that return the packed
+                output -- so host work that outlasts the kernel shows) beside its
                 plain version, its bound and (for the shuffle)
                 ``index_select``; and ``device_ms``, the kernels' own device
                 time per call from ``torch.profiler``'s events of them, with
-                the count of launches it saw.  plan_sketch is timed on
+                the count of launches it saw (a wrapper's device kernels
+                are named by its package's ``KERNELS``; a sketch call must
+                launch nothing else: no memset, no cast, no second
+                kernel).  plan_sketch is timed on
                 query (c)'s grouped plan, which carries most of its main-path
                 launches, and on query (b)'s plan on a line of its own; a
                 plan's bound reads only the 32-byte sectors of the columns
@@ -322,6 +331,9 @@ def parity(args, device) -> dict:
         "ragged rows": (blk[: n - 37].contiguous(),
                         QueryPlan(predicates=["c2 >= 0.1", "c5 != 0.0"], columns=(1, 2))),
     }
+    cases["query (b)'s plan, gather path"] = (blk, QueryPlan(predicates="c0 > 0.5",
+                                                            columns=(0, 28)))
+    cases["query (c)'s plan, stage path"] = (blk, QueryPlan(group_by=28, num_classes=2))
     for name, (xb, plan) in cases.items():
         cols = plan.resolve_columns(29)
         glo, ghi = grid_of(xb, cols)
@@ -330,9 +342,41 @@ def parity(args, device) -> dict:
             arrays = PlanArrays.build(plan, 29, device)
             s1, h1, n1 = plan_sketch_cuda(xb, arrays, lo, invw, bins=bins)
             s2, h2, n2 = plan_sketch_plain(xb, plan, lo, invw, bins=bins)
-            check(n1 == n2, f"plan {name}: nsel {n1} != {n2}")
+            check(torch.equal(n1, n2), f"plan {name}: nsel {n1.item()} != {n2.item()}")
             compare_sketch(f"plan {name} bins={bins}", s1, s2, h1, h2, errs["plan_sketch"])
+
+    # the fold order is fixed and the scratch left clean: 20 calls, one set
+    # of bits; a block that is not 16-byte aligned takes the scalar path to
+    # the same bits
+    shifted = torch.empty(blk.numel() + 1, device=device)[1:].view(blk.shape)
+    shifted.copy_(blk)
+    check(shifted.data_ptr() % 16 != 0, "the shifted copy is 16-byte aligned")
+    glo, ghi = grid_of(blk)
+    lo, invw = grid_tensors(glo, ghi, BINS, device)
+    same_bits("block_sketch", lambda xb: block_sketch_cuda(xb, lo, invw, bins=BINS), blk, shifted)
+    for name in ("query (b)'s plan, gather path", "query (c)'s plan, stage path"):
+        plan = cases[name][1]
+        arrays = PlanArrays.build(plan, 29, device)
+        glo, ghi = grid_of(blk, plan.resolve_columns(29))
+        lo, invw = grid_tensors(glo, ghi, BINS, device)
+        same_bits(f"plan_sketch, {name}",
+                  lambda xb: plan_sketch_cuda(xb, arrays, lo, invw, bins=BINS), blk, shifted)
     return {k: max(v) for k, v in errs.items()}
+
+
+def same_bits(name, call, blk, shifted, reps: int = 20) -> None:
+    """``reps`` calls on ``blk`` and one on its unaligned copy ``shifted``
+    give bit-identical outputs."""
+    import torch
+
+    first = [t.clone() for t in call(blk) if t is not None]
+    for i in range(reps):
+        again = [t for t in call(blk if i < reps - 1 else shifted) if t is not None]
+        check(all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                              b.view(torch.int32) if b.dtype == torch.float32 else b)
+                  for a, b in zip(first, again)),
+              f"{name}: call {i + 2} ({'unaligned' if i == reps - 1 else 'aligned'})"
+              " differs from the first")
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +557,9 @@ def device_ms(fn, reps: int, *kernels: str) -> dict:
     small fills, in some sessions every event), so PROFILER_WARMUP fills
     and a 50 ms pause go first, and a session that missed a launch is run
     again, up to PROFILER_SESSIONS in all.  ``seen`` counts each kernel's
-    events and ``warmup_seen`` the fills' in the last session; ``ms`` is
-    None unless it saw every launch."""
+    events, ``warmup_seen`` the fills' and ``others`` every other device
+    event (memsets, copies, kernels not named) in the last session; ``ms``
+    is None unless it saw every launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -534,10 +579,11 @@ def device_ms(fn, reps: int, *kernels: str) -> dict:
         if all(n == reps for n in seen.values()):
             break
     total = sum(dur for name, _, dur in events if any(k in name for k in kernels))
+    warm = sum(1 for name, _, _ in events if "FillFunctor<short>" in name)
     return {"ms": total / reps / 1e3 if all(n == reps for n in seen.values()) else None,
             "seen": seen, "launched": reps, "sessions": session,
-            "warmup_seen": sum(1 for name, _, _ in events if "FillFunctor<short>" in name),
-            "warmup_launched": PROFILER_WARMUP}
+            "warmup_seen": warm, "warmup_launched": PROFILER_WARMUP,
+            "others": len(events) - sum(seen.values()) - warm}
 
 
 def main_path(args, device) -> dict:
@@ -675,10 +721,12 @@ def main_path(args, device) -> dict:
 def times(args, device) -> dict:
     import torch
 
-    from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
+    from repro_torch.kernels import block_sketch as bsk
+    from repro_torch.kernels import plan as plk
+    from repro_torch.kernels.block_sketch.kernel import block_sketch_packed, block_sketch_plain
     from repro_torch.kernels.block_sketch.ops import grid_tensors
     from repro_torch.kernels.plan import PlanArrays, QueryPlan
-    from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
+    from repro_torch.kernels.plan.kernel import plan_sketch_packed, plan_sketch_plain
     from repro_torch.kernels.rsp_shuffle import (
         flat_gather_index, partition_permutations, rsp_shuffle_cuda, rsp_shuffle_plain,
         shuffle_path)
@@ -717,17 +765,19 @@ def times(args, device) -> dict:
     lo, invw = grid_tensors(glo, ghi, BINS, device)
     nbytes = blk.numel() * 4 + 2 * F * 4 + 5 * F * 4 + F * BINS * 8
     b, by = bound_ms(nbytes, 10 * blk.numel())
+    # the launchers the query path calls: one launch, the packed output
     out["block_sketch"] = {
-        "ms": time_cuda(lambda i: block_sketch_cuda(blks[i % 8], lo, invw, bins=BINS),
+        "ms": time_cuda(lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS),
                         reps=REPS),
         "plain_ms": time_cuda(lambda i: block_sketch_plain(blks[i % 8], lo, invw, bins=BINS),
                               reps=REPS),
         "device_ms": device_ms(
-            lambda i: block_sketch_cuda(blks[i % 8], lo, invw, bins=BINS), REPS,
-            "block_sketch_partial", "sketch_finalize"),
+            lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS), REPS, *bsk.KERNELS),
         "library_ms": None, "bound_ms": b, "bound_by": by,
-        "shape": f"[{n}, {F}] f32, bins {BINS}",
+        "shape": f"[{n}, {F}] f32, bins {BINS}", "kernels_per_call": len(bsk.KERNELS),
+        "launch": bsk.LAUNCHES.last,
     }
+    one_kernel("block_sketch", out["block_sketch"]["device_ms"])
 
     def plan_times(plan, shape):
         """Times and bound of one plan on the rotating blocks, bins 0 (the
@@ -735,35 +785,42 @@ def times(args, device) -> dict:
         sectors of the columns the plan touches and writes its outputs."""
         arrays = PlanArrays.build(plan, F, device)
         fp, g = arrays.cols.numel(), arrays.groups
-        touched = {p.column for p in plan.predicates} | set(arrays.cols.tolist())
-        if arrays.gcol >= 0:
-            touched.add(arrays.gcol)
-        read = sector_bytes(n, F, sorted(touched))
+        read = sector_bytes(n, F, arrays.touched)
         nbytes = read + arrays.pcol.numel() * 12 + fp * 4 + 5 * g * fp * 4 + 4
         b, by = bound_ms(nbytes, (len(plan.predicates) + 5 * fp) * n)
         return {
-            "ms": time_cuda(lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0),
+            "ms": time_cuda(lambda i: plan_sketch_packed(blks[i % 8], arrays, None, None, bins=0),
                             reps=REPS),
             "plain_ms": time_cuda(
                 lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0), reps=REPS),
             "device_ms": device_ms(
-                lambda i: plan_sketch_cuda(blks[i % 8], arrays, None, None, bins=0), REPS,
-                "plan_sketch_partial", "sketch_finalize"),
+                lambda i: plan_sketch_packed(blks[i % 8], arrays, None, None, bins=0), REPS,
+                *plk.KERNELS),
             "library_ms": None, "bound_ms": b, "bound_by": by, "bound_read_bytes": read,
-            "shape": shape,
+            "shape": f"{shape}, {arrays.path} path", "kernels_per_call": len(plk.KERNELS),
+            "launch": plk.LAUNCHES.last,
         }
 
     # query (c)'s plan carries 300 of the main path's 333 plan launches: the
     # per-class mean, G = 2 over all 29 columns
     out["plan_sketch"] = plan_times(QueryPlan(group_by=28, num_classes=2),
                                     f"[{n}, {F}] f32, group_by c28, G 2, all columns, bins 0")
+    one_kernel("plan_sketch", out["plan_sketch"]["device_ms"])
     # query (b)'s plan: predicate c0 > 0.5, columns (0, 28); two columns'
     # sectors are about a third of the block
     where = plan_times(QueryPlan(predicates="c0 > 0.5", columns=(0, 28)),
                        f"[{n}, {F}] f32, where c0 > 0.5, columns (0, 28), bins 0")
+    one_kernel("plan_sketch, query (b)'s plan", where["device_ms"])
     print(f"plan_sketch, query (b)'s plan: {json.dumps(where)}", flush=True)
     out["plan_sketch_where"] = where
     return out
+
+
+def one_kernel(name: str, dm: dict) -> None:
+    """A sketch call launches its one kernel and nothing beside it."""
+    check(dm["ms"] is not None, f"{name}: the profiler missed a launch ({dm['seen']})")
+    check(dm["others"] == 0, f"{name}: {dm['others']} device events beside the kernel in"
+          f" {dm['launched']} calls (a memset, a cast or a second kernel)")
 
 
 # ---------------------------------------------------------------------------
@@ -2187,6 +2244,9 @@ REDESIGNED = {
     "rsp_shuffle_staged<u16>": "rsp_shuffle_stagedItE",
     "rsp_shuffle_rows<u32>": "rsp_shuffle_rowsIjE", "rsp_shuffle_rows<u16>": "rsp_shuffle_rowsItE",
     "ssd_state": "ssd_state", "ssd_scan": "ssd_scan", "wkv6_chunks": "wkv6_chunks",
+    "block_sketch_fused<512>": "block_sketch_fusedILi512E",
+    "plan_sketch_fused<512, G 1>": "plan_sketch_fusedILi512ELi1E",
+    "plan_sketch_fused<512, G 2>": "plan_sketch_fusedILi512ELi2E",
 }
 
 
@@ -2349,7 +2409,7 @@ def main() -> int:
             "device_ms_seen": {k: v for k, v in tm[name]["device_ms"].items() if k != "ms"},
             "shape": tm[name]["shape"],
             **({"launches_by_path": by_path[name]} if name in by_path else {}),
-            **{k: tm[name][k] for k in ("kernels_per_call", "x3_bound_ms", "x3_bound_by")
+            **{k: tm[name][k] for k in ("kernels_per_call", "x3_bound_ms", "x3_bound_by", "launch")
                if k in tm[name]},
         }
         for name in replaces

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the flash_attention, rsp_shuffle, mamba2_ssd and rwkv6_wkv kernels
-of one checkout, or of two checkouts in turns on the same card.
+"""Time the flash_attention, rsp_shuffle, mamba2_ssd, rwkv6_wkv,
+block_sketch and plan_sketch kernels of one checkout, or of two checkouts in
+turns on the same card.
 
     python3 kernel_times.py                  # this checkout
     python3 kernel_times.py --against DIR    # DIR, this, this, DIR
@@ -13,15 +14,21 @@ and builds its kernels into that checkout's ``build/``.  A run times, with
 zamba2-7b's prefill shapes (causal, the serve path's strided layout) and
 the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100,
 the SSD scan at zamba2-7b's prefill shape (xbar [8, 2048, 112, 64]) and the
-WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32: ``ms`` is CUDA events
-around back-to-back wrapper calls, ``device_ms`` the device time of the
-kernels one call launches (summed; a checkout names them in its
-``KERNELS``, one from before that has one kernel of the old name) from
-``torch.profiler``, beside one ``scaled_dot_product_attention`` (K/V
+WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32, and the sketches at the
+query path's shapes: block_sketch on a [110000, 29] float32 block with 128
+bins (query (a)), plan_sketch with query (c)'s plan (group_by c28, G 2) and
+query (b)'s (c0 > 0.5, columns 0 and 28), bins 0, over 8 rotating blocks
+(twice the L2).  ``ms`` is CUDA events around back-to-back wrapper calls
+(for the sketches, what the tree's query path calls),
+``device_ms`` the device time of the kernels one call launches (summed; a
+checkout names them in its ``KERNELS``, one from before that has the
+kernels of the old names) from ``torch.profiler``, and ``others`` the
+other device events a call brings (memsets, casts) that ``device_ms``
+leaves out; beside one ``scaled_dot_product_attention`` (K/V
 head-expanded) or ``index_select`` call on the same inputs (no PyTorch
-call computes the SSD or the WKV).  Each run prints one JSON line; with --against,
-the last line holds each checkout's medians and their ratio.  Needs one
-CUDA card.
+call computes the SSD, the WKV or the sketches) and, for the sketches, the
+bound.  Each run prints one JSON line; with --against, the last line holds
+each checkout's medians and their ratio.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -109,7 +116,55 @@ def one(src: Path, seed: int) -> dict:
         "device_ms": cs.device_ms(run, REPS, *getattr(rwkv6_wkv, "KERNELS", ("wkv6_fwd",)))["ms"],
         "library_ms": None,
     }
+    del r, k, v, w, u, logw
+    torch.cuda.empty_cache()
+    sketch_times(out, cs, device, seed)
     return out
+
+
+def sketch_times(out: dict, cs, device, seed: int) -> None:
+    """block_sketch and the two plans' times, with the bounds of chip_smoke.py."""
+    from repro_torch.kernels import block_sketch as bsk
+    from repro_torch.kernels import plan as plk
+    from repro_torch.kernels.block_sketch import kernel as bsk_kernel
+    from repro_torch.kernels.block_sketch.ops import grid_tensors
+    from repro_torch.kernels.plan import PlanArrays, QueryPlan
+    from repro_torch.kernels.plan import kernel as plk_kernel
+
+    # what each tree's query path calls: the packed launchers, or the parent's
+    # wrappers before them
+    block_call = getattr(bsk_kernel, "block_sketch_packed", bsk.block_sketch_cuda)
+    plan_call = getattr(plk_kernel, "plan_sketch_packed", plk.plan_sketch_cuda)
+
+    n, F = 110_000, 29
+    blks = [cs.make_block(n, seed + 3 + i, device) for i in range(8)]
+    glo, ghi = cs.grid_of(blks[0])
+    lo, invw = grid_tensors(glo, ghi, cs.BINS, device)
+
+    def entry(run, names, nbytes, ops):
+        dm = cs.device_ms(run, REPS, *names)
+        return {"ms": cs.time_cuda(run, reps=REPS), "device_ms": dm["ms"],
+                "others_per_call": dm.get("others", 0) / REPS, "library_ms": None,
+                "bound_ms": cs.bound_ms(nbytes, ops)[0]}
+
+    out["block_sketch"] = entry(
+        lambda i: block_call(blks[i % 8], lo, invw, bins=cs.BINS),
+        getattr(bsk, "KERNELS", ("block_sketch_partial", "sketch_finalize")),
+        n * F * 4 + 2 * F * 4 + 5 * F * 4 + F * cs.BINS * 8, 10 * n * F)
+    for key, plan in (("plan_c", QueryPlan(group_by=28, num_classes=2)),
+                      ("plan_b", QueryPlan(predicates="c0 > 0.5", columns=(0, 28)))):
+        arrays = PlanArrays.build(plan, F, device)
+        cols = plan.resolve_columns(F)
+        touched = {p.column for p in plan.predicates} | set(cols)
+        if plan.group_by is not None:
+            touched.add(plan.group_by % F)
+        fp, g = len(cols), plan.groups
+        out[key] = entry(
+            lambda i: plan_call(blks[i % 8], arrays, None, None, bins=0),
+            getattr(plk, "KERNELS", ("plan_sketch_partial", "sketch_finalize")),
+            cs.sector_bytes(n, F, sorted(touched)) + len(plan.predicates) * 12 + fp * 4
+            + 5 * g * fp * 4 + 4,
+            (len(plan.predicates) + 5 * fp) * n)
 
 
 def main() -> int:
@@ -142,14 +197,18 @@ def main() -> int:
         runs.append((tree, json.loads(line)))
     if args.against is not None:
         summary = {}
-        for key in ("flash_llama", "flash_zamba2", "shuffle", "ssd", "wkv"):
-            for metric in ("ms", "device_ms", "library_ms"):
+        for key in ("flash_llama", "flash_zamba2", "shuffle", "ssd", "wkv", "block_sketch",
+                    "plan_c", "plan_b"):
+            for metric in ("ms", "device_ms", "library_ms", "others_per_call"):
                 # device_ms is None where the profiler missed a launch
-                mine = [r[key][metric] for t, r in runs if t == ROOT and r[key][metric]]
-                theirs = [r[key][metric] for t, r in runs if t != ROOT and r[key][metric]]
+                mine = [r[key].get(metric) for t, r in runs
+                        if t == ROOT and r[key].get(metric) is not None]
+                theirs = [r[key].get(metric) for t, r in runs
+                          if t != ROOT and r[key].get(metric) is not None]
                 if mine and theirs:
                     m, o = statistics.median(mine), statistics.median(theirs)
-                    summary[f"{key} {metric}"] = {"this": m, "against": o, "against / this": o / m}
+                    summary[f"{key} {metric}"] = {"this": m, "against": o,
+                                                  "against / this": o / m if m else None}
         print(json.dumps(summary), flush=True)
     return 0
 

@@ -44,17 +44,18 @@ _SIGNATURES = {
     "rsp_shuffle_launch": (_I, [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     "repro_smem_optin": (_I, []),
-    "block_sketch_num_ctas": (_I, [_L]),
+    "sketch_scratch_bytes": (_L, [_I, _I, _I]),
     "block_sketch_smem_bytes": (_L, [_I, _I, _I, _I]),
+    "block_sketch_max_clusters": (_I, [_I, _I, _I, _I]),
     "block_sketch_launch": (
-        _I, [_P, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        _I, [_P, _L, _I, _I, _L, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     ),
-    "plan_sketch_num_ctas": (_I, [_L, _I]),
     "plan_sketch_smem_bytes": (_L, [_I, _I, _I, _I, _I, _I, _I]),
+    "plan_sketch_max_clusters": (_I, [_I, _I, _I, _I, _I, _I, _I]),
     "plan_sketch_launch": (
         _I,
-        [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-         _P, _P, _P, _P, _P, _P],
+        [_P, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+         _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
     ),
     "flash_attention_smem_bytes": (_I, [_I]),
     "flash_attention_launch": (
@@ -70,16 +71,21 @@ _LIB: ctypes.CDLL | None = None
 
 class LaunchCounter:
     """A thread-safe count of kernel launches, for showing that a run went
-    through a kernel.  Wrappers call :meth:`add` exactly where they launch."""
+    through a kernel.  Wrappers call :meth:`add` exactly where they launch,
+    optionally with a record of the launch (the path it took, its grid),
+    which :attr:`last` keeps."""
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
         self._n = 0
+        self.last: dict = {}
 
-    def add(self) -> None:
+    def add(self, record: dict | None = None) -> None:
         with self._lock:
             self._n += 1
+            if record is not None:
+                self.last = record
 
     @property
     def value(self) -> int:
@@ -208,8 +214,10 @@ def check(code: int, what: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    """The raw ``cudaStream_t`` of the current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of the current stream on ``device`` (a CUDA
+    tensor's device), through PyTorch's own accessor of CUDA builds, which
+    makes no ``torch.cuda.Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require_same_device(device: torch.device, **tensors: torch.Tensor) -> None:

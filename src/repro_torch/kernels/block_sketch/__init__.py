@@ -6,6 +6,7 @@ plain PyTorch version and the CUDA kernel (``kernel.py``, source
 """
 
 from repro_torch.kernels.block_sketch.kernel import (
+    KERNELS,
     LAUNCHES,
     block_sketch_cuda,
     block_sketch_plain,
@@ -20,6 +21,7 @@ from repro_torch.kernels.block_sketch.ref import (
 
 __all__ = [
     "IMPLS",
+    "KERNELS",
     "LAUNCHES",
     "BlockSketch",
     "block_sketch",

@@ -9,8 +9,11 @@ bins - 1)`` in float32, so out-of-range mass lands in the edge bins and
 only.
 
 * :func:`block_sketch_cuda` launches ``csrc/block_sketch.cu`` (the port of
-  the Pallas ``block_sketch_pallas``) and counts the launch in
-  :data:`LAUNCHES`.  It takes CUDA tensors only.
+  the Pallas ``block_sketch_pallas``) once and counts the launch in
+  :data:`LAUNCHES`, whose ``last`` record names the load path it took
+  (``"vec4"`` for a 16-byte aligned block, ``"scalar"`` otherwise: the
+  same bits) and the launch's geometry.  It takes CUDA tensors only; its outputs are views of one
+  packed buffer (:func:`block_sketch_packed`, ``kernels/_sketch.py``).
 * :func:`block_sketch_plain` is the same function in plain PyTorch, on any
   device: the CPU tests run it, and ``chip_smoke.py`` holds the kernel
   against it on the card.
@@ -20,11 +23,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _sketch
 
 LAUNCHES = _cuda.LaunchCounter("block_sketch")
+KERNELS = ("block_sketch_fused",)   # the device kernels one call launches
 
-_THREADS = 256
+MAX_FEATURES = 1024
+_THREADS = 512         # a CTA's threads: F * J, J the largest power of two that fits
 _SMEM_LIMIT = 200 * 1024
 
 
@@ -74,40 +79,79 @@ def block_sketch_plain(
     return stats, hist
 
 
-def block_sketch_cuda(
+_LAUNCH: dict[tuple, tuple] = {}   # launch parameters by (device, stream, n, F, bins)
+
+
+def _launch_params(dev: torch.device, stream: int, n: int, f: int, bins: int) -> tuple:
+    """``(J, hist_in_smem, ctas, rows_per_cta, ld, scratch, records)`` of a
+    launch, computed once a shape and stream; ``records[aligned]`` is the
+    launch record :data:`LAUNCHES` keeps."""
+    key = (dev.index, stream, n, f, bins)
+    params = _LAUNCH.get(key)
+    if params is None:
+        lib = _cuda.library()
+        lanes = _sketch.pow2_floor(_THREADS // f)       # J: threads a feature
+        threads = f * lanes
+        in_smem = int(bins > 0
+                      and lib.block_sketch_smem_bytes(threads, f, bins, 1) <= _SMEM_LIMIT)
+        ld = min(_sketch.MAX_CLUSTERS, _sketch.clusters(
+            lib.block_sketch_max_clusters, threads, f, bins, in_smem))
+        ctas, rows = _sketch.launch_geometry(n, _sketch.max_ctas(ld))
+        scratch = _sketch.scratch(dev, stream, f, bins, ld)
+        geometry = {"ctas": ctas, "rows_per_cta": rows, "threads": threads, "clusters_held": ld}
+        records = {True: {"path": "vec4", **geometry}, False: {"path": "scalar", **geometry}}
+        params = (lanes, in_smem, ctas, rows, ld, scratch, records)
+        if len(_LAUNCH) >= _sketch.SCRATCH_ENTRIES:
+            _LAUNCH.clear()
+        _LAUNCH[key] = params
+    return params
+
+
+def block_sketch_packed(
     x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int
-) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch the CUDA kernel on CUDA tensors (float32, contiguous)."""
+) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors (float32, contiguous); returns
+    its packed output (``_sketch.unpack(packed, 1, F, bins)``)."""
     _check_args(x, lo, inv_width, bins)
     if bins > 0:
         _cuda.require_same_device(x.device, lo=lo, inv_width=inv_width)
     _cuda.require_cuda(x, "x", torch.float32)
     n, f = x.shape
-    if f < 1 or f > _THREADS * 4:
-        raise ValueError(f"the kernel takes 1 <= F <= {_THREADS * 4} features, got {f}")
+    if f < 1 or f > MAX_FEATURES:
+        raise ValueError(f"the kernel takes 1 <= F <= {MAX_FEATURES} features, got {f}")
     if n >= 2**31:
         raise ValueError("the kernel takes fewer than 2**31 rows per block")
+    if f * bins >= 2**31:
+        raise ValueError("the kernel takes fewer than 2**31 histogram bins in all")
     if bins > 0:
         _cuda.require_cuda(lo, "lo", torch.float32)
         _cuda.require_cuda(inv_width, "inv_width", torch.float32)
     lib = _cuda.library()
-    lanes = max(1, _THREADS // f)                    # J: threads per feature
-    threads = -(-(f * lanes) // 32) * 32
-    in_smem = int(bins > 0 and lib.block_sketch_smem_bytes(threads, f, bins, 1) <= _SMEM_LIMIT)
-    ctas = lib.block_sketch_num_ctas(n)
     dev = x.device
-    pmom = torch.empty((ctas, 3, f), dtype=torch.float64, device=dev)
-    pext = torch.empty((ctas, 2, f), dtype=torch.float32, device=dev)
-    stats = torch.empty((5, f), dtype=torch.float32, device=dev)
-    hist = torch.zeros((f, max(bins, 1)), dtype=torch.int32, device=dev)
+    stream = _cuda.stream_handle(dev)
+    lanes, in_smem, ctas, rows, ld, scratch, records = _launch_params(dev, stream, n, f, bins)
+    vec = x.data_ptr() % 16 == 0   # 16-byte loads, or scalar loads of the same values
+    packed, stats, hist, nsel = _sketch.new_packed(f, bins, dev)
     code = lib.block_sketch_launch(
-        x.data_ptr(), n, f, lanes, threads,
+        x.data_ptr(), n, f, lanes, rows, ctas,
         lo.data_ptr() if bins > 0 else None,
         inv_width.data_ptr() if bins > 0 else None,
-        bins, in_smem, pmom.data_ptr(), pext.data_ptr(), stats.data_ptr(),
-        hist.data_ptr(), _cuda.stream_handle(dev),
+        bins, in_smem, int(vec), scratch.data_ptr(), ld, stats, hist, nsel, stream,
     )
     _cuda.check(code, "block_sketch kernel")
-    LAUNCHES.add()
-    return stats, (hist.to(torch.int64) if bins > 0 else None)
+    LAUNCHES.add(records[vec])
+    return packed
 
+
+def block_sketch_cuda(
+    x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the CUDA kernel on CUDA tensors (float32, contiguous): one
+    launch, ``(stats, hist)`` views of its packed output."""
+    packed = block_sketch_packed(x, lo, inv_width, bins=bins)
+    f = x.shape[1]
+    stats = packed[: 20 * f].view(torch.float32).view(5, f)
+    if bins == 0:
+        return stats, None
+    hist_off, nsel_off, _ = _sketch.packed_layout(f, bins)
+    return stats, packed[hist_off:nsel_off].view(torch.int64).view(f, bins)

@@ -5,6 +5,7 @@ oracle (``ref.py``), the plain PyTorch version and the CUDA kernel
 compile cache (``ops.py``)."""
 
 from repro_torch.kernels.plan.kernel import (
+    KERNELS,
     LAUNCHES,
     MAX_PREDICATES,
     PlanArrays,
@@ -28,6 +29,7 @@ from repro_torch.kernels.plan.ref import PlanResult, empty_sketch, plan_sketch_r
 
 __all__ = [
     "IMPLS",
+    "KERNELS",
     "LAUNCHES",
     "MAX_PREDICATES",
     "PlanArrays",

@@ -14,8 +14,10 @@ PlanResult`:
 Executors are **compiled per plan**: :func:`compile_plan` memoizes on
 ``(plan.key(), features, bins, impl, device)``.  The CUDA kernel is one
 build for every plan, so what the cache keeps for it are the plan's
-prepared device arrays (predicates, columns, group column) -- re-running a
-plan hits the cache, changing any predicate misses.
+prepared device arrays (predicates, columns, group column, read path) --
+re-running a plan hits the cache, changing any predicate misses.  The
+outputs come back to the host in one device-to-host copy of the packed
+buffer (``kernels/_sketch.py``).
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE, as_numpy, resolve_device
+from repro_torch.kernels import _sketch
 from repro_torch.kernels.block_sketch.ops import IMPLS, as_block_tensor, grid_tensors, resolve_impl
 from repro_torch.kernels.block_sketch.ref import BlockSketch, _grid
-from repro_torch.kernels.plan.kernel import PlanArrays, plan_sketch_cuda, plan_sketch_plain
+from repro_torch.kernels.plan.kernel import PlanArrays, plan_sketch_packed, plan_sketch_plain
 from repro_torch.kernels.plan.plan import QueryPlan
 from repro_torch.kernels.plan.ref import PlanResult, plan_sketch_ref
 
@@ -54,13 +57,13 @@ def cache_clear() -> None:
         _HITS = _MISSES = 0
 
 
-def _result(plan, bins, glo, ghi, *, nsel, n, stats, hist) -> PlanResult:
-    """Assemble ``stats [G*5, Fp]`` / ``hist [G*Fp, bins]`` tensors into a
-    PlanResult of numpy per-group sketches."""
+def _result(plan, fp, bins, glo, ghi, *, n, packed) -> PlanResult:
+    """A packed output on the host -> a PlanResult of numpy per-group
+    sketches."""
     g_count = plan.groups
-    st = stats.cpu().numpy().astype(np.float64).reshape(g_count, 5, -1)
-    fp = st.shape[2]
-    h = None if bins == 0 else hist.cpu().numpy().astype(np.int64).reshape(g_count, fp, bins)
+    stats, hist, nsel = _sketch.unpack(packed, g_count, fp, bins)
+    st = stats.numpy().astype(np.float64).reshape(g_count, 5, fp)
+    h = None if bins == 0 else hist.numpy().astype(np.int64).reshape(g_count, fp, bins)
     sketches = [
         BlockSketch(
             count=float(st[g, 0, 0]),
@@ -74,7 +77,7 @@ def _result(plan, bins, glo, ghi, *, nsel, n, stats, hist) -> PlanResult:
         )
         for g in range(g_count)
     ]
-    return PlanResult(rows_total=int(n), rows_selected=int(nsel), sketches=sketches)
+    return PlanResult(rows_total=int(n), rows_selected=int(nsel[0]), sketches=sketches)
 
 
 def _build_ref(plan, bins):
@@ -88,16 +91,17 @@ def _build_ref(plan, bins):
 
 def _build_tensor(plan, f, bins, impl, device):
     arrays = PlanArrays.build(plan, f, device) if impl == "cuda" else None
+    fp = len(plan.resolve_columns(f))
 
     def run(x, glo, ghi):
         lo = invw = None
         if bins > 0:
             lo, invw = grid_tensors(glo, ghi, bins, x.device)
         if impl == "cuda":
-            stats, hist, nsel = plan_sketch_cuda(x, arrays, lo, invw, bins=bins)
+            packed = plan_sketch_packed(x, arrays, lo, invw, bins=bins)
         else:
-            stats, hist, nsel = plan_sketch_plain(x, plan, lo, invw, bins=bins)
-        return _result(plan, bins, glo, ghi, nsel=nsel, n=x.shape[0], stats=stats, hist=hist)
+            packed = _sketch.pack(*plan_sketch_plain(x, plan, lo, invw, bins=bins))
+        return _result(plan, fp, bins, glo, ghi, n=x.shape[0], packed=packed.cpu())
 
     return run
 

@@ -11,6 +11,8 @@ The smoke configs (head dim 16, SSM head and state 16 at chunk 8, rwkv head
 
 Tolerances: shuffles, histograms, counts and ``nsel`` exact; moments within
 1e-5 relative (the kernels sum in another order than the plain versions);
+the sketch kernels' repeated calls, and their scalar-load path against the
+16-byte one, bit for bit (their fold order is fixed);
 flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
 scan and the WKV within 2e-4, the reference's own tolerances for its Pallas
 kernels (``tests/test_kernels.py``).
@@ -24,6 +26,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.block_sketch import block_sketch
+from repro_torch.kernels.block_sketch.kernel import LAUNCHES as BLOCK
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -32,6 +35,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
+from repro_torch.kernels.plan.kernel import LAUNCHES as PLAN
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain, shuffle_path
 from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
@@ -148,9 +152,158 @@ def test_plan_kernel_matches_plain(dev, name, bins):
         invw = torch.full((fp,), bins / 20.0, device=dev)
     s1, h1, n1 = plan_sketch_cuda(x, PlanArrays.build(plan, 6, dev), lo, invw, bins=bins)
     s2, h2, n2 = plan_sketch_plain(x, plan, lo, invw, bins=bins)
-    assert n1 == n2
+    assert torch.equal(n1, n2)
     _close(s1, s2)
     assert (h1 is None and h2 is None) or torch.equal(h1, h2)
+
+
+# -- the redesigned sketch kernels: one launch, a fixed fold order, a clean
+# scratch, two read paths, 16-byte and scalar loads
+
+def _block_args(x, bins):
+    f = x.shape[1]
+    if x.shape[0] == 0 or bins == 0:
+        return torch.zeros(f, device=x.device), torch.full((f,), 0.5, device=x.device)
+    lo = x.amin(0) - 0.1
+    return lo, bins / (x.amax(0) + 0.1 - lo)
+
+
+def _bits(outs):
+    return [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in outs if t is not None]
+
+
+def _same(a, b):
+    return all(torch.equal(u, v) for u, v in zip(_bits(a), _bits(b)))
+
+
+def _check_block(x, bins):
+    lo, invw = _block_args(x, bins)
+    s1, h1 = block_sketch_cuda(x, lo, invw, bins=bins)
+    s2, h2 = block_sketch_plain(x, lo, invw, bins=bins)
+    _close(s1, s2)
+    assert torch.equal(s1[0], s2[0])
+    assert (h1 is None) == (bins == 0) and (h1 is None or torch.equal(h1, h2))
+    return s1, h1
+
+
+def _check_plan(x, plan, bins, path=None):
+    fp = len(plan.resolve_columns(x.shape[1]))
+    lo = invw = None
+    if bins:
+        lo = torch.full((fp,), -8.0, device=x.device)
+        invw = torch.full((fp,), bins / 20.0, device=x.device)
+    arrays = PlanArrays.build(plan, x.shape[1], x.device)
+    assert path is None or arrays.path == path
+    got = plan_sketch_cuda(x, arrays, lo, invw, bins=bins)
+    want = plan_sketch_plain(x, plan, lo, invw, bins=bins)
+    _close(got[0], want[0])
+    assert torch.equal(got[0][0::5], want[0][0::5]) and torch.equal(got[2], want[2])
+    assert (got[1] is None and want[1] is None) or torch.equal(got[1], want[1])
+    return got
+
+
+QUERY_B = QueryPlan(predicates="c0 > 0.5", columns=(0, 28))
+QUERY_C = QueryPlan(group_by=28, num_classes=2)
+
+
+@pytest.mark.parametrize("kind", ["block", "plan gather", "plan stage"])
+def test_sketch_kernels_give_the_same_bits_twenty_times(dev, kind):
+    x = torch.from_numpy(_data(110_000, 29, classes=2, seed=7)).to(dev)
+    if kind == "block":
+        lo, invw = _block_args(x, 128)
+        call = lambda: block_sketch_cuda(x, lo, invw, bins=128)  # noqa: E731
+    else:
+        plan = QUERY_B if kind == "plan gather" else QUERY_C
+        arrays = PlanArrays.build(plan, 29, dev)
+        assert arrays.path == kind.split()[1]
+        fp = len(plan.resolve_columns(29))
+        lo, invw = torch.full((fp,), -8.0, device=dev), torch.full((fp,), 3.2, device=dev)
+        call = lambda: plan_sketch_cuda(x, arrays, lo, invw, bins=64)  # noqa: E731
+    first = [t.clone() for t in call() if t is not None]
+    for _ in range(19):
+        assert _same(first, call())
+
+
+ROWS = [0, 1, 3, 5, 255, 257, 110_000]   # 256: the fewest rows a CTA takes
+
+
+@pytest.mark.parametrize("n", ROWS)
+def test_sketch_kernels_at_row_counts_of_the_edges(dev, n):
+    x = torch.from_numpy(_data(max(n, 1), 29, classes=2, seed=n)[:n]).to(dev)
+    s, _ = _check_block(x, 32)
+    if n == 0:
+        assert torch.all(s[0] == 0) and torch.all(s[3] == float("inf"))
+        assert torch.all(s[4] == float("-inf"))
+    for plan, path in ((QUERY_B, "gather"), (QUERY_C, "stage")):
+        _check_plan(x, plan, 16, path)
+
+
+@pytest.mark.parametrize("f", [1, 3, 29, 64, 300, 1024])
+def test_sketch_kernels_at_feature_counts_of_the_edges(dev, f):
+    x = torch.from_numpy(_data(3001, f, seed=f)).to(dev)
+    _check_block(x, 8)
+    _check_block(x, 0)
+    _check_plan(x, QueryPlan(predicates="c0 > 1.0"), 8)
+    _check_plan(x, QueryPlan(columns=(0, f - 1)), 0)
+
+
+def test_sketch_kernels_with_a_histogram_too_large_for_shared_memory(dev):
+    x = torch.from_numpy(_data(5000, 29, classes=2, seed=11)).to(dev)
+    _check_block(x, 4096)                 # 29 x 4097 x 4 bytes > the shared-memory limit
+    _check_plan(x, QUERY_C, 1024)         # 58 x 1025 x 4 bytes
+
+
+def test_sketch_kernels_on_a_block_that_is_not_16_byte_aligned(dev):
+    x = torch.from_numpy(_data(20_000, 29, classes=2, seed=13)).to(dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    lo, invw = _block_args(x, 128)
+    aligned = block_sketch_cuda(x, lo, invw, bins=128)
+    assert BLOCK.last["path"] == "vec4"
+    assert _same(aligned, block_sketch_cuda(shifted, lo, invw, bins=128))
+    assert BLOCK.last["path"] == "scalar"
+    _check_block(shifted, 128)
+    arrays = PlanArrays.build(QUERY_C, 29, dev)
+    staged = plan_sketch_cuda(x, arrays, None, None, bins=0)
+    assert PLAN.last["path"] == "stage vec4"
+    assert _same(staged, plan_sketch_cuda(shifted, arrays, None, None, bins=0))
+    assert PLAN.last["path"] == "stage scalar"
+    _check_plan(shifted, QUERY_B, 16, "gather")
+
+
+def test_sketch_kernels_on_two_streams_at_once(dev):
+    xs = [torch.from_numpy(_data(110_000, 29, classes=2, seed=s)).to(dev) for s in (21, 22)]
+    grids = [_block_args(x, 128) for x in xs]
+    arrays = PlanArrays.build(QUERY_C, 29, dev)
+    want = [(block_sketch_cuda(x, *g, bins=128), plan_sketch_cuda(x, arrays, None, None, bins=0))
+            for x, g in zip(xs, grids)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(10):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                got[k].append((block_sketch_cuda(xs[k], *grids[k], bins=128),
+                               plan_sketch_cuda(xs[k], arrays, None, None, bins=0)))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        for b, p in got[k]:
+            assert _same(b, want[k][0]) and _same(p, want[k][1])
+
+
+@pytest.mark.parametrize("name", ["gather", "stage"])
+@pytest.mark.parametrize("bins", [0, 32])
+def test_plan_kernel_read_paths_match_plain(dev, name, bins):
+    x = torch.from_numpy(_data(50_000, 29, classes=3, seed=17, out_of_range=True)).to(dev)
+    plans = {
+        "gather": [QUERY_B, QueryPlan(predicates=["c2 > -0.5", "c1 <= 2"], columns=(1, 2, 3),
+                                      group_by=28, num_classes=3)],
+        "stage": [QUERY_C, QueryPlan(predicates="c3 != 0.0", group_by=28, num_classes=6)],
+    }
+    for plan in plans[name]:
+        _check_plan(x, plan, bins, name)
 
 
 def test_plan_kernel_refuses_plan_arrays_on_the_host(dev):
