@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
-main path, dense LM serving, zamba2 hybrid serving, and rwkv6 scoring, loss
+main path, ingest from disk, block-level estimation and concurrent query
+serving, dense LM serving, zamba2 hybrid serving, and rwkv6 scoring, loss
 and serving.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
@@ -56,6 +57,38 @@ Phases, one line each with its seconds:
                 run of each query under ``torch.profiler`` gives the device's
                 busy and idle share, and one under ``cProfile`` the host
                 functions that take the caller's time;
+3b. ingest   -- the same corpus written to a ``.npy`` file (1.276 GB at
+                full size) and ingested from disk by ``rsp.from_source(path,
+                out=...)`` (the ``np_stream`` host scatter, default chunks,
+                4 workers) in a child process, which reports its seconds,
+                rows a second and the peak growth of its heap (``VmData``:
+                it must stay under INGEST_HEAP_BYTES, less than the corpus)
+                and of its resident memory (mapped files included); every
+                block equal
+                to ``two_stage_partition_np`` bit for bit, the folded
+                sketches equal to the np backend's summaries (mean to 1e-9,
+                M2 to 1e-7, extrema and labels exact), and query (b) on the
+                reopened store equal to query (b) on the np partition held
+                on the card;
+3c. estimator -- ``ds.estimator()`` over all blocks of the ingested store,
+                one block_sketch launch a block (moments only), within 1e-5
+                of the same estimator through the plain version, and
+                ``ds.estimate`` of a plain torch mean over 20 blocks within
+                1e-5 of the estimator of the same 20;
+3d. serve     -- ``ds.serve(workers=8, seed=11)`` on the ingested store
+                reopened cold: 32 tenants from 4 threads (8 each of a
+                sketch answer, a p95 of column 0 over 20 blocks, query (b)
+                and query (c)); every answer equal to its solo run with
+                ``derive_seed(11, ticket.id)`` bit for bit, per-query
+                ``CallerStats`` summing to the executor's window, and
+                block_sketch and plan_sketch launched once for every block
+                the progressive queries folded; then a saturation wave
+                (capacity 5, queue 2, 16 submissions: rejects counted and
+                every submission accounted for), a deadline wave (p95 over
+                up to 100 blocks in 50 ms: every ticket ``deadline`` or
+                ``converged`` with an anytime result) and one profiled wave
+                for the device's idle share; QPS, latency p50 and p99 by
+                query type, blocks a query and the cache hit rate printed;
 5. times     -- each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
                 it -- for the sketches the launchers that return the packed
@@ -129,7 +162,8 @@ Phases, one line each with its seconds:
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
-are set to 0 just before the path is driven and read just after.
+are set to 0 just before the path is driven and read just after (the main
+path, the estimator, the first serve wave, each LM path).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -711,7 +745,332 @@ def main_path(args, device) -> dict:
             for k, v in lat.items()
         },
     }
-    return {"counts": counts, "e2e": e2e}
+    return {"counts": counts, "e2e": e2e, "data": data}
+
+
+# ---------------------------------------------------------------------------
+# Phases 3b-3d: ingest from disk, block-level estimation, concurrent serving
+# ---------------------------------------------------------------------------
+
+INGEST_SAMPLE_S = 0.001   # the ingest child reads its memory this often
+# The ingest's heap holds its scatter window (8 segments of ~8 MiB chunks,
+# their row copies and float64 views) and the 100 blocks' sketch states: a
+# few hundred MB.  A scatter that held the 1.276 GB corpus would exceed it.
+INGEST_HEAP_BYTES = 512 << 20
+SERVE_SEED = 11
+SERVE_TYPES = ("sketch", "p95", "b_where_columns", "c_by_label")
+
+
+def _status_bytes(*fields: str) -> list[int]:
+    """``/proc/self/status`` fields, in bytes.  ``VmData`` is the size of the
+    process's private writable mappings (its heap, resident or not, and no
+    mapped file); ``VmRSS`` its resident memory, mapped files included."""
+    got = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            name, _, value = line.partition(":")
+            if name in fields:
+                got[name] = int(value.split()[0]) * 1024
+    return [got[name] for name in fields]
+
+
+def ingest_child(npy: str, out: str, seed: int, device: str) -> dict:
+    """The ingest as a user runs it, in a process of its own so that its
+    memory is its own: ``rsp.from_source(npy, out=...)`` with the default
+    chunks and 4 scatter workers.  Returns the backend it chose, its seconds
+    and the peak growth of the process's heap (``VmData``, where a
+    materialized corpus would show) and of its resident memory (``VmRSS``:
+    the pages of the mapped input and output files too), both read every
+    INGEST_SAMPLE_S on a thread."""
+    import threading
+
+    from repro_torch import rsp
+    from repro_torch.device import resolve_device
+
+    resolve_device(device)
+    base = _status_bytes("VmData", "VmRSS")
+    peak, stop = list(base), threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[:] = map(max, peak, _status_bytes("VmData", "VmRSS"))
+            stop.wait(INGEST_SAMPLE_S)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    ds = rsp.from_source(npy, blocks=BLOCKS, seed=seed, num_classes=2, out=out, device=device)
+    seconds = time.perf_counter() - t0
+    stop.set()
+    sampler.join()
+    return {"backend": ds.backend, "seconds": seconds, "records": ds.spec.num_records,
+            "rows_per_s": ds.spec.num_records / seconds,
+            "peak_heap_growth_bytes": peak[0] - base[0],
+            "peak_rss_growth_bytes": peak[1] - base[1], "sample_s": INGEST_SAMPLE_S}
+
+
+def ingest(args, data, tmp: str, device) -> dict:
+    """Phase 3b: the HIGGS corpus written to a ``.npy`` file and ingested
+    from disk into a stored RSP by the out-of-core scatter (in a child
+    process), checked bit for bit against ``two_stage_partition_np`` of the
+    same array on the host, its folded sketches against the in-memory np
+    backend's summaries (the reference's tolerances, ``tests/test_ingest.py``),
+    and query (b) on the reopened store against the same query on the np
+    partition held on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rsp
+    from repro_torch.core.partition import two_stage_partition_np
+    from repro_torch.rsp.summaries import summarize_blocks
+
+    npy, out = str(Path(tmp) / "corpus.npy"), str(Path(tmp) / "ingested.rsp")
+    t0 = time.perf_counter()
+    np.save(npy, data)
+    phase("ingest write", t0, f"{Path(npy).stat().st_size / 1e9:.3f} GB .npy")
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--ingest-child", npy, out,
+         str(device), "--seed", str(args.seed)],
+        capture_output=True, text=True, timeout=900,
+    )
+    check(res.returncode == 0, f"ingest child failed: {res.stderr[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    phase("ingest", t0, json.dumps(got))
+    check(got["backend"] == "np_stream", f"from_source chose {got['backend']!r}")
+    check(got["peak_heap_growth_bytes"] < INGEST_HEAP_BYTES,
+          f"the ingest's heap grew by {got['peak_heap_growth_bytes']} bytes, more than"
+          f" {INGEST_HEAP_BYTES} (the corpus is {data.nbytes})")
+
+    t0 = time.perf_counter()
+    ds = rsp.open(out, device=device, cache_blocks=BLOCKS)
+    check(ds.backend == "np_stream", f"the reopened store says backend {ds.backend!r}")
+    want = two_stage_partition_np(data, ds.spec)
+    for k in range(BLOCKS):
+        check(np.array_equal(ds.store.load_block(k), want[k]),
+              f"ingested block {k} differs from two_stage_partition_np")
+    phase("ingest check", t0, f"{BLOCKS} blocks equal two_stage_partition_np bit for bit")
+
+    t0 = time.perf_counter()
+    exact = summarize_blocks(want, label_column=-1, num_classes=2, kinds=("moments", "labels"))
+    for k, (s, e) in enumerate(zip(ds.summaries, exact)):
+        check(s.count == e.count, f"block {k}: count {s.count} vs {e.count}")
+        check(np.allclose(s.mean, e.mean, rtol=1e-9, atol=1e-11), f"block {k}: mean differs")
+        check(np.allclose(s.m2, e.m2, rtol=1e-7, atol=1e-9), f"block {k}: M2 differs")
+        for f in ("min", "max", "label_hist"):
+            check(np.array_equal(getattr(s, f), getattr(e, f)), f"block {k}: {f} differs")
+    phase("ingest sketches", t0, "moments to rtol 1e-9 / 1e-7, extrema and labels exact")
+
+    t0 = time.perf_counter()
+    aggs, kw = queries()["b_where_columns"]
+    in_memory = rsp.RSPDataset(ds.spec, blocks=want, backend="np", summaries=exact,
+                               num_classes=2, device=device)
+    r_store, r_mem = ds.query(aggs, **kw), in_memory.query(aggs, **kw)
+    check(r_store.blocks_read == r_mem.blocks_read and agree(r_store, r_mem) == 0.0,
+          "query (b) on the ingested store differs from the np partition's")
+    in_memory.close()
+    del in_memory, want
+    torch.cuda.empty_cache()
+    phase("ingest query", t0, f"query (b) equal on both, blocks_read={r_store.blocks_read}")
+    return {"dataset": ds, "ingest": got}
+
+
+def estimator(ds) -> dict:
+    """Phase 3c: ``ds.estimator()`` over all blocks (one block_sketch launch
+    a block, moments only) against the same estimator through the plain
+    version, and ``ds.estimate`` of a plain torch statistic over 20 blocks
+    against the estimator of the same 20."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = ds.estimator()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()   # the estimator's path ends here
+    check(counts["block_sketch"] == BLOCKS and sum(counts.values()) == BLOCKS,
+          f"estimator launches {counts}, expected {BLOCKS} of block_sketch alone")
+    plain = ds.estimator(impl="torch")
+    check(est.blocks_seen == plain.blocks_seen == BLOCKS, "the estimators read other blocks")
+    worst = max(rel_err(getattr(est.stats, f), getattr(plain.stats, f))
+                for f in ("mean", "m2", "min", "max"))
+    check(worst <= MOMENT_RTOL, f"estimator: kernel and plain differ by {worst:.3g}")
+    t1 = time.perf_counter()
+    value = ds.estimate(lambda b: b.double().mean(0), g=20, seed=5)
+    estimate_s = time.perf_counter() - t1
+    sub = ds.estimator(g=20, seed=5, impl="torch").stats.mean
+    dev = rel_err(value, sub)
+    check(value.shape == (29,) and np.all(np.isfinite(value)) and dev <= MOMENT_RTOL,
+          f"estimate over 20 blocks differs from the estimator of the same blocks by {dev:.3g}")
+    phase("estimator", t0, f"{BLOCKS} blocks in {seconds:.3f} s, launches {json.dumps(counts)};"
+          f" kernel vs plain {worst:.3g}; estimate(g=20) vs estimator {dev:.3g}")
+    return {"counts": counts, "seconds": seconds, "estimate_s": estimate_s,
+            "kernel_vs_plain": worst, "estimate_vs_estimator": dev}
+
+
+def serve_tenants() -> dict:
+    """The tenant types, by name: a sketch answer, a p95 of one column over
+    20 blocks (bounding the host bootstrap, O(b^2) in blocks), query (b)
+    and query (c)."""
+    from repro_torch.rsp import Aggregate
+
+    q = queries()
+    return {
+        "sketch": (["mean", "var", "count"], {}),
+        "p95": (Aggregate("quantile", q=0.95, feature=0), dict(use_sketches=False, max_blocks=20)),
+        "b_where_columns": q["b_where_columns"],
+        "c_by_label": q["c_by_label"],
+    }
+
+
+def serve_specs():
+    """The 32 tenants of a wave, 8 of each type, interleaved."""
+    one = serve_tenants()
+    return [(kind, *one[kind]) for _ in range(8) for kind in SERVE_TYPES]
+
+
+def serve_wave(ds, specs, *, workers: int = 8, capacity: int = 64):
+    """Submit every tenant from 4 threads to a fresh service; returns the
+    tickets (in spec order), their results and the service's metrics."""
+    import threading
+
+    tickets = [None] * len(specs)
+    with ds.serve(capacity=capacity, workers=workers, seed=SERVE_SEED) as svc:
+
+        def submit(first):
+            for i in range(first, len(specs), 4):
+                _, aggs, kw = specs[i]
+                tickets[i] = svc.submit(aggs, **kw)
+
+        threads = [threading.Thread(target=submit, args=(j,)) for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "a submitter thread hung")
+        results = [svc.result(t, timeout=600) for t in tickets]
+        metrics = svc.metrics()
+    return tickets, results, metrics
+
+
+def serving(store: str, device) -> dict:
+    """Phase 3d: 32 tenants served concurrently on the ingested store,
+    reopened cold with room for every block in its cache, each answer equal
+    to its solo run bit for bit, the sketch kernels launched once for every
+    block a progressive query folded; then a saturation wave, a deadline
+    wave and one profiled wave (warm)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, rsp
+    from repro_torch.rsp.engine import ExecutorStats
+    from repro_torch.rsp.query import QueryExecutor, as_query, derive_seed
+    from repro_torch.serve.query_service import _percentile
+
+    specs = serve_specs()
+    ds = rsp.open(store, device=device, cache_blocks=BLOCKS)
+    before = ds.executor.stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets, results, m = serve_wave(ds, specs)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()   # the serve path ends here
+    window = ds.executor.stats() - before
+    folded = {kind: sum(r.blocks_read for (k, _, _), r in zip(specs, results) if k == kind)
+              for kind in SERVE_TYPES}
+    check(counts["block_sketch"] == folded["p95"],
+          f"block_sketch launched {counts['block_sketch']} times for {folded['p95']} blocks")
+    check(counts["plan_sketch"] == folded["b_where_columns"] + folded["c_by_label"],
+          f"plan_sketch launched {counts['plan_sketch']} times for"
+          f" {folded['b_where_columns'] + folded['c_by_label']} blocks")
+    check(folded["sketch"] == 0 and all(folded[k] > 0 for k in SERVE_TYPES[1:]),
+          f"blocks folded by type {folded}")
+    total = sum((t.result.executor_stats for t in tickets), ExecutorStats())
+    check((total.hits, total.misses) == (window.hits, window.misses),
+          f"per-query stats {total} do not sum to the executor's window {window}")
+    check(m.submitted == m.completed == len(specs) and m.failed == 0 and m.rejected == 0,
+          f"wave metrics {m}")
+    outcomes = {kind: sorted({t.outcome for (k, _, _), t in zip(specs, tickets) if k == kind})
+                for kind in SERVE_TYPES}
+    phase("serve", t0, f"{len(specs)} tenants from 4 threads, 8 workers; outcomes"
+          f" {json.dumps(outcomes)}; launches {json.dumps(counts)}; blocks folded"
+          f" {json.dumps(folded)}")
+
+    t0 = time.perf_counter()
+    solo_ds = rsp.open(store, device=device, cache_blocks=BLOCKS)
+    for (kind, aggs, kw), t, r in zip(specs, tickets, results):
+        q = dataclasses.replace(as_query(aggs, **kw), seed=derive_seed(SERVE_SEED, t.id))
+        solo = QueryExecutor(solo_ds, q).run()
+        same = (r.blocks_read, r.converged) == (solo.blocks_read, solo.converged) and all(
+            np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)), equal_nan=True)
+            for a, b in zip(r.aggregates, solo.aggregates) for f in ("estimate", "ci_lo", "ci_hi"))
+        check(same, f"tenant {t.id} ({kind}): served answer differs from its solo run")
+    solo_ds.close()
+    phase("serve check", t0, "every served answer equals its solo run bit for bit;"
+          " per-query stats sum to the executor's window")
+
+    lat = {kind: sorted(t.latency_ms for (k, _, _), t in zip(specs, tickets) if k == kind)
+           for kind in SERVE_TYPES}
+    wave = {
+        "wall_s": wall, "qps": m.qps, "latency_p50_ms": m.latency_p50_ms,
+        "latency_p99_ms": m.latency_p99_ms, "blocks_per_query": m.blocks_per_query,
+        "blocks_folded_per_progressive_query": sum(folded.values()) / (len(specs) * 3 / 4),
+        "blocks_fetched": m.blocks_fetched, "cache_hit_rate": m.cache_hit_rate,
+        "rejected": m.rejected, "launches": counts, "blocks_folded": folded,
+        "by_type": {kind: {"p50_ms": _percentile(v, 0.50), "p99_ms": _percentile(v, 0.99),
+                           "outcomes": outcomes[kind]} for kind, v in lat.items()},
+    }
+
+    # saturation: one p95 tenant holds the whole capacity (its cost is
+    # prefetch + 1 = 5 fetch slots), two wait, the rest are refused
+    t0 = time.perf_counter()
+    with ds.serve(capacity=5, max_queue=2, workers=2, seed=SERVE_SEED + 1) as svc:
+        aggs, kw = serve_tenants()["p95"]
+        sat = [svc.submit(aggs, on_reject="ticket", **kw) for _ in range(16)]
+        for t in sat:
+            t.wait(600)
+        ms = svc.metrics()
+    check(all(t.done for t in sat), "a saturation-wave ticket never finished")
+    check(ms.submitted == 16 == ms.completed + ms.rejected and ms.rejected >= 1
+          and ms.admission.rejected_total == ms.rejected and ms.failed == 0,
+          f"saturation metrics {ms}")
+    phase("serve saturation", t0, f"16 submissions: {ms.rejected} rejected,"
+          f" {ms.completed} completed, queue {ms.admission}")
+
+    # deadlines: p95 over up to 100 blocks with 50 ms to answer
+    t0 = time.perf_counter()
+    with ds.serve(capacity=64, workers=8, seed=SERVE_SEED + 2) as svc:
+        aggs = serve_tenants()["p95"][0]
+        dl = [svc.submit(aggs, use_sketches=False, max_blocks=BLOCKS, deadline_ms=50)
+              for _ in range(8)]
+        for t in dl:
+            t.wait(600)
+        md = svc.metrics()
+    check(all(t.outcome in ("deadline", "converged") and t.result is not None for t in dl)
+          and md.failed == 0, f"deadline wave outcomes {[t.outcome for t in dl]}")
+    deadline = {"outcomes": [t.outcome for t in dl],
+                "blocks_read": [t.result.blocks_read for t in dl],
+                "latency_ms": [t.latency_ms for t in dl],
+                "overrun_ms": [max(0.0, (t.finished_at - t.deadline) * 1e3) for t in dl]}
+    phase("serve deadlines", t0, json.dumps(deadline))
+
+    t0 = time.perf_counter()
+    p_wall, busy, by_name, _ = profiled(lambda: serve_wave(ds, specs))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    share = {"wall_s": p_wall, "busy_s": busy,
+             "idle_share": None if busy is None else 1 - busy / p_wall,
+             "top": [(name[:60], sec) for name, sec in top]}
+    phase("serve profile", t0, f"one profiled wave: {json.dumps(share)}")
+    ds.close()
+    return {"wave": wave, "saturation": {"rejected": ms.rejected, "completed": ms.completed},
+            "deadline": deadline, "device_share": share}
 
 
 # ---------------------------------------------------------------------------
@@ -2300,7 +2659,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--records", type=int, default=11_000_000)
     ap.add_argument("--out", default=None, help="directory for the build log and JSON")
+    ap.add_argument("--ingest-child", nargs=3, metavar=("NPY", "STORE", "DEVICE"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ingest_child:
+        sys.path.insert(0, str(SRC))
+        print(json.dumps(ingest_child(*args.ingest_child[:2], args.seed, args.ingest_child[2])),
+              flush=True)
+        return 0
     if args.records % (BLOCKS * BLOCKS):
         print(f"chip_smoke: --records must be a multiple of {BLOCKS * BLOCKS}", file=sys.stderr)
         return 2
@@ -2351,6 +2717,20 @@ def main() -> int:
     phase("wkv parity", t0, f"max |kernel - plain| {errs['rwkv6_wkv']:.3g}")
 
     path = main_path(args, device)
+    data = path.pop("data")
+    tmp = tempfile.mkdtemp(prefix="rsp_ingest_")
+    try:
+        ing = ingest(args, data, tmp, device)
+        del data
+        ds = ing.pop("dataset")
+        est = estimator(ds)
+        ds.close()
+        del ds
+        srv = serving(str(Path(tmp) / "ingested.rsp"), device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    path["e2e"].update(ingest=ing["ingest"], estimator=est, serve=srv)
     lm = lm_serving(args, device, gpu)
     hy = hybrid_serving(args, device, gpu)
     t0 = time.perf_counter()
@@ -2386,6 +2766,11 @@ def main() -> int:
     # generate are in launches_by_path
     launches["rwkv6_wkv"] = rw["counts"]["forward"]["rwkv6_wkv"]
     by_path = {
+        "block_sketch": {"main path": path["counts"]["block_sketch"],
+                         "estimator": est["counts"]["block_sketch"],
+                         "serve wave": srv["wave"]["launches"]["block_sketch"]},
+        "plan_sketch": {"main path": path["counts"]["plan_sketch"],
+                        "serve wave": srv["wave"]["launches"]["plan_sketch"]},
         "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
                             "zamba2-7b generate": hy["counts"]["flash_attention"]},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},

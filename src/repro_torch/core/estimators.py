@@ -1,11 +1,16 @@
-"""Block-level statistics estimation (paper Sec. 8, Figs. 3/4): the pieces
-the sketch suite and the query layer need.
+"""Block-level statistics estimation (paper Sec. 8, Figs. 3/4).
 
 Per-block summaries combine with Chan-style parallel moments, so the
-estimator is a streaming fold over block-level samples; fixed-grid
-histograms combine by addition and invert to quantiles.  Host-side numpy,
-copied from the reference package (the kernels that produce per-block
-sketches live in ``repro_torch.kernels``).
+estimator is a streaming fold over block-level samples: after ``b`` blocks
+the estimate equals the record-level statistic over the union of those
+blocks, and (because each block is a random sample) is an unbiased
+estimator of the full-data statistic with SE shrinking as 1/sqrt(b*n).
+Fixed-grid histograms combine by addition and invert to quantiles.
+
+A block's moments (:func:`block_moments`) come from the ``block_sketch``
+kernel in its moments-only mode (``bins=0``) on a CUDA tensor and from its
+plain PyTorch version on a CPU tensor; the fold is host numpy, copied from
+the reference package.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.device import as_numpy
 
@@ -53,6 +59,96 @@ def combine_moments(a: MomentStats, b: MomentStats) -> MomentStats:
         min=np.minimum(a.min, b.min),
         max=np.maximum(a.max, b.max),
     )
+
+
+def block_moments(block, *, impl: str = "auto") -> MomentStats:
+    """Count / mean / M2 / extrema of one block (features flatten), in
+    float32 like the reference's jit ``_block_moments``: one
+    ``block_sketch`` call with ``bins=0`` (``impl="auto"``: the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor)."""
+    from repro_torch.kernels.block_sketch import block_sketch
+
+    sk = block_sketch(block, bins=0, impl=impl)
+    # the sketch's float64 fields hold float32 values: the casts are exact
+    mean, m2, mn, mx = (np.asarray(a, np.float32) for a in (sk.mean, sk.m2, sk.min, sk.max))
+    return MomentStats(count=float(block.shape[0]), mean=mean, m2=m2, min=mn, max=mx)
+
+
+class BlockLevelEstimator:
+    """Streaming block-level estimator with convergence history (Figs. 3/4).
+    ``impl`` selects the sketch of each block (see :func:`block_moments`)."""
+
+    def __init__(self, *, impl: str = "auto") -> None:
+        self.impl = impl
+        self._acc: MomentStats | None = None
+        self.history_mean: list[np.ndarray] = []
+        self.history_std: list[np.ndarray] = []
+        self.blocks_seen = 0
+
+    def update(self, block) -> None:
+        stats = block_moments(block, impl=self.impl)
+        self._acc = stats if self._acc is None else combine_moments(self._acc, stats)
+        self.blocks_seen += 1
+        self.history_mean.append(self._acc.mean.copy())
+        self.history_std.append(self._acc.std.copy())
+
+    def consume(
+        self,
+        blocks,
+        *,
+        rel_tol: float | None = None,
+        window: int = 3,
+    ) -> "BlockLevelEstimator":
+        """Fold a block stream (e.g. ``BlockExecutor.map_blocks(None, ids)``)
+        into the estimator.  With ``rel_tol`` set, stop early once
+        :meth:`converged` fires -- on a prefetching stream the next blocks are
+        already in flight, so the scan overlaps fetch and combine."""
+        for block in blocks:
+            self.update(block)
+            if rel_tol is not None and self.converged(rel_tol, window):
+                break
+        return self
+
+    @property
+    def stats(self) -> MomentStats:
+        if self._acc is None:
+            raise ValueError("no blocks consumed yet")
+        return self._acc
+
+    def converged(self, rel_tol: float = 1e-3, window: int = 3) -> bool:
+        """Plateau test: relative change of the mean over the last ``window``
+        updates below ``rel_tol`` (the paper's stopping idea applied to
+        estimation)."""
+        if len(self.history_mean) <= window:
+            return False
+        cur = self.history_mean[-1]
+        prev = self.history_mean[-1 - window]
+        denom = np.maximum(np.abs(cur), 1e-12)
+        return bool(np.max(np.abs(cur - prev) / denom) < rel_tol)
+
+
+def streaming_estimate(
+    executor,
+    ids: Sequence[int],
+    *,
+    rel_tol: float | None = None,
+    window: int = 3,
+    impl: str = "auto",
+) -> BlockLevelEstimator:
+    """Run the block-level estimation loop over an executor's prefetched
+    stream: ``executor`` is anything with ``map_blocks(fn, ids)`` (see
+    ``repro_torch.rsp.engine.BlockExecutor``); blocks load ahead of the
+    combine, and each is sketched on its device."""
+    return BlockLevelEstimator(impl=impl).consume(
+        executor.map_blocks(None, ids), rel_tol=rel_tol, window=window
+    )
+
+
+def batched_block_moments(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block (mean, std with ddof=1) of a stacked block sample
+    ``[g, n, ...]``, in float32 on the blocks' device."""
+    x = blocks.reshape(blocks.shape[0], blocks.shape[1], -1).to(torch.float32)
+    return x.mean(dim=1), x.std(dim=1, correction=1)
 
 
 def block_histogram(block, *, bins: int, lo, hi) -> np.ndarray:

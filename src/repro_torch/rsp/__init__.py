@@ -6,19 +6,24 @@ One import surface for the paper's workflow::
 
     ds = rsp.partition(data, blocks=100, seed=1, num_classes=2)  # device="cuda"
     ds.save("/data/corpus.rsp")
+    ds = rsp.from_source("/data/corpus.npy", blocks=100, out="/data/c.rsp")
     ds = rsp.open("/data/corpus.rsp")                  # lazy re-open, on the card
     ids = ds.sample(5, seed=7)                         # block-level sample (Def. 4)
     stats = ds.moments(g=5)                            # Sec. 8, from block sketches
+    est = ds.estimator(g=20)                           # Sec. 8, from block reads
     res = ds.query(["mean", "p95"], target_rel_err=0.01, use_sketches=False)
+    with ds.serve(capacity=64, workers=8) as svc:      # concurrent tenants
+        res = svc.result(svc.submit("p95", deadline_ms=500))
 
 ``partition`` dispatches through a backend registry (the bit-exact numpy
-path, and the ``cuda`` backend on the ``rsp_shuffle`` kernel); progressive
-queries sketch each block with the ``block_sketch`` and ``plan`` CUDA
-kernels.  Every entry point defaults to ``device="cuda"`` and raises when no
+path, the out-of-core ``np_stream`` scatter for corpora on disk and ``out=``
+writes, and the ``cuda`` backend on the ``rsp_shuffle`` kernel);
+progressive queries, served queries and ``estimator`` sketch each block with
+the ``block_sketch`` and ``plan`` CUDA kernels.  Every entry point defaults to ``device="cuda"`` and raises when no
 card is present; pass ``device="cpu"`` to run on the host.
 """
 
-from repro_torch.core.estimators import MomentStats
+from repro_torch.core.estimators import BlockLevelEstimator, MomentStats
 from repro_torch.core.sampler import (
     POLICIES,
     BlockSampler,
@@ -63,6 +68,15 @@ from repro_torch.rsp.backends import (
     select_backend,
 )
 from repro_torch.rsp.dataset import RSPDataset
+from repro_torch.rsp.ingest import (
+    ArrayChunkSource,
+    ChunkSource,
+    DirectoryChunkSource,
+    IterChunkSource,
+    NpyChunkSource,
+    as_chunk_source,
+    stream_partition,
+)
 from repro_torch.rsp.sketch import (
     SKETCH_KINDS,
     SKETCH_SCHEMA_VERSION,
@@ -90,5 +104,6 @@ from repro_torch.rsp.summaries import (
 partition = RSPDataset.partition
 open = RSPDataset.open  # noqa: A001 -- facade verb, mirrors gzip.open
 from_arrays = RSPDataset.from_arrays
+from_source = RSPDataset.from_source
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -4,9 +4,15 @@ Each backend runs Algorithm 1 (two-stage RSP partitioning) through a
 different execution substrate and declares a *capability predicate* that
 says whether it can serve a given request:
 
-    np    -- the paper-faithful numpy path on the host, bit-identical to the
-             reference package's ``np`` backend; serves every array.
-    cuda  -- the ``rsp_shuffle`` kernel (the counterpart of the reference's
+    np        -- the paper-faithful numpy path on the host, bit-identical to
+                 the reference package's ``np`` backend; serves every array.
+    np_stream -- the out-of-core single-pass scatter (``repro_torch.rsp.
+                 ingest``), the reference's ``np_stream``: anything
+                 ``as_chunk_source`` adapts (a memmapped ``.npy``, a directory
+                 of chunk files, a record-batch iterator, an array) streams
+                 to a stored RSP (``out=``) or an in-RAM assembly with
+                 O(chunk) peak memory; bit-identical to ``np``.
+    cuda      -- the ``rsp_shuffle`` kernel (the counterpart of the reference's
              ``pallas`` backend): one hierarchical tile shuffle per original
              block, all P blocks in one launch, with ``tile_rows = delta`` so
              the tile permutation *is* the sub-block dealing.  Needs 2-D
@@ -14,9 +20,14 @@ says whether it can serve a given request:
              it runs the kernel's plain version, with the same bits.
 
 ``backend="auto"`` picks the highest ``auto_priority`` backend whose
-predicates pass: ``cuda`` when the dataset's device is a CUDA device and the
-data fit its predicates, ``np`` otherwise.  Backends return the stacked RSP
-blocks ``[K, n, ...]`` as a tensor on the request's device.
+predicates pass, with the reference package's choices: ``np_stream`` for
+every input that must stream (paths, chunk directories, batch iterators,
+memmaps -- the corpora that never fit in RAM) and for every ``out=`` write;
+for in-memory arrays and tensors, ``cuda`` when the dataset's device is a
+CUDA device and the data fit its predicates, ``np`` otherwise.  Backends
+return the stacked RSP blocks ``[K, n, ...]`` as a tensor on the request's
+device, or -- ``np_stream`` writing to ``out`` -- the finished
+:class:`RSPStore`.
 """
 
 from __future__ import annotations
@@ -28,9 +39,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import two_stage_partition_np
+from repro_torch.core.registry import RSPStore
 from repro_torch.core.types import RSPSpec
 from repro_torch.device import as_numpy, as_tensor
 from repro_torch.kernels.rsp_shuffle.ops import rsp_randomize_blocks
+from repro_torch.rsp.ingest import (
+    is_stream_source,
+    maybe_chunk_source,
+    resolve_stream_source,
+    stream_partition,
+)
 
 AUTO = "auto"
 
@@ -38,13 +56,23 @@ AUTO = "auto"
 @dataclasses.dataclass(frozen=True)
 class PartitionRequest:
     """Everything a backend needs to decide eligibility and to run:
-    ``data`` is a numpy array or tensor ``[N, ...]``; the result lands on
-    ``device``."""
+    ``data`` is a numpy array or tensor ``[N, ...]`` for the in-memory
+    backends, or anything ``rsp.ingest.as_chunk_source`` adapts for
+    ``np_stream``; the result lands on ``device``.  The streaming fields
+    (``out``, ``with_summaries``, ``num_classes``, ``label_column``,
+    ``chunk_records``) are read only by ``np_stream``: with ``out`` set its
+    result is the finished :class:`RSPStore` (sketches folded during the
+    write land in the manifest) instead of stacked blocks."""
 
     data: Any
     spec: RSPSpec
     device: torch.device
     permute_assignment: bool = True
+    out: str | None = None
+    with_summaries: bool = True
+    num_classes: int | None = None
+    label_column: int = -1
+    chunk_records: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +83,15 @@ class PartitionBackend:
     and a human-readable refusal reason otherwise; it gates explicit
     ``backend=<name>`` dispatch.  ``auto_eligible`` (optional) adds a
     preference predicate consulted only by ``backend="auto"``.  ``run``
-    returns the stacked RSP blocks [K, n, ...] on the request's device.
+    returns the stacked RSP blocks [K, n, ...] on the request's device, or
+    -- for a streaming backend writing to ``request.out`` -- the finished
+    :class:`RSPStore`.
     """
 
     name: str
     capabilities: frozenset[str]
     supports: Callable[[PartitionRequest], str | None]
-    run: Callable[[PartitionRequest], torch.Tensor]
+    run: Callable[[PartitionRequest], "torch.Tensor | RSPStore"]
     auto_priority: int
     auto_eligible: Callable[[PartitionRequest], str | None] | None = None
 
@@ -108,8 +138,19 @@ def select_backend(request: PartitionRequest) -> PartitionBackend:
     raise ValueError("no backend can serve this request; " + "; ".join(reasons))
 
 
-def run_partition(request: PartitionRequest, backend: str = AUTO) -> tuple[torch.Tensor, str]:
-    """Dispatch a partition request; returns (stacked blocks, backend name)."""
+def run_partition(
+    request: PartitionRequest, backend: str = AUTO
+) -> tuple["torch.Tensor | RSPStore", str]:
+    """Dispatch a partition request; returns (result, backend name), the
+    result being the stacked blocks [K, n, ...] or, for a streaming backend
+    writing to ``request.out``, the finished :class:`RSPStore`."""
+    if not isinstance(request.data, (np.ndarray, torch.Tensor)):
+        # resolve a path/directory/iterator input to its ChunkSource ONCE:
+        # every capability predicate and the eventual run then reuse it
+        # instead of re-listing directories and re-reading .npy headers
+        src = resolve_stream_source(request.data, chunk_records=request.chunk_records)
+        if src is not None and src is not request.data:
+            request = dataclasses.replace(request, data=src)
     b = select_backend(request) if backend == AUTO else get_backend(backend)
     if backend != AUTO:
         reason = b.supports(request)
@@ -122,8 +163,18 @@ def run_partition(request: PartitionRequest, backend: str = AUTO) -> tuple[torch
 # Built-in backends
 # ---------------------------------------------------------------------------
 
+def _non_array_source(req: PartitionRequest) -> str | None:
+    """Refusal reason the in-memory backends share: they can serve any
+    array or tensor (memmaps included -- they materialize on use) but not a
+    chunk-stream object, which only ``np_stream`` knows how to drain."""
+    if not isinstance(req.data, (np.ndarray, torch.Tensor)) and is_stream_source(req.data):
+        return "streaming ChunkSource input needs backend='np_stream'"
+    return None
+
+
 def _supports_np(req: PartitionRequest) -> str | None:
-    return None  # the host fallback serves every array the spec admits
+    # the host fallback serves every array the spec admits
+    return _non_array_source(req)
 
 
 def _run_np(req: PartitionRequest) -> torch.Tensor:
@@ -131,6 +182,44 @@ def _run_np(req: PartitionRequest) -> torch.Tensor:
         as_numpy(req.data), req.spec, permute_assignment=req.permute_assignment
     )
     return as_tensor(blocks, req.device)
+
+
+def _supports_np_stream(req: PartitionRequest) -> str | None:
+    if maybe_chunk_source(req.data) is None:
+        return (
+            "input is not chunkable (need an array, a .npy path, a chunk-file"
+            " directory, a batch sequence, or a ChunkSource)"
+        )
+    return None
+
+
+def _auto_np_stream(req: PartitionRequest) -> str | None:
+    # memmaps, paths, directories and ChunkSources always stream; in-RAM
+    # arrays and tensors stream only for direct-to-store writes (out=);
+    # everything else keeps the in-memory paths
+    if is_stream_source(req.data):
+        return None
+    if req.out is not None and isinstance(req.data, (np.ndarray, torch.Tensor)):
+        return None
+    return "in-memory input without out= is served by the in-memory paths"
+
+
+def _run_np_stream(req: PartitionRequest) -> "torch.Tensor | RSPStore":
+    # without out= the facade gets stacked blocks back and computes
+    # summaries the same way as every in-memory backend, so folding sketches
+    # during the scatter would be duplicated work; with out= the folded
+    # sketches ARE the store's manifest summaries (no second corpus scan)
+    result, _ = stream_partition(
+        req.data,
+        req.spec,
+        out=req.out,
+        permute_assignment=req.permute_assignment,
+        with_summaries=req.with_summaries and req.out is not None,
+        num_classes=req.num_classes,
+        label_column=req.label_column,
+        chunk_records=req.chunk_records,
+    )
+    return result if isinstance(result, RSPStore) else as_tensor(result, req.device)
 
 
 def _dtype_of(data) -> np.dtype | None:
@@ -141,7 +230,10 @@ def _dtype_of(data) -> np.dtype | None:
 
 
 def _supports_cuda(req: PartitionRequest) -> str | None:
-    shape = tuple(req.data.shape)
+    reason = _non_array_source(req)
+    if reason is not None:
+        return reason
+    shape = tuple(getattr(req.data, "shape", ()))
     if len(shape) != 2:
         return f"kernel needs 2-D [records, features] data, got shape {shape}"
     dtype = _dtype_of(req.data)
@@ -157,6 +249,8 @@ def _supports_cuda(req: PartitionRequest) -> str | None:
 def _auto_cuda(req: PartitionRequest) -> str | None:
     if req.device.type != "cuda":
         return "the dataset's device is not a CUDA device"
+    if req.out is not None or is_stream_source(req.data):
+        return "streaming inputs and out= writes are served by np_stream"
     return None
 
 
@@ -187,6 +281,18 @@ register_backend(
         supports=_supports_np,
         run=_run_np,
         auto_priority=20,
+    )
+)
+register_backend(
+    PartitionBackend(
+        name="np_stream",
+        capabilities=frozenset({"streaming", "out-of-core", "direct-to-store", "host"}),
+        supports=_supports_np_stream,
+        run=_run_np_stream,
+        # above np: wins auto for everything chunkable unless auto_eligible
+        # hands in-memory arrays without out= back to the in-memory paths
+        auto_priority=25,
+        auto_eligible=_auto_np_stream,
     )
 )
 register_backend(

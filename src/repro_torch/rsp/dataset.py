@@ -2,12 +2,16 @@
 
 The paper's workflow is one pipeline: partition into RSP blocks
 (Algorithm 1), store, block-sample (Definition 4), then estimate (Sec. 8)
-with progressive queries::
+with progressive queries, many analysts at once::
 
     ds = rsp.partition(data, blocks=100, seed=1, num_classes=2)   # on the card
     ds.save("/data/corpus.rsp")
+    ds = rsp.from_source("/data/corpus.npy", blocks=100, out="/data/c.rsp")
     ds = rsp.open("/data/corpus.rsp")
     res = ds.query(["mean", "p95"], target_rel_err=0.01, use_sketches=False)
+    est = ds.estimator(g=20)                       # block-level moments
+    with ds.serve(capacity=64, workers=8) as svc:  # concurrent tenants
+        res = svc.result(svc.submit("p95", deadline_ms=500))
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no card
 present it raises, and only an explicit ``device="cpu"`` runs on the host.
@@ -15,22 +19,24 @@ Blocks are tensors on the dataset's device: ``partition`` leaves the stacked
 ``[K, n, ...]`` result there, and a reopened store moves each block there on
 the engine's worker threads.  Partition-time sketches are computed on the
 host in numpy float64, as in the reference package, and stores are
-byte-compatible with it.
+byte-compatible with it.  A corpus on disk streams into a store through
+the host scatter of ``rsp/ingest.py`` (the ``np_stream`` backend).
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.registry import RSPStore
 from repro_torch.core.sampler import BlockSampler, SamplingPolicy, make_policy
-from repro_torch.core.estimators import MomentStats
+from repro_torch.core.estimators import BlockLevelEstimator, MomentStats, streaming_estimate
 from repro_torch.core.types import RSPSpec
-from repro_torch.device import DEFAULT_DEVICE, as_tensor, resolve_device
+from repro_torch.device import DEFAULT_DEVICE, as_numpy, as_tensor, resolve_device
 from repro_torch.rsp.backends import AUTO, PartitionRequest, run_partition
+from repro_torch.rsp.ingest import resolve_stream_source
 from repro_torch.rsp.engine import (
     BlockExecutor,
     BlockFetcher,
@@ -104,30 +110,75 @@ class RSPDataset:
         label_column: int = -1,
         summaries: bool = True,
         out: str | None = None,
+        chunk_records: int | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
     ) -> "RSPDataset":
-        """Partition ``data`` [N, ...] (numpy array or tensor) into an RSP of
-        ``blocks`` blocks on ``device``.
+        """Partition ``data`` [N, ...] into an RSP of ``blocks`` blocks on
+        ``device``.
 
-        ``backend="auto"`` picks the ``cuda`` backend (the ``rsp_shuffle``
-        kernel) for 2-D float data on a CUDA device and the bit-exact numpy
-        path otherwise; pass a name to force one.  ``num_classes`` marks
+        ``data`` may be a numpy array or tensor, or any streaming source
+        ``rsp.ingest.as_chunk_source`` adapts (a ``.npy`` path read via
+        mmap, a directory of chunk files, a record-batch ``ChunkSource``, a
+        memmap) -- streaming sources never load the corpus whole.
+        ``backend="auto"`` picks the out-of-core ``np_stream`` scatter for
+        streaming sources and whenever ``out=`` is given, the ``cuda``
+        backend (the ``rsp_shuffle`` kernel) for 2-D float data on a CUDA
+        device, and the bit-exact numpy path otherwise; pass a name to
+        force one.
+
+        ``out`` writes the partition into a store at that path: the
+        streaming backend scatters chunk slices straight to their
+        block-file offsets (the corpus never materializes) and the returned
+        dataset is store-backed, its blocks loading onto ``device``;
+        in-memory backends save their result there.  ``num_classes`` marks
         column ``label_column`` as a class label, so label histograms join
-        the per-block sketches.  ``out`` saves the partition there.
+        the per-block sketches.
         """
         dev = resolve_device(device)
+        # memmaps are arrays: when an in-memory backend is forced they stay
+        # raw (it serves them fine); under auto/np_stream they stream
+        src = None
+        if not isinstance(data, (np.ndarray, torch.Tensor)) or backend in (AUTO, "np_stream"):
+            src = resolve_stream_source(data, chunk_records=chunk_records)
+        if src is not None:
+            data = src
+            n, record_shape = src.num_records, tuple(src.record_shape)
+            dtype = str(np.dtype(src.dtype))
+        else:
+            n, record_shape = int(data.shape[0]), tuple(int(d) for d in data.shape[1:])
+            dtype = _dtype_name(data)
         spec = RSPSpec(
-            num_records=int(data.shape[0]),
+            num_records=n,
             num_blocks=blocks,
             num_original_blocks=blocks if original_blocks is None else original_blocks,
-            record_shape=tuple(int(d) for d in data.shape[1:]),
-            dtype=_dtype_name(data),
+            record_shape=record_shape,
+            dtype=dtype,
             seed=seed,
         )
         request = PartitionRequest(
-            data=data, spec=spec, device=dev, permute_assignment=permute_assignment
+            data=data,
+            spec=spec,
+            device=dev,
+            permute_assignment=permute_assignment,
+            out=out,
+            with_summaries=summaries,
+            num_classes=num_classes,
+            label_column=label_column,
+            chunk_records=chunk_records,
         )
         result, chosen = run_partition(request, backend=backend)
+        if isinstance(result, RSPStore):
+            # the streaming backend wrote the store; its sketches are the
+            # suites folded during the write (no re-parse of the sidecar)
+            return cls(
+                spec,
+                store=result,
+                backend=chosen,
+                summaries=result.last_ingest_summaries,
+                num_classes=num_classes,
+                label_column=label_column,
+                device=dev,
+            )
         ds = cls(
             spec,
             blocks=result,
@@ -141,6 +192,44 @@ class RSPDataset:
         if out is not None:
             ds.save(out)
         return ds
+
+    @classmethod
+    def from_source(
+        cls,
+        source: Any,
+        blocks: int,
+        *,
+        out: str | None = None,
+        original_blocks: int | None = None,
+        seed: int = 0,
+        permute_assignment: bool = True,
+        num_classes: int | None = None,
+        label_column: int = -1,
+        summaries: bool = True,
+        chunk_records: int | None = None,
+        device: str | torch.device = DEFAULT_DEVICE,
+    ) -> "RSPDataset":
+        """Build an RSP from a chunked source with bounded memory (the
+        out-of-core ingest path, forced).  ``source`` is anything
+        ``as_chunk_source`` adapts; with ``out`` set the corpus streams
+        straight into a stored RSP whose manifest carries the
+        partition-time sketches -- peak memory stays O(chunk + write
+        buffers) no matter how large the corpus is.  The dataset's blocks
+        live on ``device``."""
+        return cls.partition(
+            source,
+            blocks,
+            original_blocks=original_blocks,
+            seed=seed,
+            backend="np_stream",
+            permute_assignment=permute_assignment,
+            num_classes=num_classes,
+            label_column=label_column,
+            summaries=summaries,
+            out=out,
+            chunk_records=chunk_records,
+            device=device,
+        )
 
     @classmethod
     def from_arrays(
@@ -392,6 +481,51 @@ class RSPDataset:
             ids = range(self.num_blocks) if g is None else self.sample(g, seed=seed)
         return combine_summaries([summaries[k] for k in ids])
 
+    def estimator(
+        self,
+        g: int | None = None,
+        *,
+        seed: int = 0,
+        ids: Sequence[int] | None = None,
+        rel_tol: float | None = None,
+        impl: str = "auto",
+    ) -> BlockLevelEstimator:
+        """A ``BlockLevelEstimator`` fed through the executor's prefetched
+        block stream -- use when the convergence history / plateau detector
+        is wanted.  ``rel_tol`` stops the scan at the plateau.  Each block's
+        moments come from the ``block_sketch`` kernel on the card
+        (``impl="auto"``; ``"torch"`` runs its plain version)."""
+        if ids is None:
+            ids = range(self.num_blocks) if g is None else self.sample(g, seed=seed)
+        return streaming_estimate(self.executor, ids, rel_tol=rel_tol, impl=impl)
+
+    def estimate(
+        self,
+        fn: Callable[[torch.Tensor], Any],
+        g: int | None = None,
+        *,
+        seed: int = 0,
+        policy: str | SamplingPolicy = "uniform",
+    ) -> Any:
+        """Block-level estimate of an arbitrary statistic: mean of ``fn(block)``
+        over a block-level sample (each block is a random sample, so the
+        average is an unbiased estimate of the corpus statistic).  ``fn``
+        takes a block tensor on the dataset's device and runs on the
+        executor's workers, overlapping with the fetch of later blocks; its
+        values are averaged on the host in float64.  Non-uniform policies
+        contribute self-normalized HT weights."""
+        pol = None
+        if isinstance(policy, SamplingPolicy) or policy != "uniform":
+            if g is None:
+                raise ValueError("non-uniform policies need g")
+            pol = self.policy(policy, seed=seed)
+            ids = pol.sample(g)
+        else:
+            ids = list(range(self.num_blocks)) if g is None else self.sample(g, seed=seed)
+        values = [as_numpy(v) for v in self.executor.map_blocks(fn, ids)]
+        weights = pol.weights(ids) if pol is not None else None
+        return np.average(values, axis=0, weights=weights)
+
     # ------------------------------------------------------------------
     # Declarative queries (progressive, anytime CIs)
     # ------------------------------------------------------------------
@@ -411,6 +545,21 @@ class RSPDataset:
         from repro_torch.rsp.query import QueryExecutor, as_query
 
         return QueryExecutor(self, as_query(aggregates, **kwargs)).stream()
+
+    def serve(self, **kwargs):
+        """A concurrent multi-tenant :class:`~repro_torch.serve.QueryService`
+        over this dataset: many simultaneous queries share this dataset's
+        ``BlockExecutor`` block cache, an admission controller bounds
+        in-flight block-I/O demand, a deadline-aware scheduler interleaves
+        one-block progressive steps across tenants (each step's sketch runs
+        on the dataset's device), and every query can return an anytime
+        result when its deadline fires.  Keyword arguments (``capacity=``,
+        ``max_queue=``, ``workers=``, ``seed=``, ``default_deadline_ms=``)
+        forward to ``QueryService``.  Use as a context manager or call
+        ``close()`` to release the worker threads."""
+        from repro_torch.serve.query_service import QueryService
+
+        return QueryService(self, **kwargs)
 
     # ------------------------------------------------------------------
     # Diagnostics (Sec. 7)

@@ -500,7 +500,9 @@ class BlockExecutor:
         ``fn=None`` yields the raw blocks.  ``with_ids=True`` yields
         ``(block_id, result)`` pairs instead.  ``counter`` attributes every
         access of this stream to one caller (see :class:`CallerStats`);
-        ``trace`` parents worker-side spans under the caller's span.
+        ``trace`` parents worker-side spans under the caller's span.  Closing
+        the stream cancels the fetches still queued and waits for the running
+        ones.
         """
         it = iter(ids)
         window: collections.deque[tuple[int, Future]] = collections.deque()
@@ -519,8 +521,12 @@ class BlockExecutor:
                 submit_one()
                 yield (bid, result) if with_ids else result
         finally:
+            # a closed stream leaves no fetch running in its caller's name:
+            # queued fetches are cancelled and running ones finish here, so
+            # the caller's counts are final once the stream is closed
             for _, fut in window:
-                fut.cancel()
+                if not fut.cancel():
+                    fut.exception()   # waits; the block is no one's now
 
     def run(self, fn: Callable[[torch.Tensor], Any] | None, ids: Sequence[int]) -> list:
         """Materialized :meth:`map_blocks`."""

@@ -1118,13 +1118,16 @@ class QueryExecutor:
         through identical code.  Blocks arrive as tensors on the dataset's
         device and their payloads are computed on this (the caller's)
         thread."""
-        executor = self.ds.executor
-        for bid, block in executor.map_blocks(
+        stream = self.ds.executor.map_blocks(
             None, ids, with_ids=True, counter=self.counter, trace=self.ctx
-        ):
-            yield bid, self._make_payload(
-                block, lo, hi, needs_hist, needs_rows, grouped, need_whole
-            )
+        )
+        try:
+            for bid, block in stream:
+                yield bid, self._make_payload(
+                    block, lo, hi, needs_hist, needs_rows, grouped, need_whole
+                )
+        finally:
+            stream.close()
 
     def stream(self) -> Iterator[QueryResult]:
         """One anytime :class:`QueryResult` per block read."""
@@ -1251,6 +1254,10 @@ class QueryExecutor:
                         elapsed_s=time.perf_counter() - self._t0,
                     )
                 )
+                if converged:
+                    # settle the prefetches still in flight first, so the
+                    # final result counts every fetch this query caused
+                    source.close()
                 yield QueryResult(
                     aggregates=results,
                     blocks_read=b,

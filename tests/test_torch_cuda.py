@@ -340,6 +340,77 @@ def test_partition_on_the_card_equals_the_cpu_plain_version(dev):
     assert torch.equal(on_card.stacked().cpu(), on_cpu.stacked())
 
 
+def test_block_moments_run_the_kernel_and_match_the_plain_version(dev):
+    from repro_torch.core.estimators import block_moments
+
+    x = _data(5000, 8)
+    x[:, 0] += 1.0e4   # a column whose mean is far from 0
+    t = torch.from_numpy(x).to(dev)
+    kernels.reset_launch_counts()
+    got = block_moments(t)
+    assert kernels.launch_counts()["block_sketch"] == 1
+    want = block_moments(t, impl="torch")
+    assert kernels.launch_counts()["block_sketch"] == 1
+    assert got.count == want.count == 5000
+    for field in ("mean", "m2", "min", "max"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field), rtol=1e-5)
+
+
+def test_served_queries_on_the_card_equal_their_solo_runs(dev, tmp_path):
+    """16 tenants from 4 threads over a stored RSP on the card: every
+    answer equals the same seeded query run alone, bit for bit, and the
+    sketch kernels ran once for every block a progressive query folded."""
+    import dataclasses
+    import threading
+
+    from repro_torch import rsp
+    from repro_torch.rsp.query import Aggregate, QueryExecutor, as_query, derive_seed
+
+    data = _data(12 * 1200, 6, classes=2)
+    rsp.partition(data, blocks=12, seed=2, num_classes=2, backend="np", device="cpu") \
+        .save(str(tmp_path))
+    ds = rsp.open(str(tmp_path), device=dev, cache_blocks=12)
+    specs = [
+        (["mean", "var", "count"], {}),
+        ("p90", dict(max_blocks=5, use_sketches=False)),
+        ("mean", dict(where="c0 > 1.5", columns=(0, 5), target_rel_err=0.02,
+                      use_sketches=False)),
+        (Aggregate("mean", by_label=True), dict(max_blocks=6, use_sketches=False)),
+    ] * 4
+    tickets = [None] * len(specs)
+    kernels.reset_launch_counts()
+    with ds.serve(capacity=8, workers=4, seed=11) as svc:
+
+        def submit(lo):
+            for i in range(lo, len(specs), 4):
+                agg, kw = specs[i]
+                tickets[i] = svc.submit(agg, **kw)
+
+        threads = [threading.Thread(target=submit, args=(j,)) for j in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        served = [svc.result(t, timeout=120) for t in tickets]
+    counts = kernels.launch_counts()
+    unfiltered = sum(r.blocks_read for (a, _), r in zip(specs, served) if a == "p90")
+    planned = sum(r.blocks_read for (a, kw), r in zip(specs, served)
+                  if "where" in kw or isinstance(a, Aggregate))
+    assert unfiltered > 0 and planned > 0
+    assert (counts["block_sketch"], counts["plan_sketch"]) == (unfiltered, planned)
+    solo_ds = rsp.open(str(tmp_path), device=dev)
+    for (agg, kw), t, res in zip(specs, tickets, served):
+        q = dataclasses.replace(as_query(agg, **kw), seed=derive_seed(11, t.id))
+        solo = QueryExecutor(solo_ds, q).run()
+        assert (res.blocks_read, res.converged) == (solo.blocks_read, solo.converged)
+        for a, b in zip(res.aggregates, solo.aggregates):
+            for f in ("estimate", "ci_lo", "ci_hi"):
+                np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                              np.asarray(getattr(b, f)))
+    solo_ds.close()
+    ds.close()
+
+
 FLASH_SHAPES = [
     # B, H, Hkv, S, D
     (2, 4, 2, 128, 64),      # GQA, whole tiles
