@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
-main path, ingest from disk, block-level estimation and concurrent query
-serving, dense LM serving, zamba2 hybrid serving, and rwkv6 scoring, loss
-and serving.
+main path, ingest from disk, block-level estimation, learning from the
+blocks (ensembles, similarity, drift monitoring and the training loader),
+concurrent query serving, dense LM serving, zamba2 hybrid serving, and
+rwkv6 scoring, loss and serving.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
@@ -75,7 +76,30 @@ Phases, one line each with its seconds:
                 of the same estimator through the plain version, and
                 ``ds.estimate`` of a plain torch mean over 20 blocks within
                 1e-5 of the estimator of the same 20;
-3d. serve     -- ``ds.serve(workers=8, seed=11)`` on the ingested store
+3d. learning  -- on the same store: (a) Algorithm 2, ``ds.ensemble`` of
+                logistic regressions (g = 5, seed 7) evaluated on 200,000
+                fresh records of the corpus's distribution (drawn with
+                seed + 1, ``heldout_higgs_like``), its first
+                batch's 5 models equal to the CPU port's from the same
+                weights (rtol 2e-3, atol 2e-4), ``predict_proba`` equal to
+                the CPU's (1e-5), and Fig. 6's ``ensemble_vs_single_model``
+                over all 100 blocks (ensemble within 0.01 of one model
+                trained on every record), plus the MLP learner over 2
+                batches; (b) Sec. 7: ``ds.similarity`` of every block by
+                MMD^2, KS (on the feature whose class means differ most)
+                and label divergence, each below the corpus's first
+                sequential chunk's (the reference's thresholds), Hotelling's
+                p above 0.001 for block 0 and below 1e-6 for the chunk, and 3
+                blocks equal to the CPU port's; (c) Sec. 10: a DriftMonitor
+                on 5 sampled blocks (5 block_sketch launches and nothing
+                else), no other block flagged, a shifted, a zeroed-column
+                and a t(1.5) block all flagged, every report equal to a CPU
+                monitor's; (d) ``ds.loader(8192)``: 40 batches equal to a CPU
+                loader's bit for bit, a resume after batch 20, one timed
+                epoch, one checked epoch (no record twice, column sums equal
+                to the corpus's less the dropped tail) and the device's
+                idle share of 100 profiled batches;
+3e. serve     -- ``ds.serve(workers=8, seed=11)`` on the ingested store
                 reopened cold: 32 tenants from 4 threads (8 each of a
                 sketch answer, a p95 of column 0 over 20 blocks, query (b)
                 and query (c)); every answer equal to its solo run with
@@ -163,7 +187,8 @@ Phases, one line each with its seconds:
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
-path, the estimator, the first serve wave, each LM path).
+path, the estimator, the drift monitor, the first serve wave, each LM
+path).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -749,7 +774,7 @@ def main_path(args, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 3b-3d: ingest from disk, block-level estimation, concurrent serving
+# Phases 3b, 3c and 3e: ingest from disk, block-level estimation, concurrent serving
 # ---------------------------------------------------------------------------
 
 INGEST_SAMPLE_S = 0.001   # the ingest child reads its memory this often
@@ -912,6 +937,387 @@ def estimator(ds) -> dict:
             "kernel_vs_plain": worst, "estimate_vs_estimator": dev}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3d: learning from the blocks (Sec. 7, 9 and 10, the training loader)
+# ---------------------------------------------------------------------------
+
+LEARN_SEED = 7                # Algorithm 2's sampler and initial weights
+LOGREG_STEPS = 300            # make_logreg's full-batch GD steps (its default)
+EVAL_RECORDS = 200_000        # Fig. 6's evaluation set
+ENSEMBLE_GAP = 0.01           # tests/test_ensemble.py:74
+TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4   # tests/test_ensemble.py:48-53
+PROBA_TOL = 1e-5
+SIM_SEED = 3
+SIM_CPU_BLOCKS = 3            # blocks whose similarities are held against the CPU's
+MON_SEED = 5
+LOADER_BATCH = 8192
+LOADER_CHECK = 40             # batches held against the CPU loader
+LOADER_STATE_AT = 20          # the state_dict is taken after this batch
+LOADER_PROFILED = 100         # batches in the profiled window
+
+
+def learning_inputs(data, block_size: int) -> dict:
+    """What the learning phase keeps of the class-sorted corpus before it is
+    freed: its first ``block_size`` records (one sequential chunk, all of
+    class 0) and the feature whose class means differ most (the KS probe)."""
+    import numpy as np
+
+    n0 = int(np.count_nonzero(data[:, 28] == 0))   # class-sorted: class 0 first
+    gap = np.abs(data[:n0, :28].mean(0, dtype=np.float64)
+                 - data[n0:, :28].mean(0, dtype=np.float64))
+    return {"chunk": data[:block_size].copy(), "ks_feature": int(np.argmax(gap)),
+            "class_mean_gap": float(gap.max())}
+
+
+def heldout_higgs_like(num_records: int, seed: int, sample_seed: int):
+    """``num_records`` fresh records of the corpus's own distribution,
+    class-sorted: the class means and scales of
+    ``make_higgs_like(seed=seed)`` (its first draws from
+    ``default_rng(seed)``), the records drawn from ``default_rng(sample_seed)``.
+    ``make_nonrandom_higgs_like(seed=seed + 1)`` would be another
+    distribution: its informative direction is drawn from its own seed."""
+    import numpy as np
+
+    params = np.random.default_rng(seed)
+    direction = params.normal(size=8).astype(np.float32)
+    direction /= np.linalg.norm(direction)
+    means = np.zeros((2, 28), np.float32)
+    means[1, :8] = direction
+    scale = params.uniform(0.8, 1.4, size=28).astype(np.float32)
+    rng = np.random.default_rng(sample_seed)
+    n1 = num_records // 2
+    n0 = num_records - n1
+    x = np.concatenate([rng.normal(size=(n, 28)).astype(np.float32) * scale + means[c]
+                        for c, n in ((0, n0), (1, n1))])
+    y = np.concatenate([np.zeros(n0, np.int32), np.ones(n1, np.int32)])
+    return x, y
+
+
+def row_keys(x):
+    """One int64 key a record: the bits of its columns 0 and 1 (two
+    continuous features, so the keys of distinct records differ)."""
+    import torch
+
+    bits = x[:, :2].contiguous().view(torch.int32).to(torch.int64)
+    return (bits[:, 0] << 32) | (bits[:, 1] & 0xFFFFFFFF)
+
+
+def ensemble_part(args, ds, host) -> dict:
+    """Algorithm 2 on the card (``ds.ensemble``), the first batch's models
+    against the CPU port's from the same weights, ``predict_proba`` against
+    the CPU, Fig. 6's comparison with one model trained on every record,
+    and the MLP learner's ensemble over 2 batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        Ensemble,
+        ensemble_vs_single_model,
+        make_logreg,
+        make_mlp,
+        train_base_models_vmapped,
+    )
+
+    t_part = time.perf_counter()
+    dev = ds.device
+    ex, ey = heldout_higgs_like(EVAL_RECORDS, args.seed, args.seed + 1)
+    ex_dev, ey_dev = torch.from_numpy(ex).to(dev), torch.from_numpy(ey).to(dev)
+    logreg = make_logreg(28, 2, steps=LOGREG_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens, hist = ds.ensemble(logreg, eval_x=ex_dev, eval_y=ey_dev, g=5, seed=LEARN_SEED)
+    torch.cuda.synchronize()
+    ensemble_s = time.perf_counter() - t0
+    check(all(np.isfinite(v.cpu().numpy()).all() for v in ens.params.values()),
+          "the ensemble's weights are not finite")
+
+    t0 = time.perf_counter()
+    cpu_ens, _ = host.ensemble(logreg, eval_x=ex, eval_y=ey, g=5, batches=1, seed=LEARN_SEED)
+    cpu_first_s = time.perf_counter() - t0
+    train_err = 0.0
+    for k, want in cpu_ens.params.items():
+        got = ens.params[k][:5].cpu()
+        check(bool(torch.allclose(got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)),
+              f"the first batch's {k} on the card differs from the CPU's")
+        train_err = max(train_err, max_abs(got, want))
+    on_host = Ensemble(logreg)
+    on_host.add_stacked({k: v.cpu() for k, v in ens.params.items()}, ens.num_models)
+    proba_err = max_abs(ens.predict_proba(ex_dev), on_host.predict_proba(torch.from_numpy(ex)))
+    check(proba_err <= PROBA_TOL, f"predict_proba: card and CPU differ by {proba_err:.3g}")
+
+    xs, ys = ds._split_xy(ds.take(range(ds.num_blocks)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens_acc, single_acc = ensemble_vs_single_model(xs, ys, ex_dev, ey_dev, learner=logreg,
+                                                   seed=LEARN_SEED)
+    torch.cuda.synchronize()
+    fig6_s = time.perf_counter() - t0
+    check(ens_acc >= single_acc - ENSEMBLE_GAP,
+          f"ensemble accuracy {ens_acc:.4f} is not within {ENSEMBLE_GAP} of the single"
+          f" full-data model's {single_acc:.4f}")
+    t0 = time.perf_counter()
+    single = logreg.fit(logreg.init(torch.Generator().manual_seed(LEARN_SEED + 1)),
+                        xs.reshape(-1, 28), ys.reshape(-1))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(all(bool(torch.isfinite(v).all()) for v in single.values()),
+          "the single model's weights are not finite")
+    records = int(ys.numel())
+    # where a GD step's time goes: one profiled batch of 5 models and one
+    # profiled single model, beside the least time of their GD steps (each
+    # step reads the features twice: the logits and the weight gradient)
+    gen = torch.Generator().manual_seed(LEARN_SEED)
+    runs = {"batch of 5": (xs[:5], lambda: train_base_models_vmapped(logreg, gen, xs[:5], ys[:5])),
+            "single model": (xs, lambda: logreg.fit(logreg.init(gen), xs.reshape(-1, 28),
+                                                    ys.reshape(-1)))}
+    prof = {}
+    for name, (feats, run) in runs.items():
+        wall, busy, by_name, events = profiled(run)
+        prof[name] = {"wall_s": wall, "busy_s": busy,
+                      "idle_share": None if busy is None else 1.0 - busy / wall,
+                      "events": events,
+                      "bytes_bound_s": LOGREG_STEPS * 2 * feats.numel() * 4 / HBM_BYTES_PER_S,
+                      "top": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:4])}
+    del xs, ys
+
+    t0 = time.perf_counter()
+    mlp_ens, mlp_hist = ds.ensemble(make_mlp(28, 2), eval_x=ex_dev, eval_y=ey_dev, g=5,
+                                    batches=2, seed=LEARN_SEED)
+    torch.cuda.synchronize()
+    mlp_s = time.perf_counter() - t0
+    out = {"blocks_used": hist.blocks_used, "accuracy": hist.accuracy,
+           "ensemble_s": ensemble_s, "cpu_first_batch_s": cpu_first_s,
+           "first_batch_max_abs": train_err, "predict_proba_max_abs": proba_err,
+           "fig6": {"ensemble_acc": ens_acc, "single_acc": single_acc, "seconds": fig6_s,
+                    "single_records": records},
+           "single_s": single_s, "profiled": prof,
+           "mlp": {"blocks_used": mlp_hist.blocks_used, "accuracy": mlp_hist.accuracy,
+                   "seconds": mlp_s}}
+    phase("learning ensemble", t_part, json.dumps(out))
+    return out
+
+
+def similarity_part(ds, host, inputs: dict) -> dict:
+    """Sec. 7 on every block of the store (MMD^2, KS on the feature whose
+    class means differ most, label divergence) against the sequential
+    chunk scored the same way, Hotelling's test, and 3 blocks against the
+    CPU port."""
+    import torch
+
+    from repro_torch.core import hotelling_t2, ks_statistic, max_label_divergence
+    from repro_torch.core import mmd_block_vs_data
+
+    K, f = ds.num_blocks, inputs["ks_feature"]
+    metrics = ("mmd", "ks", "labels")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = {m: [ds.similarity(k, metric=m, feature=f, seed=SIM_SEED) for k in range(K)]
+            for m in metrics}
+    sweep_s = time.perf_counter() - t0
+
+    ref = ds._corpus_reference(4096, seed=SIM_SEED)
+    chunk = torch.from_numpy(inputs["chunk"]).to(ds.device)
+    seq = {"mmd": mmd_block_vs_data(chunk, ref, seed=SIM_SEED),
+           "ks": ks_statistic(chunk[:, f], ref[:, f]),
+           "labels": max_label_divergence(chunk[:, 28], ref[:, 28], 2)}
+    misses = {
+        "mmd": [k for k, v in enumerate(sims["mmd"]) if not (v < seq["mmd"] / 5 and abs(v) < 5e-3)],
+        "ks": [k for k, v in enumerate(sims["ks"]) if not v < seq["ks"]],
+        "labels": [k for k, v in enumerate(sims["labels"]) if not v < 0.05],
+    }
+    worst = {m: max(sims[m], key=abs) for m in metrics}
+    print(f"similarity: worst block {json.dumps(worst)}, sequential chunk {json.dumps(seq)},"
+          f" KS feature {f}, blocks missing a gate {json.dumps(misses)}", flush=True)
+    for m in metrics:
+        check(not misses[m], f"similarity {m}: blocks {misses[m]} are not closer to the corpus"
+                             " than the sequential chunk")
+
+    ref0 = ds._corpus_reference(4096, seed=SIM_SEED, exclude=0)
+    _, _, p_block = hotelling_t2(ds.block(0)[:, :28], ref0[:, :28])
+    _, _, p_chunk = hotelling_t2(chunk[:, :28], ref[:, :28])
+    check(p_block > 0.001, f"Hotelling: block 0 p = {p_block:.3g}, not above 0.001")
+    check(p_chunk < 1e-6, f"Hotelling: the sequential chunk's p = {p_chunk:.3g}, not below 1e-6")
+
+    probes = [0, K // 2, K - 1][:SIM_CPU_BLOCKS]
+    cpu_err = 0.0
+    for k in probes:
+        for m in metrics:
+            got, want = sims[m][k], host.similarity(k, metric=m, feature=f, seed=SIM_SEED)
+            if m == "mmd":
+                cpu_err = max(cpu_err, abs(got - want) / (1 + abs(want)))
+            else:
+                check(got == want, f"similarity {m} of block {k}: card {got} vs CPU {want}")
+    check(cpu_err <= MOMENT_RTOL, f"MMD^2 on the card and the CPU differ by {cpu_err:.3g}")
+    out = {"sweep_s": sweep_s, "calls": K * len(metrics), "worst": worst, "sequential": seq,
+           "ks_feature": f, "hotelling_p": {"block 0": p_block, "sequential": p_chunk},
+           "cpu_blocks": probes, "mmd_card_vs_cpu": cpu_err}
+    phase("learning similarity", t0, json.dumps(out))
+    return out
+
+
+def monitor_part(ds) -> dict:
+    """Sec. 10: a DriftMonitor on 5 sampled blocks (5 block_sketch launches),
+    the other blocks scored (none flagged), three corrupted blocks (all
+    flagged), and every report against a monitor on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import DriftMonitor
+
+    ids = ds.sample(5, seed=MON_SEED)
+    ref_blocks = ds.take(ids)[..., :28]
+    others = [k for k in range(ds.num_blocks) if k not in ids]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mon = DriftMonitor(ref_blocks, device=ds.device)
+    build_s = time.perf_counter() - t0
+    clean = [mon.score(ds.block(k)[:, :28], block_id=k) for k in others]
+    torch.cuda.synchronize()
+    monitor_s = time.perf_counter() - t0
+    base = ds.block(others[0])[:, :28]
+    zeroed = base.clone()
+    zeroed[:, 3] = 0.0
+    rng = np.random.default_rng(7)
+    t_block = rng.standard_t(df=1.5, size=tuple(base.shape)).astype(np.float32)
+    t_block = t_block - t_block.mean(0) + ref_blocks.reshape(-1, 28).cpu().numpy().mean(0)
+    bad_blocks = {"shifted +1.5": base + 1.5, "column 3 zeroed": zeroed,
+                  "t(1.5)": torch.from_numpy(t_block).to(ds.device)}
+    bad = {name: mon.score(b, block_id=-1 - i) for i, (name, b) in enumerate(bad_blocks.items())}
+    counts = kernels.launch_counts()   # the monitor's path ends here
+    check(counts["block_sketch"] == 5 and sum(counts.values()) == 5,
+          f"monitor launches {counts}, expected 5 of block_sketch alone")
+    flagged = [r.block_id for r in clean if r.drifted]
+    check(not flagged, f"clean blocks flagged: {flagged}")
+    missed = [name for name, r in bad.items() if not r.drifted]
+    check(not missed, f"corrupted blocks not flagged: {missed}")
+
+    t1 = time.perf_counter()
+    host = DriftMonitor(ref_blocks.cpu(), device="cpu")
+    want = [host.score(ds.block(k)[:, :28].cpu(), block_id=k) for k in others]
+    want += [host.score(b.cpu(), block_id=-1 - i) for i, b in enumerate(bad_blocks.values())]
+    cpu_s = time.perf_counter() - t1
+    err = 0.0
+    for got, w in zip(clean + list(bad.values()), want):
+        check(got.drifted == w.drifted, f"block {got.block_id}: flags differ on card and CPU")
+        for field in ("mmd2", "max_mean_z", "worst_std_ratio"):
+            err = max(err, rel_err(getattr(got, field), getattr(w, field)))
+    check(err <= MOMENT_RTOL, f"monitor reports: card and CPU differ by {err:.3g}")
+    out = {"reference_blocks": ids, "launches": counts, "build_s": build_s,
+           "seconds": monitor_s, "scored": len(others), "mmd_threshold": mon.mmd_threshold,
+           "worst_clean": {f: max(getattr(r, f) for r in clean)
+                           for f in ("mmd2", "max_mean_z", "worst_std_ratio")},
+           "corrupted": {n: dataclasses.asdict(r) for n, r in bad.items()},
+           "card_vs_cpu": err, "cpu_s": cpu_s}
+    phase("learning monitor", t0, json.dumps(out))
+    return out
+
+
+def loader_part(ds, host, records: int) -> dict:
+    """The training loader over the store: 40 batches equal to a CPU
+    loader's bit for bit, a resume from the state after batch 20, one timed
+    epoch, one checked epoch (no record twice, column sums equal to the
+    corpus's less the dropped tail) and one profiled window."""
+    import torch
+
+    from repro_torch.core import BlockSampler
+
+    seed = LEARN_SEED
+    t0 = time.perf_counter()
+    loader, host_loader = ds.loader(LOADER_BATCH, seed=seed), host.loader(LOADER_BATCH, seed=seed)
+    first, state = [], None
+    for i in range(LOADER_CHECK):
+        first.append(loader.next_batch())
+        check(bool(torch.equal(first[-1].cpu(), host_loader.next_batch())),
+              f"loader batch {i}: card and CPU differ")
+        if i + 1 == LOADER_STATE_AT:
+            state = loader.state_dict()
+    resumed = ds.loader(LOADER_BATCH, seed=seed)
+    resumed.load_state_dict(state)
+    for i in range(LOADER_STATE_AT, LOADER_CHECK):
+        check(bool(torch.equal(resumed.next_batch(), first[i])),
+              f"loader batch {i} after the resume differs")
+    for ld in (loader, host_loader, resumed):
+        ld.close()
+    del first
+
+    n_batches = records // LOADER_BATCH
+    loader = ds.loader(LOADER_BATCH, seed=seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_batches):
+        loader.next_batch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    wall, busy, by_name, events = profiled(
+        lambda: [loader.next_batch() for _ in range(LOADER_PROFILED)])
+    loader.close()
+
+    checked = ds.loader(LOADER_BATCH, seed=seed)
+    keys, sums = [], torch.zeros(29, dtype=torch.float64, device=ds.device)
+    for _ in range(n_batches):
+        b = checked.next_batch()
+        keys.append(row_keys(b))
+        sums += b.double().sum(0)
+    checked.close()
+    # the dropped tail: the rest of epoch 0 in the sampler's block order
+    # (every block holds ds.block_size records)
+    order = BlockSampler(ds.num_blocks, seed=seed).sample(ds.num_blocks)
+    tail_blocks = set(order[n_batches * LOADER_BATCH // ds.block_size:])
+    keys = torch.cat(keys)
+    check(int(torch.unique(keys).numel()) == keys.numel(), "the epoch gave a record twice")
+    corpus_sums = torch.zeros_like(sums)
+    tail_sums = torch.zeros_like(sums)
+    seen, tail, in_blocks = 0, 0, set()
+    for k in range(ds.num_blocks):
+        blk = ds.block(k)
+        bk = row_keys(blk)
+        check(int(torch.unique(bk).numel()) == bk.numel(), f"block {k} repeats a record key")
+        used = torch.isin(bk, keys)
+        seen += int(used.sum())
+        corpus_sums += blk.double().sum(0)
+        if not bool(used.all()):
+            tail += int((~used).sum())
+            tail_sums += blk[~used].double().sum(0)
+            in_blocks.add(k)
+    check(seen == keys.numel(), f"{keys.numel() - seen} batch records are not in the corpus")
+    check(tail == records - keys.numel() and in_blocks == tail_blocks,
+          f"dropped tail: {tail} records in blocks {sorted(in_blocks)}, expected"
+          f" {records - keys.numel()} in the rest of epoch 0, {sorted(tail_blocks)}")
+    dev_sum = rel_err(sums, corpus_sums - tail_sums)
+    check(dev_sum <= 1e-9, f"epoch column sums differ from the corpus less its tail by {dev_sum:.3g}")
+    idle = None if busy is None else 1.0 - busy / wall
+    out = {"batch": LOADER_BATCH, "epoch_batches": n_batches, "epoch_s": epoch_s,
+           "records_per_s": n_batches * LOADER_BATCH / epoch_s, "dropped_tail": tail,
+           "column_sums_vs_corpus": dev_sum,
+           "profiled": {"batches": LOADER_PROFILED, "wall_s": wall, "busy_s": busy,
+                        "idle_share": idle, "events": events,
+                        "top": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:4])}}
+    phase("learning loader", t0, json.dumps(out))
+    return out
+
+
+def learning(args, ds, inputs: dict) -> dict:
+    """Phase 3d: Sec. 9's Algorithm 2 and Fig. 6, Sec. 7's similarity
+    toolkit, Sec. 10's drift monitor and the training loader, on the
+    ingested store on the card, each held against the CPU port."""
+    from repro_torch import rsp
+
+    t0 = time.perf_counter()
+    host = rsp.open(ds.store.root, device="cpu")
+    out = {"ensemble": ensemble_part(args, ds, host),
+           "similarity": similarity_part(ds, host, inputs),
+           "monitor": monitor_part(ds),
+           "loader": loader_part(ds, host, ds.spec.num_records)}
+    host.close()
+    out["seconds"] = time.perf_counter() - t0
+    phase("learning", t0, f"ensemble, similarity, monitor and loader in {out['seconds']:.1f} s")
+    return out
+
+
 def serve_tenants() -> dict:
     """The tenant types, by name: a sketch answer, a p95 of one column over
     20 blocks (bounding the host bootstrap, O(b^2) in blocks), query (b)
@@ -958,7 +1364,7 @@ def serve_wave(ds, specs, *, workers: int = 8, capacity: int = 64):
 
 
 def serving(store: str, device) -> dict:
-    """Phase 3d: 32 tenants served concurrently on the ingested store,
+    """Phase 3e: 32 tenants served concurrently on the ingested store,
     reopened cold with room for every block in its cache, each answer equal
     to its solo run bit for bit, the sketch kernels launched once for every
     block a progressive query folded; then a saturation wave, a deadline
@@ -2721,16 +3127,18 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="rsp_ingest_")
     try:
         ing = ingest(args, data, tmp, device)
+        inputs = learning_inputs(data, args.records // BLOCKS)
         del data
         ds = ing.pop("dataset")
         est = estimator(ds)
+        learn = learning(args, ds, inputs)
         ds.close()
         del ds
         srv = serving(str(Path(tmp) / "ingested.rsp"), device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    path["e2e"].update(ingest=ing["ingest"], estimator=est, serve=srv)
+    path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv)
     lm = lm_serving(args, device, gpu)
     hy = hybrid_serving(args, device, gpu)
     t0 = time.perf_counter()
@@ -2768,6 +3176,7 @@ def main() -> int:
     by_path = {
         "block_sketch": {"main path": path["counts"]["block_sketch"],
                          "estimator": est["counts"]["block_sketch"],
+                         "drift monitor": learn["monitor"]["launches"]["block_sketch"],
                          "serve wave": srv["wave"]["launches"]["block_sketch"]},
         "plan_sketch": {"main path": path["counts"]["plan_sketch"],
                         "serve wave": srv["wave"]["launches"]["plan_sketch"]},

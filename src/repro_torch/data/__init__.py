@@ -1,3 +1,5 @@
 from repro_torch.data.synthetic import make_higgs_like, make_nonrandom_higgs_like
+from repro_torch.data.loader import BlockSource, PrefetchLoader, RSPLoader
 
-__all__ = ["make_higgs_like", "make_nonrandom_higgs_like"]
+__all__ = ["make_higgs_like", "make_nonrandom_higgs_like", "BlockSource", "PrefetchLoader",
+           "RSPLoader"]

@@ -14,19 +14,33 @@ One import surface for the paper's workflow::
     res = ds.query(["mean", "p95"], target_rel_err=0.01, use_sketches=False)
     with ds.serve(capacity=64, workers=8) as svc:      # concurrent tenants
         res = svc.result(svc.submit("p95", deadline_ms=500))
+    ens, hist = ds.ensemble(rsp.make_logreg(28, 2), eval_x=xe, eval_y=ye, g=5)
+    mmd = ds.similarity(3, metric="mmd")               # Sec. 7 diagnostics
+    loader = ds.loader(8192, seed=0)                   # training batches
 
 ``partition`` dispatches through a backend registry (the bit-exact numpy
 path, the out-of-core ``np_stream`` scatter for corpora on disk and ``out=``
 writes, and the ``cuda`` backend on the ``rsp_shuffle`` kernel);
 progressive queries, served queries and ``estimator`` sketch each block with
-the ``block_sketch`` and ``plan`` CUDA kernels.  Every entry point defaults to ``device="cuda"`` and raises when no
+the ``block_sketch`` and ``plan`` CUDA kernels; ``ensemble`` trains its base
+models, ``similarity`` scores a block and ``loader`` builds its batches on
+the dataset's device.  Every entry point defaults to ``device="cuda"`` and raises when no
 card is present; pass ``device="cpu"`` to run on the host.
 """
 
+from repro_torch.core.ensemble import (
+    BaseLearner,
+    Ensemble,
+    EnsembleHistory,
+    make_logreg,
+    make_mlp,
+)
 from repro_torch.core.estimators import BlockLevelEstimator, MomentStats
+from repro_torch.core.monitor import DriftMonitor, DriftReport
 from repro_torch.core.sampler import (
     POLICIES,
     BlockSampler,
+    HostAssignment,
     QueryAwarePolicy,
     SamplingPolicy,
     StratifiedPolicy,

@@ -2,7 +2,8 @@
 
 The paper's workflow is one pipeline: partition into RSP blocks
 (Algorithm 1), store, block-sample (Definition 4), then estimate (Sec. 8)
-with progressive queries, many analysts at once::
+with progressive queries, many analysts at once, or ensemble-learn
+(Sec. 9, Algorithm 2) and feed a training loop::
 
     ds = rsp.partition(data, blocks=100, seed=1, num_classes=2)   # on the card
     ds.save("/data/corpus.rsp")
@@ -12,6 +13,9 @@ with progressive queries, many analysts at once::
     est = ds.estimator(g=20)                       # block-level moments
     with ds.serve(capacity=64, workers=8) as svc:  # concurrent tenants
         res = svc.result(svc.submit("p95", deadline_ms=500))
+    ens, hist = ds.ensemble(make_logreg(28, 2), eval_x=xe, eval_y=ye, g=5)
+    mmd = ds.similarity(3, metric="mmd")           # Sec. 7 diagnostics
+    loader = ds.loader(8192, seed=0)               # training batches
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no card
 present it raises, and only an explicit ``device="cpu"`` runs on the host.
@@ -30,9 +34,22 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.ensemble import (
+    BaseLearner,
+    Ensemble,
+    EnsembleHistory,
+    asymptotic_ensemble_learn,
+)
 from repro_torch.core.registry import RSPStore
-from repro_torch.core.sampler import BlockSampler, SamplingPolicy, make_policy
+from repro_torch.core.sampler import (
+    BlockSampler,
+    HostAssignment,
+    SamplingPolicy,
+    deal_blocks,
+    make_policy,
+)
 from repro_torch.core.estimators import BlockLevelEstimator, MomentStats, streaming_estimate
+from repro_torch.core.similarity import ks_statistic, max_label_divergence, mmd_block_vs_data
 from repro_torch.core.types import RSPSpec
 from repro_torch.device import DEFAULT_DEVICE, as_numpy, as_tensor, resolve_device
 from repro_torch.rsp.backends import AUTO, PartitionRequest, run_partition
@@ -445,6 +462,10 @@ class RSPDataset:
         """One block-level sample of g block ids under ``policy``."""
         return self.policy(policy, seed=seed).sample(g)
 
+    def deal(self, num_hosts: int, *, seed: int = 0, epoch: int = 0) -> HostAssignment:
+        """Deal block ids across hosts for one epoch (multi-host training)."""
+        return deal_blocks(self.num_blocks, num_hosts, seed=seed, epoch=epoch)
+
     # ------------------------------------------------------------------
     # Estimation (Sec. 8)
     # ------------------------------------------------------------------
@@ -562,11 +583,150 @@ class RSPDataset:
         return QueryService(self, **kwargs)
 
     # ------------------------------------------------------------------
-    # Diagnostics (Sec. 7)
+    # Ensemble learning (Sec. 9, Algorithm 2)
     # ------------------------------------------------------------------
+    def ensemble(
+        self,
+        learner: BaseLearner,
+        *,
+        eval_x: Any,
+        eval_y: Any,
+        g: int = 5,
+        batches: int | None = None,
+        seed: int = 0,
+        improvement_tol: float = 1e-3,
+        patience: int = 2,
+    ) -> tuple[Ensemble, EnsembleHistory]:
+        """Asymptotic ensemble learning over block-level samples.  Records
+        are split into features/label via ``label_column`` (set
+        ``num_classes`` at partition time).  Blocks stream through the
+        executor per batch, so a store-backed dataset only reads the sampled
+        blocks; the base models train on the dataset's device, and the
+        evaluation set is moved there."""
+        if self.num_classes is None:
+            raise ValueError("ensemble needs num_classes (set it at partition time)")
+
+        def fetch(ids):
+            return self._split_xy(self.executor.take(ids))
+
+        return asymptotic_ensemble_learn(
+            learner=learner,
+            eval_x=as_tensor(eval_x, self.device),
+            eval_y=as_tensor(eval_y, self.device),
+            g=g,
+            seed=seed,
+            improvement_tol=improvement_tol,
+            patience=patience,
+            max_batches=batches,
+            num_blocks=self.num_blocks,
+            fetch_blocks=fetch,
+        )
+
+    def _split_xy(self, stacked: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stacked records -> (features without the label column, int64 labels)."""
+        col = self.label_column % stacked.shape[-1]
+        ys = stacked[..., col].to(torch.int64)
+        keep = [c for c in range(stacked.shape[-1]) if c != col]
+        xs = stacked[..., torch.as_tensor(keep, device=stacked.device)]
+        return xs, ys
+
+    # ------------------------------------------------------------------
+    # Similarity / diagnostics (Sec. 7)
+    # ------------------------------------------------------------------
+    def similarity(
+        self,
+        block_id: int,
+        *,
+        metric: str = "mmd",
+        feature: int = 0,
+        max_points: int = 1024,
+        seed: int = 0,
+    ) -> float:
+        """How close block ``block_id`` is to the full corpus, computed on
+        the dataset's device.
+
+        ``metric="mmd"``: unbiased MMD^2 (RBF, median-heuristic bandwidth);
+        ``metric="ks"``: two-sample KS statistic on one feature column;
+        ``metric="labels"``: L-inf label-distribution distance (needs
+        ``num_classes``).
+
+        The corpus reference is the full in-memory partition when available
+        (the probed block is legitimately a 1/K fraction of it); for
+        store-backed datasets it is a bounded block-level sample (valid by
+        Lemma 1 -- each block is a random sample) that *excludes* the probed
+        block, since a small reference that contained the probe would
+        overweight it far beyond its 1/K corpus share and shrink every
+        distance.
+        """
+        block = self.block(block_id)
+        corpus = self._corpus_reference(
+            max(max_points, 4096), seed=seed, exclude=block_id
+        )
+        if metric == "mmd":
+            return mmd_block_vs_data(block, corpus, max_points=max_points, seed=seed)
+        if metric == "ks":
+            return ks_statistic(block[:, feature], corpus[:, feature])
+        if metric == "labels":
+            if self.num_classes is None:
+                raise ValueError("metric='labels' needs num_classes")
+            col = self.label_column
+            return max_label_divergence(block[:, col], corpus[:, col], self.num_classes)
+        raise ValueError(f"unknown metric {metric!r} (mmd | ks | labels)")
+
+    def _corpus_reference(
+        self, max_records: int, *, seed: int = 0, exclude: int | None = None
+    ) -> torch.Tensor:
+        """Flat [M, ...] corpus sample for similarity comparisons: the whole
+        partition when in memory, else >= ``max_records`` records from a
+        block-level sample (no full-corpus load).  ``exclude`` keeps a probed
+        block out of its own reference set (self-inclusion shrinks any
+        block-vs-corpus distance)."""
+        if self._blocks is not None:
+            return self._blocks.reshape(-1, *self.spec.record_shape)
+        g = min(self.num_blocks, max(1, -(-max_records // self.block_size)))
+        request = min(self.num_blocks, g + (1 if exclude is not None else 0))
+        ids = self.sample(request, seed=seed)
+        if exclude is not None:
+            ids = [i for i in ids if i != exclude][:g]
+            if not ids:
+                # single-block store: the probe IS the corpus (degenerate)
+                ids = [exclude]
+        return self.executor.take(ids).reshape(-1, *self.spec.record_shape)
+
     def label_divergence(self) -> float:
         """Worst block-vs-corpus label L-inf distance, from the sketches alone."""
         return max_divergence_from_summaries(self.summaries)
+
+    # ------------------------------------------------------------------
+    # Training pipeline
+    # ------------------------------------------------------------------
+    def loader(
+        self,
+        batch_size: int,
+        *,
+        seed: int = 0,
+        policy: str | SamplingPolicy = "uniform",
+        prefetch: int = 2,
+        **kwargs,
+    ):
+        """An ``RSPLoader`` over this dataset: block-level sampled batches,
+        prefetched through the engine, as tensors on the dataset's device
+        (``policy`` selects blocks)."""
+        from repro_torch.data.loader import BlockSource, RSPLoader
+
+        # the loader gets the dataset's configured fetcher (memory / store /
+        # mmap / custom) but its own cache-free executor: blocks stream in
+        # one hop, not through this dataset's executor and LRU cache (which
+        # would retain single-use training blocks)
+        return RSPLoader(
+            BlockSource(dataset=self),
+            batch_size=batch_size,
+            seed=seed,
+            policy=policy,
+            prefetch=prefetch,
+            fetcher=self._make_fetcher(),
+            **kwargs,
+        )
 
     def __repr__(self) -> str:
         src = "memory" if self._blocks is not None else f"store:{self._store.root}"

@@ -21,7 +21,9 @@ dataset's device:
     the point of consumption.  ``map_blocks(fn, ids)`` yields ``fn(block)``
     for each id *in order* while the next ``prefetch`` blocks load;
     ``fn=None`` yields the raw blocks, so per-block compute runs on the
-    caller's thread.
+    caller's thread.  ``stream_batches(ids, batch_size)`` assembles
+    fixed-size record batches from a block-id stream (the training
+    loader's primitive).
 
 With ``prefetch=0`` the executor is a plain synchronous loop.
 ``executor.stats()`` exposes hit/miss/eviction counters and the
@@ -535,3 +537,70 @@ class BlockExecutor:
     def take(self, ids: Sequence[int]) -> torch.Tensor:
         """Stack the given blocks -> [g, n, ...] (prefetched)."""
         return torch.stack(list(self.map_blocks(None, ids)))
+
+    # -- primitive 2: record batches from a block-id stream -----------------
+    def stream_batches(
+        self,
+        ids: Iterable[int],
+        batch_size: int,
+        *,
+        prepare: Callable[[int, torch.Tensor], torch.Tensor] | None = None,
+        transform: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        drop_last: bool = True,
+    ) -> Iterator[torch.Tensor]:
+        """Assemble ``batch_size``-record batches from the records of the
+        block-id stream ``ids`` (finite or infinite), prefetching blocks
+        ahead.  ``prepare(block_id, block)`` runs on the workers (e.g.
+        within-block permutation); ``transform`` runs on each built batch.
+        Batches are tensors on the blocks' device.
+        """
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        it = iter(ids)
+        window: collections.deque[Future] = collections.deque()
+
+        def submit_one() -> None:
+            for b in it:
+                fn = None if prepare is None else (lambda block, _b=b: prepare(_b, block))
+                window.append(self.fetch_async(b, fn))
+                return
+
+        pending: list[torch.Tensor] = []
+        have = 0
+        try:
+            for _ in range(self.prefetch + 1):
+                submit_one()
+            while window:
+                fut = window.popleft()
+                arr = fut.result()
+                submit_one()
+                pending.append(arr)
+                have += arr.shape[0]
+                while have >= batch_size:
+                    batch, pending, have = _assemble(pending, have, batch_size)
+                    yield transform(batch) if transform is not None else batch
+            if have > 0 and not drop_last:
+                batch = torch.cat(pending)
+                yield transform(batch) if transform is not None else batch
+        finally:
+            for fut in window:
+                fut.cancel()
+
+
+def _assemble(
+    pending: list[torch.Tensor], have: int, batch_size: int
+) -> tuple[torch.Tensor, list[torch.Tensor], int]:
+    """Split ``batch_size`` records off the front of ``pending``."""
+    out: list[torch.Tensor] = []
+    need = batch_size
+    while need > 0:
+        head = pending[0]
+        if head.shape[0] <= need:
+            out.append(head)
+            need -= head.shape[0]
+            pending = pending[1:]
+        else:
+            out.append(head[:need])
+            pending = [head[need:]] + pending[1:]
+            need = 0
+    return torch.cat(out), pending, have - batch_size

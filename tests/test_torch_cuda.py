@@ -16,6 +16,9 @@ the sketch kernels' repeated calls, and their scalar-load path against the
 flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
 scan and the WKV within 2e-4, the reference's own tolerances for its Pallas
 kernels (``tests/test_kernels.py``).
+The drift monitor, the loader and the similarity functions on the card
+against the same calls on the CPU: monitor reports and MMD^2 within 1e-5
+(1 + |b|), loader batches, KS and label frequencies exactly.
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -354,6 +357,74 @@ def test_block_moments_run_the_kernel_and_match_the_plain_version(dev):
     assert got.count == want.count == 5000
     for field in ("mean", "m2", "min", "max"):
         np.testing.assert_allclose(getattr(got, field), getattr(want, field), rtol=1e-5)
+
+
+def test_drift_monitor_launches_block_sketch_once_per_reference_block(dev):
+    """The monitor folds its reference blocks through the kernel (one
+    launch a block, none per score) and reports what a CPU monitor does."""
+    from repro_torch.core.monitor import DriftMonitor
+
+    blocks = np.stack([_data(3000, 7, seed=s) for s in range(8)])
+    kernels.reset_launch_counts()
+    mon = DriftMonitor(torch.from_numpy(blocks[:4]).to(dev), seed=0, device=dev)
+    counts = kernels.launch_counts()
+    assert counts["block_sketch"] == 4 and sum(counts.values()) == 4
+    host = DriftMonitor(blocks[:4], seed=0, device="cpu")
+    shifted = blocks[5] + 1.5
+    for i, b in [(4, blocks[4]), (6, blocks[6]), (5, shifted)]:
+        got = mon.score(torch.from_numpy(b).to(dev), block_id=i)
+        want = host.score(b, block_id=i)
+        assert got.drifted == want.drifted
+        for f in ("mmd2", "max_mean_z", "worst_std_ratio"):
+            assert abs(getattr(got, f) - getattr(want, f)) <= 1e-5 * max(abs(getattr(want, f)), 1)
+    assert 5 in mon.drifted_blocks() and mon.drifted_blocks() == host.drifted_blocks()
+    assert sum(kernels.launch_counts().values()) == 4
+
+
+def test_loader_batches_on_the_card_equal_the_cpu_loader(dev, tmp_path):
+    from repro_torch import rsp
+
+    data = _data(8 * 1600, 5, classes=2)
+    rsp.partition(data, blocks=8, seed=3, num_classes=2, backend="np", device="cpu") \
+        .save(str(tmp_path))
+    card = rsp.open(str(tmp_path), device=dev).loader(700, seed=4)
+    host = rsp.open(str(tmp_path), device="cpu").loader(700, seed=4)
+    for _ in range(25):                                  # past an epoch boundary
+        got, want = card.next_batch(), host.next_batch()
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    assert card.state_dict() == host.state_dict()
+    card.close()
+    host.close()
+
+
+def test_ks_and_labels_on_the_card_equal_the_cpu_exactly(dev):
+    from repro_torch.core.similarity import ks_statistic, label_distribution, max_label_divergence
+
+    rng = np.random.default_rng(5)
+    for n, m in [(110000, 110000), (3001, 777), (1, 5)]:
+        a = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        b = torch.from_numpy(rng.normal(0.01, 1.0, size=m).astype(np.float32))
+        assert ks_statistic(a.to(dev), b.to(dev)) == ks_statistic(a, b)
+    labels = torch.from_numpy(rng.integers(0, 3, size=110001).astype(np.float32))
+    other = torch.from_numpy(rng.integers(0, 3, size=7777).astype(np.float32))
+    assert torch.equal(label_distribution(labels.to(dev), 3).cpu(), label_distribution(labels, 3))
+    assert (max_label_divergence(labels.to(dev), other.to(dev), 3)
+            == max_label_divergence(labels, other, 3))
+
+
+def test_mmd2_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core.similarity import median_heuristic_gamma, mmd2_rbf, mmd_block_vs_data
+
+    x, y = _data(1024, 29, seed=1), _data(1024, 29, seed=2) + 0.05
+    gamma = median_heuristic_gamma(x)
+    assert abs(median_heuristic_gamma(torch.from_numpy(x).to(dev)) - gamma) <= 1e-5 * gamma
+    got = float(mmd2_rbf(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), gamma))
+    want = float(mmd2_rbf(torch.from_numpy(x), torch.from_numpy(y), gamma))
+    assert abs(got - want) <= 1e-5 * (1 + abs(want))
+    got = mmd_block_vs_data(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), seed=3)
+    want = mmd_block_vs_data(x, y, seed=3)
+    assert abs(got - want) <= 1e-5 * (1 + abs(want))
 
 
 def test_served_queries_on_the_card_equal_their_solo_runs(dev, tmp_path):

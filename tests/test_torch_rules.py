@@ -15,7 +15,9 @@ import torch
 from repro_torch import kernels, rsp
 from repro_torch.checkpoint import store
 from repro_torch.configs import smoke_config
+from repro_torch.core.monitor import DriftMonitor
 from repro_torch.core.registry import RSPStore
+from repro_torch.data import BlockSource, RSPLoader
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda
@@ -43,7 +45,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.data, repro_torch.obs, repro_torch.kernels.flash_attention, "
         "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store, "
         "repro_torch.kernels.mamba2_ssd, repro_torch.models.mamba2, "
-        "repro_torch.kernels.rwkv6_wkv, repro_torch.models.rwkv6\n"
+        "repro_torch.kernels.rwkv6_wkv, repro_torch.models.rwkv6, repro_torch.core.ensemble, "
+        "repro_torch.core.similarity, repro_torch.core.monitor, repro_torch.data.loader\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'jaxlib') "
         "or m.startswith(('jax.', 'repro.', 'jaxlib.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -120,6 +123,11 @@ DEFAULT_DEVICE_CONSTRUCTORS = {
     "as_fetcher(store)": lambda: rsp.as_fetcher(V1_STORE),
     "as_fetcher(store, mmap)": lambda: rsp.as_fetcher(V1_STORE, mode="mmap"),
     "BlockExecutor": lambda: rsp.BlockExecutor(BLOCKS, prefetch=0),
+    "BlockSource(blocks)": lambda: BlockSource(blocks=BLOCKS),
+    "BlockSource(store)": lambda: BlockSource(store=V1_STORE),
+    "RSPLoader": lambda: RSPLoader(BlockSource(store=V1_STORE), batch_size=4),
+    "RSPDataset.loader": lambda: rsp.RSPDataset(V1_STORE.spec(), store=V1_STORE).loader(4),
+    "DriftMonitor": lambda: DriftMonitor(BLOCKS),
     "compile_plan": lambda: compile_plan(QueryPlan(predicates="c0 > 0"), num_features=3,
                                          impl="cuda"),
 }
@@ -227,6 +235,11 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
     Server(hcfg, HybridLM(hcfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=2)
     rcfg = smoke_config("rwkv6-1.6b")
     Server(rcfg, RWKVLM(rcfg, device="cpu"), device="cpu").generate(prompts, max_new_tokens=2)
+    ds.ensemble(rsp.make_logreg(4, 2, steps=5), eval_x=data[:50, :4], eval_y=data[:50, 4],
+                g=2, batches=1)
+    ds.similarity(1)
+    ds.loader(64).next_batch()
+    DriftMonitor(ds.take([0, 1])[..., :4], device="cpu").score(ds.block(2)[:, :4])
     assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
                                        "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
 
