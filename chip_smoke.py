@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
 main path, ingest from disk, block-level estimation, learning from the
 blocks (ensembles, similarity, drift monitoring and the training loader),
-concurrent query serving, dense LM serving, zamba2 hybrid serving, and
-rwkv6 scoring, loss and serving.
+concurrent query serving, the multi-host mesh (distributed queries and the
+collective partition), dense LM serving, zamba2 hybrid serving, and rwkv6
+scoring, loss and serving.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
@@ -113,6 +114,30 @@ Phases, one line each with its seconds:
                 ``converged`` with an anytime result) and one profiled wave
                 for the device's idle share; QPS, latency p50 and p99 by
                 query type, blocks a query and the cache hit rate printed;
+3f. mesh      -- on the same store and ``.npy``: query (b), query (c) and a
+                p95 of column 0 over 20 blocks, (a) by four
+                ``LocalTransport`` hosts on threads, each ``ds.distribute(t)``
+                with 25 owned blocks: every host's answer equal to the
+                single host's bit for bit, the sketch launches equal to the
+                blocks the hosts read, a read outside a host's blocks an
+                error (``ScopedFetcher``); (b) the same with host 3 killed
+                at its third publish (grace 2 s): the survivors' answers
+                equal and their ownership re-dealt to hosts 0-2; (c) four
+                child processes on the card over a ``TCPStore`` this
+                process hosts (``init_from_env()``), then three with the
+                last SIGKILLed once it connected, every survivor's answers
+                equal to the single host's; (d) ``distributed_rsp_partition``
+                by four gloo ranks on the card, rank i mapping rows [i*N/4,
+                (i+1)*N/4) of the ``.npy``: one rsp_shuffle launch a rank,
+                the exchange through host memory, every rank's sha256 equal
+                to that of block k of the ``cuda`` backend's partition with
+                P = K = 4, those blocks equal to the plain gather's on the
+                card, and each rank's shuffle equal to its plain gather.
+                Each query's mesh time beside its single-host time, the
+                payload bytes a block, the killed runs' steal times (the
+                wait up to the re-deal, from telemetry in the run itself)
+                and the partition's parts are printed; every child has a
+                timeout;
 5. times     -- each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
                 it -- for the sketches the launchers that return the packed
@@ -187,8 +212,8 @@ Phases, one line each with its seconds:
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
-path, the estimator, the drift monitor, the first serve wave, each LM
-path).
+path, the estimator, the drift monitor, the first serve wave, each mesh
+run on threads, each rank of the collective partition, each LM path).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -1477,6 +1502,450 @@ def serving(store: str, device) -> dict:
     ds.close()
     return {"wave": wave, "saturation": {"rejected": ms.rejected, "completed": ms.completed},
             "deadline": deadline, "device_share": share}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: the multi-host RSP layer (threads, processes, the collective)
+# ---------------------------------------------------------------------------
+
+MESH_HOSTS = 4
+MESH_GRACE = 2.0           # seconds a host waits for a peer's payload before stealing
+MESH_CHILD_TIMEOUT = 60.0  # a mesh or partition child past this fails the phase
+MESH_TYPES = ("b_where_columns", "c_by_label", "p95")
+PAYLOAD_KEY = "/p/"        # DistributedQueryExecutor publishes payloads under {ns}/p/{position}
+
+
+def mesh_queries() -> dict:
+    """Query (b), query (c) and the p95 of column 0 over 20 blocks (query
+    (a) reads all 100 blocks, so four hosts would each run its host
+    bootstrap)."""
+    tenants = serve_tenants()
+    return {name: tenants[name] for name in MESH_TYPES}
+
+
+def result_sig(r) -> str:
+    """A result's bit-exact signature: the fields of
+    ``tests/test_distributed_query.py``'s ``_sig``."""
+    import numpy as np
+
+    def flat(v):
+        return None if v is None else np.asarray(v).ravel().tolist()
+
+    return json.dumps({
+        "est": {a.name: flat(a.estimate) for a in r.aggregates},
+        "lo": {a.name: flat(a.ci_lo) for a in r.aggregates},
+        "hi": {a.name: flat(a.ci_hi) for a in r.aggregates},
+        "blocks_read": r.blocks_read, "converged": r.converged, "selectivity": r.selectivity,
+    }, sort_keys=True)
+
+
+def steal_seconds() -> dict:
+    """``{host: {"steals": n, "seconds": s}}`` from telemetry: each host's
+    re-deals and its waits up to them (``rsp_mesh_steal_seconds``, from the
+    first look for a position's payload to the re-deal of its holder's
+    blocks, inside one run)."""
+    from repro_torch import obs
+
+    fam = obs.get_registry().snapshot().get("rsp_mesh_steal_seconds", {"series": []})
+    return {int(r["labels"]["host"]): {"steals": r["count"], "seconds": r["sum"]}
+            for r in fam["series"]}
+
+
+class CountingTransport:
+    """A transport that counts the payload bytes its host publishes."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.payloads = 0
+        self.payload_bytes = 0
+
+    host_id = property(lambda self: self.inner.host_id)
+    num_hosts = property(lambda self: self.inner.num_hosts)
+
+    def put(self, key: str, value: bytes) -> None:
+        self.inner.put(key, value)
+        if PAYLOAD_KEY in key:
+            self.payloads += 1
+            self.payload_bytes += len(value)
+
+    def get(self, key: str, timeout: float = 0.0):
+        return self.inner.get(key, timeout)
+
+    def poll(self, prefix: str):
+        return self.inner.poll(prefix)
+
+
+def mesh_threads(ds, single: dict, *, kill: bool) -> dict:
+    """Four ``LocalTransport`` hosts on threads, each ``ds.distribute(t)``
+    with an ownership of 25 blocks, run the mesh queries in turn; with
+    ``kill``, host 3 dies at its third publish.  Checks every surviving
+    host's answers against the single-host ones bit for bit and the sketch
+    launches against the payloads the hosts computed."""
+    import torch
+
+    from repro_torch import kernels, obs
+    from repro_torch.distributed import LocalTransport, run_local_hosts
+
+    transports = LocalTransport.group(MESH_HOSTS)
+    if kill:
+        transports[-1].kill_after_puts(2)
+    counting = [CountingTransport(t) for t in transports]
+    hosts: dict[int, object] = {}
+    spans: dict[str, list] = {name: [] for name in MESH_TYPES}
+    reads: dict[str, list] = {name: [0] * MESH_HOSTS for name in MESH_TYPES}
+
+    def host(t):
+        dds = ds.distribute(t, straggler_grace=MESH_GRACE)
+        hosts[t.host_id] = dds
+        check(len(dds.owned_blocks) == BLOCKS // MESH_HOSTS,
+              f"host {t.host_id} owns {len(dds.owned_blocks)} blocks")
+        sigs = {}
+        for name, (aggs, kw) in mesh_queries().items():
+            before = dds.executor.stats()
+            t0 = time.perf_counter()
+            try:
+                r = dds.query(aggs, **kw)
+            finally:
+                reads[name][t.host_id] = (dds.executor.stats() - before).accesses
+                spans[name].append((t0, time.perf_counter()))
+            sigs[name] = result_sig(r)
+        return sigs, dds.ownership.hosts()
+
+    obs.reset()
+    obs.enable()   # the steal waits; both runs alike
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_local_hosts(counting, host)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()   # the mesh query path ends here
+    steals = steal_seconds()
+    obs.reset()
+    check(bool(steals) == kill, f"steals {steals} in a run {'with' if kill else 'without'}"
+          " a killed host")
+    survivors = [h for h, r in enumerate(results) if r is not None]
+    check(survivors == list(range(MESH_HOSTS - 1 if kill else MESH_HOSTS)),
+          f"surviving hosts {survivors}")
+    for h in survivors:
+        sigs, owners = results[h]
+        for name in MESH_TYPES:
+            check(sigs[name] == single[name]["sig"],
+                  f"host {h}, {name}: the mesh answer differs from the single host's")
+        want = list(range(MESH_HOSTS - 1)) if kill else list(range(MESH_HOSTS))
+        check(owners == want, f"host {h}: ownership.hosts() is {owners}, expected {want}")
+    computed = {name: sum(reads[name]) for name in MESH_TYPES}
+    planned = computed["b_where_columns"] + computed["c_by_label"]
+    check(counts["block_sketch"] == computed["p95"] and counts["plan_sketch"] == planned,
+          f"launches {counts} for the blocks the hosts read {computed}")
+    for name in MESH_TYPES:
+        check(computed[name] >= single[name]["blocks_read"],
+              f"{name}: the hosts read {computed[name]} blocks, the fold"
+              f" {single[name]['blocks_read']}")
+    for dds in hosts.values():
+        dds.close()
+    payloads = sum(c.payloads for c in counting)
+    return {
+        "wall_s": wall, "launches": counts, "blocks_read_by_hosts": reads,
+        "queries_s": {name: max(e for _, e in s) - min(b for b, _ in s)
+                      for name, s in spans.items()},
+        "payload_bytes_per_block": sum(c.payload_bytes for c in counting) / max(payloads, 1),
+        "payloads_published": payloads, "steals": steals,
+    }
+
+
+def mesh_child(store: str, device: str) -> dict:
+    """One process of the mesh: joins through ``init_from_env()``, opens the
+    store on ``device``, waits for its peers and runs the mesh queries
+    through ``ds.distribute``.  The victim (``RSP_VICTIM`` names its rank)
+    announces it connected and waits to be killed."""
+    import os
+    import signal
+
+    from repro_torch import obs, rsp
+    from repro_torch.distributed import init_from_env
+    from repro_torch.kernels.block_sketch import block_sketch
+
+    t = init_from_env()
+    check(t is not None, "RSP_COORDINATOR is not set")
+    victim = os.environ.get("RSP_VICTIM")
+    if str(t.host_id) == victim:
+        t.put(f"ready/{t.host_id}", b"1")
+        signal.pause()
+    ds = rsp.open(store, device=device, cache_blocks=BLOCKS)
+    # only the killed run waits a short grace; a mesh with no death waits
+    # as long as a child may run
+    dds = ds.distribute(t, straggler_grace=MESH_CHILD_TIMEOUT if victim is None else MESH_GRACE)
+    # start together, the card warmed: a peer still starting up must not
+    # look like a straggler
+    block_sketch(dds.executor.fetch(dds.owned_blocks[0]), bins=0)
+    t.put(f"start/{t.host_id}", b"1")
+    for h in range(t.num_hosts):
+        if str(h) != victim:
+            check(t.get(f"start/{h}", MESH_CHILD_TIMEOUT) is not None, f"host {h} never started")
+    out = {"host": t.host_id, "owned": len(dds.owned_blocks), "sigs": {}, "seconds": {}}
+    obs.enable()   # the steal waits
+    for name, (aggs, kw) in mesh_queries().items():
+        t0 = time.perf_counter()
+        out["sigs"][name] = result_sig(dds.query(aggs, **kw))
+        out["seconds"][name] = time.perf_counter() - t0
+    out["hosts"] = dds.ownership.hosts()
+    out["steals"] = steal_seconds().get(t.host_id)
+    dds.close()
+    ds.close()
+    return out
+
+
+def run_children(argv: list[str], n: int, env: dict, *, victim: int | None = None,
+                 store=None) -> list[dict]:
+    """``n`` children of this script (``RSP_PROCESS_ID`` 0..n-1), each
+    killed past MESH_CHILD_TIMEOUT; ``victim`` is SIGKILLed once it has put
+    ``ready/<victim>`` in ``store``.  Returns each surviving child's last
+    stdout line as JSON; any other outcome fails the phase."""
+    import os
+    import signal
+
+    procs, files = [], []
+    for rank in range(n):
+        penv = dict(os.environ, **env, RSP_PROCESS_ID=str(rank), RSP_NUM_PROCESSES=str(n))
+        if victim is not None:
+            penv["RSP_VICTIM"] = str(victim)
+        # files, not pipes: a child never blocks on a full pipe nobody reads
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        files.append((out, err))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *argv],
+                                      env=penv, stdout=out, stderr=err, text=True))
+    t0 = time.perf_counter()
+    killed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            if (victim is not None and killed is None and procs[victim].poll() is None
+                    and store.check([f"ready/{victim}"])):
+                procs[victim].send_signal(signal.SIGKILL)
+                killed = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < MESH_CHILD_TIMEOUT,
+                  f"a child of {argv[0]} ran past {MESH_CHILD_TIMEOUT} s")
+            time.sleep(0.02)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        outs = []
+        for out, err in files:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    got = []
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if rank == victim:
+            check(killed is not None, f"the victim exited with {p.returncode} before its kill")
+            continue
+        check(p.returncode == 0,
+              f"{argv[0]} child {rank} exited {p.returncode}: {stderr[-2000:]}")
+        got.append(json.loads(stdout.strip().splitlines()[-1]))
+    return got
+
+
+def mesh_processes(store: str, device, single: dict, *, kill: bool) -> dict:
+    """The mesh as processes on the card, over a ``TCPStore`` this process
+    hosts: four children, or three with the last SIGKILLed once it has
+    connected.  Every survivor's answers must equal the single host's."""
+    from repro_torch.distributed import serve_store
+
+    server = serve_store()
+    n = MESH_HOSTS - 1 if kill else MESH_HOSTS
+    t0 = time.perf_counter()
+    got = run_children(["--mesh-child", store, str(device)], n,
+                       {"RSP_COORDINATOR": f"127.0.0.1:{server.port}"},
+                       victim=n - 1 if kill else None, store=server)
+    wall = time.perf_counter() - t0
+    del server
+    for child in got:
+        for name in MESH_TYPES:
+            check(child["sigs"][name] == single[name]["sig"],
+                  f"process {child['host']}, {name}: the mesh answer differs from the"
+                  " single host's")
+        want = list(range(n - 1)) if kill else list(range(n))
+        check(child["hosts"] == want, f"process {child['host']}: hosts {child['hosts']}")
+    steals = {c["host"]: c["steals"] for c in got if c["steals"]}
+    check(bool(steals) == kill, f"steals {steals} in a run {'with' if kill else 'without'}"
+          " a killed process")
+    return {"processes": n, "killed": kill, "wall_s": wall,
+            "queries_s": {name: max(c["seconds"][name] for c in got) for name in MESH_TYPES},
+            "steals": steals}
+
+
+def partition_child(npy: str, seed: int, device: str) -> dict:
+    """Rank ``RSP_PROCESS_ID`` of a gloo group that meets on the parent's
+    ``TCPStore`` at ``RSP_STORE``: maps its original block (rows ``[i*N/D,
+    (i+1)*N/D)``) of the corpus, moves it to the card and runs
+    ``distributed_rsp_partition`` (one rsp_shuffle launch, the exchange
+    through host memory); then holds the shuffle of the same block against
+    its plain gather on the card, bit for bit, and times both with CUDA
+    events beside the shuffle's bytes bound."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, obs
+    from repro_torch.core import distributed_rsp_partition
+    from repro_torch.kernels.rsp_shuffle import (make_permutations, rsp_shuffle,
+                                                 rsp_shuffle_plain, shuffle_path)
+
+    rank, d = int(os.environ["RSP_PROCESS_ID"]), int(os.environ["RSP_NUM_PROCESSES"])
+    host, port = os.environ["RSP_STORE"].rsplit(":", 1)
+    dist.init_process_group("gloo", store=dist.TCPStore(host, int(port), is_master=False),
+                            rank=rank, world_size=d)
+    corpus = np.load(npy, mmap_mode="r")
+    n = corpus.shape[0] // d
+    shard = torch.from_numpy(np.ascontiguousarray(corpus[rank * n:(rank + 1) * n])).to(device)
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    dist.barrier()
+    obs.enable()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    block = distributed_rsp_partition(shard, seed)
+    sync()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()["rsp_shuffle"]   # the partition's path ends here
+    exchange = [e["dur"] / 1e6 for e in obs.get_tracer().chrome_events()
+                if e.get("name") == "partition.exchange"]
+    obs.disable()
+    sha = hashlib.sha256(block.cpu().numpy().tobytes()).hexdigest()
+    tp, ip = (torch.from_numpy(a).to(dev) for a in make_permutations(seed, rank, d, n // d))
+    # the kernel at this path's shape (the rows path, its tiles dealt over
+    # gridDim.z) against the plain gather, on the same block and permutations
+    shuffled = rsp_shuffle(shard, tp, ip, tile_rows=n // d)
+    plain = rsp_shuffle_plain(shard, tp, ip, tile_rows=n // d)
+    check(torch.equal(shuffled, plain),
+          f"rank {rank}: rsp_shuffle differs from its plain gather in"
+          f" {int((shuffled != plain).any(dim=1).sum())} rows")
+    del shuffled, plain
+    shuffle_ms = (time_cuda(lambda i: rsp_shuffle(shard, tp, ip, tile_rows=n // d), reps=5)
+                  if dev.type == "cuda" else None)
+    plain_ms = (time_cuda(lambda i: rsp_shuffle_plain(shard, tp, ip, tile_rows=n // d), reps=5)
+                if dev.type == "cuda" else None)
+    # the shuffle reads the block and its permutations once and writes the block once
+    shuffle_bound_ms, by = bound_ms(2 * shard.numel() * 4 + (tp.numel() + ip.numel()) * 4, 0)
+    dist.barrier()
+    dist.destroy_process_group()
+    return {"rank": rank, "rows": n, "sha256": sha, "launches": launches, "total_s": total,
+            "exchange_s": exchange[0] if exchange else None, "shuffle_ms": shuffle_ms,
+            "shuffle_plain_ms": plain_ms, "shuffle_bound_ms": shuffle_bound_ms,
+            "shuffle_bound_by": by,
+            "shuffle_path": shuffle_path(n // d, shard.shape[1] * 4)}
+
+
+def collective_partition(args, npy: str, device) -> dict:
+    """Four gloo ranks on the card, meeting on a ``TCPStore`` this process
+    hosts, each randomizing one original block of the corpus: rank k's
+    block must equal block k of the ``cuda`` backend's partition of the
+    whole corpus (P = K = 4) bit for bit, with one rsp_shuffle launch a
+    rank; and that backend's blocks must equal the plain gather's on the
+    card (each original block gathered by the same permutations, the
+    sub-blocks transposed), so the kernel is never held against itself."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import rsp
+    from repro_torch.distributed import serve_store
+    from repro_torch.kernels.rsp_shuffle import make_permutations, rsp_shuffle_plain
+
+    server = serve_store()
+    t0 = time.perf_counter()
+    got = run_children(["--partition-child", npy, str(device), "--seed", str(args.seed)],
+                       MESH_HOSTS, {"RSP_STORE": f"127.0.0.1:{server.port}"})
+    wall = time.perf_counter() - t0
+    del server
+    corpus = np.load(npy, mmap_mode="r")
+    d, n = MESH_HOSTS, corpus.shape[0] // MESH_HOSTS
+    ds = rsp.partition(corpus, blocks=d, original_blocks=d, seed=args.seed, backend="cuda",
+                       summaries=False, device=device)
+    want = [hashlib.sha256(ds.block(k).cpu().numpy().tobytes()).hexdigest() for k in range(d)]
+    ds.close()
+    subs = []
+    for i in range(d):
+        x = torch.from_numpy(np.ascontiguousarray(corpus[i * n:(i + 1) * n])).to(device)
+        tp, ip = (torch.from_numpy(a).to(device)
+                  for a in make_permutations(args.seed, i, d, n // d))
+        subs.append(rsp_shuffle_plain(x, tp, ip, tile_rows=n // d).reshape(d, n // d, -1))
+    plain = [hashlib.sha256(torch.cat([s[k] for s in subs]).cpu().numpy().tobytes()).hexdigest()
+             for k in range(d)]
+    del subs
+    check(want == plain, "the cuda backend's blocks differ from the plain gather's on the card")
+    for child in sorted(got, key=lambda c: c["rank"]):
+        check(child["sha256"] == want[child["rank"]],
+              f"rank {child['rank']}'s block differs from block {child['rank']} of the cuda"
+              " backend's partition")
+        check(child["launches"] == 1, f"rank {child['rank']} launched rsp_shuffle"
+              f" {child['launches']} times")
+    return {"wall_s": wall, "ranks": sorted(got, key=lambda c: c["rank"]),
+            "launches": sum(c["launches"] for c in got)}
+
+
+def mesh(args, tmp: str, device) -> dict:
+    """Phase 3f on the ingested store and its ``.npy``: (a) four
+    ``LocalTransport`` hosts on threads, (b) the same with host 3 killed,
+    (c) four processes over a ``TCPStore``, then three with the last
+    SIGKILLed, (d) the collective partition over four gloo ranks."""
+    import torch
+
+    from repro_torch import rsp
+
+    store, npy = str(Path(tmp) / "ingested.rsp"), str(Path(tmp) / "corpus.npy")
+    t_phase = time.perf_counter()
+    ds = rsp.open(store, device=device, cache_blocks=BLOCKS)
+    single = {}
+    for name, (aggs, kw) in mesh_queries().items():
+        ds.query(aggs, **kw)   # warm the plan cache and the grid tensors
+        # timed on a fresh block cache, as each mesh host starts
+        cold = rsp.open(store, device=device, cache_blocks=BLOCKS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = cold.query(aggs, **kw)
+        single[name] = {"sig": result_sig(r), "blocks_read": r.blocks_read,
+                        "seconds": time.perf_counter() - t0}
+        cold.close()
+    out = {"single": {k: {"seconds": v["seconds"], "blocks_read": v["blocks_read"]}
+                      for k, v in single.items()}}
+    for tag, kill in (("threads", False), ("threads_killed", True)):
+        t0 = time.perf_counter()
+        out[tag] = mesh_threads(ds, single, kill=kill)
+        phase(f"mesh {tag}", t0, " ".join(
+            f"{name} {out[tag]['queries_s'][name]:.3f} s (single host"
+            f" {single[name]['seconds']:.3f} s)" for name in MESH_TYPES)
+            + f"; payload {out[tag]['payload_bytes_per_block']:.0f} B a block;"
+            f" launches {json.dumps(out[tag]['launches'])}")
+    ds.close()
+    # host 3 dies in the first query; the survivors re-deal its blocks after
+    # it, so only the first query waits out the grace.  The steal time is
+    # the longest wait, in the killed run itself, from a survivor's first
+    # look for a payload to its re-deal
+    first = MESH_TYPES[0]
+    out["steal_s"] = max(v["seconds"] / v["steals"]
+                         for v in out["threads_killed"]["steals"].values())
+    for tag, kill in (("processes", False), ("processes_killed", True)):
+        t0 = time.perf_counter()
+        out[tag] = mesh_processes(store, device, single, kill=kill)
+        phase(f"mesh {tag}", t0, json.dumps(out[tag]))
+    t0 = time.perf_counter()
+    out["partition"] = collective_partition(args, npy, device)
+    phase("mesh partition", t0, json.dumps(out["partition"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("mesh", t_phase, f"steal {out['steal_s']:.4f} s on threads (query {first}, host 3"
+          f" killed, grace {MESH_GRACE} s); on processes"
+          f" {json.dumps(out['processes_killed']['steals'])}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3067,11 +3536,20 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="directory for the build log and JSON")
     ap.add_argument("--ingest-child", nargs=3, metavar=("NPY", "STORE", "DEVICE"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", nargs=2, metavar=("STORE", "DEVICE"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--partition-child", nargs=2, metavar=("NPY", "DEVICE"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.ingest_child:
+    if args.ingest_child or args.mesh_child or args.partition_child:
         sys.path.insert(0, str(SRC))
-        print(json.dumps(ingest_child(*args.ingest_child[:2], args.seed, args.ingest_child[2])),
-              flush=True)
+        if args.ingest_child:
+            got = ingest_child(*args.ingest_child[:2], args.seed, args.ingest_child[2])
+        elif args.mesh_child:
+            got = mesh_child(*args.mesh_child)
+        else:
+            got = partition_child(args.partition_child[0], args.seed, args.partition_child[1])
+        print(json.dumps(got), flush=True)
         return 0
     if args.records % (BLOCKS * BLOCKS):
         print(f"chip_smoke: --records must be a multiple of {BLOCKS * BLOCKS}", file=sys.stderr)
@@ -3135,10 +3613,12 @@ def main() -> int:
         ds.close()
         del ds
         srv = serving(str(Path(tmp) / "ingested.rsp"), device)
+        msh = mesh(args, tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv)
+    path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv,
+                       mesh=msh)
     lm = lm_serving(args, device, gpu)
     hy = hybrid_serving(args, device, gpu)
     t0 = time.perf_counter()
@@ -3174,12 +3654,16 @@ def main() -> int:
     # generate are in launches_by_path
     launches["rwkv6_wkv"] = rw["counts"]["forward"]["rwkv6_wkv"]
     by_path = {
+        "rsp_shuffle": {"main path": path["counts"]["rsp_shuffle"],
+                        "collective partition": msh["partition"]["launches"]},
         "block_sketch": {"main path": path["counts"]["block_sketch"],
                          "estimator": est["counts"]["block_sketch"],
                          "drift monitor": learn["monitor"]["launches"]["block_sketch"],
-                         "serve wave": srv["wave"]["launches"]["block_sketch"]},
+                         "serve wave": srv["wave"]["launches"]["block_sketch"],
+                         "mesh query": msh["threads"]["launches"]["block_sketch"]},
         "plan_sketch": {"main path": path["counts"]["plan_sketch"],
-                        "serve wave": srv["wave"]["launches"]["plan_sketch"]},
+                        "serve wave": srv["wave"]["launches"]["plan_sketch"],
+                        "mesh query": msh["threads"]["launches"]["plan_sketch"]},
         "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
                             "zamba2-7b generate": hy["counts"]["flash_attention"]},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},

@@ -2,8 +2,9 @@
 model (low-level layer; new code starts at the ``repro_torch.rsp`` facade).
 
   types        RSPSpec, SamplerState, BlockDescriptor
-  partition    two_stage_partition_np (Algorithm 1), is_partition,
-               empirical_cdf (Defs. 2/3)
+  partition    two_stage_partition_np (Algorithm 1),
+               distributed_rsp_partition (Algorithm 1 as one collective),
+               is_partition, empirical_cdf (Defs. 2/3)
   sampling     BlockSampler, deal_blocks, HostAssignment (Definition 4),
                the uniform / weighted / stratified / query_aware policies
   estimation   BlockLevelEstimator, MomentStats, block_moments,
@@ -22,6 +23,7 @@ model (low-level layer; new code starts at the ``repro_torch.rsp`` facade).
 
 from repro_torch.core.types import BlockDescriptor, RSPSpec, SamplerState
 from repro_torch.core.partition import (
+    distributed_rsp_partition,
     empirical_cdf,
     is_partition,
     two_stage_partition_np,

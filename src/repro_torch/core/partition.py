@@ -6,15 +6,20 @@ bit-identical to the reference package's: the same ``SeedSequence``
 streams draw the same permutations.  The on-card form of Algorithm 1 is
 the ``cuda`` partition backend (``repro_torch.rsp.backends``), which
 draws its permutations here on the host (:func:`_np_rng`) and moves rows
-with the ``rsp_shuffle`` kernel.
+with the ``rsp_shuffle`` kernel.  :func:`distributed_rsp_partition` is
+Algorithm 1 as one collective over a ``torch.distributed`` group, each
+rank holding one original block.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch import obs
 from repro_torch.core.types import RSPSpec
 from repro_torch.device import as_numpy
 
@@ -63,6 +68,67 @@ def two_stage_partition_np(
         # sub-block assign[k] of original block i -> slice i of RSP block k
         out[:, i * delta : (i + 1) * delta] = sub[assign]
     return out
+
+
+def distributed_rsp_partition(shard: torch.Tensor, seed: int, group=None) -> torch.Tensor:
+    """Algorithm 1 as one collective over a ``torch.distributed`` group of
+    D ranks (P = K = D).
+
+    Rank ``i`` of ``group`` (the default group when ``None``) holds original
+    block ``i`` as ``shard [N/D, F]`` on its device.  It randomizes the block
+    with the ``rsp_shuffle`` kernel (its plain version on the CPU) at
+    ``tile_rows = N/D^2``, with the permutations of
+    ``make_permutations(seed, i, D, N/D^2)``, so output tile ``k`` is the
+    sub-block destined for RSP block ``k``; then one ``all_to_all_single``
+    transposes (rank, sub-block), and rank ``k`` returns RSP block ``k``
+    ``[N/D, F]`` on the shard's device.  For these streams rank ``k``'s block
+    equals block ``k`` of the ``cuda`` backend's partition of the
+    concatenated shards (``rsp.partition(data, blocks=D, original_blocks=D,
+    backend="cuda")``) bit for bit.  Threefry cannot be drawn in torch, so
+    against the reference's ``shard_map`` partition it is held to
+    Definition 2 and Lemma 1 only, as the ``cuda`` backend is.
+
+    The group must be a gloo group: the exchange runs on host tensors, so a
+    shard on the card costs one copy off the card, the exchange, and one
+    copy back.  Any other backend is refused.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.kernels.rsp_shuffle import make_permutations, rsp_shuffle
+
+    reason = exchange_refusal(group)
+    if reason is not None:
+        raise ValueError(reason)
+    d, i = dist.get_world_size(group), dist.get_rank(group)
+    if shard.ndim != 2:
+        raise ValueError(f"a shard is one original block [N/D, F], got {tuple(shard.shape)}")
+    rows, _ = shard.shape
+    if rows % d:
+        raise ValueError(
+            f"N={rows * d} must be divisible by D^2={d * d} (P=K=D, delta=N/D^2)"
+        )
+    tile_perm, intra = make_permutations(seed, i, d, rows // d)
+    sub = rsp_shuffle(shard.contiguous(), torch.from_numpy(tile_perm).to(shard.device),
+                      torch.from_numpy(intra).to(shard.device), tile_rows=rows // d)
+    with obs.get_tracer().span("partition.exchange") if obs.enabled() else _NO_SPAN:
+        send = sub.cpu()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv.to(shard.device)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def exchange_refusal(group=None) -> str | None:
+    """Why :func:`distributed_rsp_partition` cannot exchange over ``group``
+    (a group that is not gloo), or ``None``."""
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if backend != "gloo":
+        return f"the exchange runs on host tensors over gloo; the group's backend is {backend!r}"
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,10 @@
 // 12.76 MB + 12.76 MB + 0.44 MB, ~7.7 us at 3.35 TB/s (~0.77 ms for the 100
 // blocks of the main path, which go in one launch).
 //
-// One CTA per (output tile, batch), in one of two kernels; the wrapper
-// picks the path (rsp_shuffle/kernel.py, shuffle_path) and this launcher
-// checks it:
+// One CTA per (output tile, batch) -- for the row kernel, per (output
+// tile, batch, slice of kRowsPerCta rows) -- in one of two kernels; the
+// wrapper picks the path (rsp_shuffle/kernel.py, shuffle_path) and this
+// launcher checks it:
 //  * rsp_shuffle_staged: when the tile's bytes are a multiple of 16, both
 //    base pointers 16-byte aligned and the tile fits in shared memory
 //    (the main path's HIGGS tile: 1100 x 116 B = 127,600 B = 16 x 7,975).
@@ -33,7 +34,10 @@
 //    tiles over the 227 KB of shared memory).  One warp per output row
 //    copies the row from its source row in 4-byte words (2-byte when the
 //    row's size is not a multiple of 4), neighbouring lanes on neighbouring
-//    words, with 32-bit index arithmetic within the row.
+//    words, with 32-bit index arithmetic within the row.  A long tile's
+//    rows are dealt over gridDim.z CTAs (one per kRowsPerCta rows), so the
+//    collective partition's few tiles of 687,500 rows (four a rank at HIGGS
+//    size) still fill the card.
 // Rows whose intra_perm index lies outside the tile, and tiles whose
 // tile_perm index lies outside the block, are skipped rather than read.
 #include <cuda_runtime.h>
@@ -43,6 +47,7 @@ namespace {
 
 constexpr int kStagedThreads = 1024;
 constexpr int kRowsThreads = 256;
+constexpr int kRowsPerCta = 1024;   // rows of one tile a row-kernel CTA copies
 constexpr int kCopyBytes = 16384;  // one bulk copy of the staged tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -172,7 +177,8 @@ __global__ void __launch_bounds__(kRowsThreads)
   const W* src = x + ((long long)blockIdx.y * n_tiles + src_tile) * tile_words;
   W* dst = out + slot * tile_words;
   const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < tile_rows; r += warps) {
+  const int stride = warps * (int)gridDim.z;
+  for (int r = (int)blockIdx.z * warps + threadIdx.x / 32; r < tile_rows; r += stride) {
     const int sr = perm[r];
     if (sr < 0 || sr >= tile_rows) continue;
     const W* s = src + (long long)sr * row_words;
@@ -227,10 +233,12 @@ int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, 
   const auto* tp = static_cast<const int32_t*>(tile_perm);
   const auto* ip = static_cast<const int32_t*>(intra);
   if (!staged) {
-    return (int)(row_bytes % 4 == 0 ? launch_rows<uint32_t>(x, tp, ip, out, grid, tile_rows,
-                                                            row_bytes, st)
-                                    : launch_rows<uint16_t>(x, tp, ip, out, grid, tile_rows,
-                                                            row_bytes, st));
+    const long long slices = ((long long)tile_rows + kRowsPerCta - 1) / kRowsPerCta;
+    const dim3 rows_grid(grid.x, grid.y, (unsigned)(slices < 65535 ? slices : 65535));
+    return (int)(row_bytes % 4 == 0 ? launch_rows<uint32_t>(x, tp, ip, out, rows_grid,
+                                                            tile_rows, row_bytes, st)
+                                    : launch_rows<uint16_t>(x, tp, ip, out, rows_grid,
+                                                            tile_rows, row_bytes, st));
   }
   const long long tile_bytes = (long long)tile_rows * row_bytes;
   // the tile, its intra_perm padded to 16 bytes, one mbarrier; a size over

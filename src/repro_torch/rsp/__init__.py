@@ -57,6 +57,7 @@ from repro_torch.rsp.engine import (
     ExecutorStats,
     MemoryFetcher,
     MmapFetcher,
+    ScopedFetcher,
     StoreFetcher,
     as_fetcher,
 )

@@ -18,9 +18,19 @@ says whether it can serve a given request:
              the tile permutation *is* the sub-block dealing.  Needs 2-D
              floating-point data and ``permute_assignment``.  On a CPU device
              it runs the kernel's plain version, with the same bits.
+    collective -- Algorithm 1 as one collective over a ``torch.distributed``
+             gloo group (the counterpart of the reference's ``shard_map``):
+             every rank of ``mesh`` calls ``rsp.partition`` with the whole
+             corpus, randomizes its own original block on the
+             ``rsp_shuffle`` kernel and exchanges sub-blocks with one
+             ``all_to_all_single`` (``core.partition.
+             distributed_rsp_partition``); each rank returns the whole
+             ``[K, n, ...]`` after an ``all_gather``.  Needs P = K = D ranks
+             and N divisible by D^2; bit-identical to ``cuda``.
 
 ``backend="auto"`` picks the highest ``auto_priority`` backend whose
-predicates pass, with the reference package's choices: ``np_stream`` for
+predicates pass, with the reference package's choices: ``collective``
+whenever a mesh is given; ``np_stream`` for
 every input that must stream (paths, chunk directories, batch iterators,
 memmaps -- the corpora that never fit in RAM) and for every ``out=`` write;
 for in-memory arrays and tensors, ``cuda`` when the dataset's device is a
@@ -38,7 +48,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.partition import two_stage_partition_np
+from repro_torch.core.partition import (
+    distributed_rsp_partition,
+    exchange_refusal,
+    two_stage_partition_np,
+)
 from repro_torch.core.registry import RSPStore
 from repro_torch.core.types import RSPSpec
 from repro_torch.device import as_numpy, as_tensor
@@ -62,7 +76,10 @@ class PartitionRequest:
     (``out``, ``with_summaries``, ``num_classes``, ``label_column``,
     ``chunk_records``) are read only by ``np_stream``: with ``out`` set its
     result is the finished :class:`RSPStore` (sketches folded during the
-    write land in the manifest) instead of stacked blocks."""
+    write land in the manifest) instead of stacked blocks.  ``mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh``, whose dimension
+    ``mesh_axis`` names the group, or a ``ProcessGroup``) is read only by
+    ``collective``."""
 
     data: Any
     spec: RSPSpec
@@ -73,6 +90,8 @@ class PartitionRequest:
     num_classes: int | None = None
     label_column: int = -1
     chunk_records: int | None = None
+    mesh: Any = None
+    mesh_axis: str = "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +293,63 @@ def _run_cuda(req: PartitionRequest) -> torch.Tensor:
     return sub.reshape(P, K, delta, F).transpose(0, 1).reshape(K, P * delta, F)
 
 
+def _mesh_group(req: PartitionRequest):
+    """``(group, None)`` for the request's mesh, or ``(None, reason)``."""
+    mesh = req.mesh
+    if mesh is None:
+        return None, "requires a device mesh or process group (mesh=)"
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_available() or not dist.is_initialized():
+        return None, "torch.distributed is not initialized"
+    if isinstance(mesh, DeviceMesh):
+        if req.mesh_axis not in (mesh.mesh_dim_names or ()):
+            return None, f"mesh has no dimension {req.mesh_axis!r}"
+        return mesh.get_group(req.mesh_axis), None
+    if isinstance(mesh, dist.ProcessGroup):
+        return mesh, None
+    return None, f"mesh must be a DeviceMesh or a ProcessGroup, got {type(mesh).__name__}"
+
+
+def _supports_collective(req: PartitionRequest) -> str | None:
+    import torch.distributed as dist
+
+    group, reason = _mesh_group(req)
+    if reason is None:
+        reason = exchange_refusal(group) or _supports_cuda(req)
+    if reason is not None:
+        return reason
+    d = dist.get_world_size(group)
+    if req.spec.num_blocks != d or req.spec.num_original_blocks != d:
+        return (
+            f"needs P = K = mesh size ({d}), got P={req.spec.num_original_blocks}"
+            f" K={req.spec.num_blocks}"
+        )
+    if req.spec.num_records % (d * d) != 0:
+        return f"N={req.spec.num_records} not divisible by mesh_size^2={d * d}"
+    return None
+
+
+def _run_collective(req: PartitionRequest) -> torch.Tensor:
+    """Rank i's original block (rows ``[i*N/D, (i+1)*N/D)``) goes to the
+    request's device and through :func:`distributed_rsp_partition`; the D
+    RSP blocks are then gathered on every rank over the same group (host
+    tensors, as gloo needs) and returned stacked on the device."""
+    import torch.distributed as dist
+
+    group, _ = _mesh_group(req)
+    d, i = dist.get_world_size(group), dist.get_rank(group)
+    n = req.spec.num_records // d
+    block = distributed_rsp_partition(
+        as_tensor(req.data[i * n:(i + 1) * n], req.device), req.spec.seed, group
+    )
+    host = block.cpu()
+    blocks = [torch.empty_like(host) for _ in range(d)]
+    dist.all_gather(blocks, host, group=group)
+    return torch.stack(blocks).to(req.device)
+
+
 register_backend(
     PartitionBackend(
         name="np",
@@ -303,5 +379,14 @@ register_backend(
         run=_run_cuda,
         auto_priority=30,
         auto_eligible=_auto_cuda,
+    )
+)
+register_backend(
+    PartitionBackend(
+        name="collective",
+        capabilities=frozenset({"in-memory", "collective", "mesh", "kernel"}),
+        supports=_supports_collective,
+        run=_run_collective,
+        auto_priority=40,
     )
 )

@@ -128,6 +128,8 @@ class RSPDataset:
         summaries: bool = True,
         out: str | None = None,
         chunk_records: int | None = None,
+        mesh: Any = None,
+        mesh_axis: str = "data",
         device: str | torch.device = DEFAULT_DEVICE,
     ) -> "RSPDataset":
         """Partition ``data`` [N, ...] into an RSP of ``blocks`` blocks on
@@ -150,6 +152,14 @@ class RSPDataset:
         in-memory backends save their result there.  ``num_classes`` marks
         column ``label_column`` as a class label, so label histograms join
         the per-block sketches.
+
+        ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, whose dimension
+        ``mesh_axis`` names the group, or a ``ProcessGroup`` of D gloo
+        ranks) makes ``auto`` pick the ``collective`` backend: every rank
+        calls ``partition`` with the whole corpus and ``blocks =
+        original_blocks = D``, randomizes its own original block, and
+        receives its RSP block through one ``all_to_all``; every rank's
+        dataset then holds all D blocks.
         """
         dev = resolve_device(device)
         # memmaps are arrays: when an in-memory backend is forced they stay
@@ -182,6 +192,8 @@ class RSPDataset:
             num_classes=num_classes,
             label_column=label_column,
             chunk_records=chunk_records,
+            mesh=mesh,
+            mesh_axis=mesh_axis,
         )
         result, chosen = run_partition(request, backend=backend)
         if isinstance(result, RSPStore):
@@ -566,6 +578,22 @@ class RSPDataset:
         from repro_torch.rsp.query import QueryExecutor, as_query
 
         return QueryExecutor(self, as_query(aggregates, **kwargs)).stream()
+
+    def distribute(self, transport, *, ownership=None, **kwargs):
+        """This dataset as one host of a mesh: a
+        :class:`~repro_torch.distributed.DistributedDataset` whose queries
+        fan block work out over ``transport`` (a
+        :class:`~repro_torch.distributed.mesh.Transport`), with this host
+        reading only its owned blocks, onto this dataset's device.
+        ``ownership`` defaults to the deterministic deal of ``num_blocks``
+        over ``transport.num_hosts`` seeded by the partition seed;
+        ``straggler_grace=`` / ``poll_interval=`` forward to
+        ``DistributedDataset``.  Requires materialized partition-time
+        sketches (open a store that carries them, or partition with
+        ``summaries=True``)."""
+        from repro_torch.distributed.rsp import DistributedDataset
+
+        return DistributedDataset(self, transport, ownership=ownership, **kwargs)
 
     def serve(self, **kwargs):
         """A concurrent multi-tenant :class:`~repro_torch.serve.QueryService`

@@ -12,7 +12,7 @@ dataset's device:
     and :class:`MmapFetcher` read an ``RSPStore`` with ``np.load`` (fully or
     memory-mapped) and move the block to the device on the worker thread.
     :func:`as_fetcher` adapts tensors, arrays, stores and loader-like
-    objects.
+    objects; :class:`ScopedFetcher` limits a fetcher to one host's blocks.
 
 ``BlockExecutor``
     Wraps a fetcher with a bounded thread-pool prefetch pipeline and a small
@@ -225,6 +225,47 @@ class _AdapterFetcher:
         return self._load(block_id)
 
 
+class ScopedFetcher:
+    """A fetcher restricted to an allowed block set (per-host ownership).
+
+    A distributed host must only ever touch blocks it owns (plus blocks it
+    has legitimately stolen from a straggler) -- anything else means the
+    scheduler leaked work and the "each host streams only its local blocks"
+    invariant is broken.  ``ScopedFetcher`` turns that invariant into a hard
+    failure: fetching outside the allowed set raises ``PermissionError``
+    before the inner fetcher reads the block or copies it to the device.
+    ``allow`` widens the scope when leases are stolen; ``replace`` resets it
+    after an elastic re-deal.
+    """
+
+    def __init__(self, inner: BlockFetcher, allowed: Iterable[int]):
+        self._inner = inner
+        self._allowed = set(int(b) for b in allowed)
+
+    @property
+    def num_blocks(self) -> int:
+        return self._inner.num_blocks
+
+    @property
+    def allowed(self) -> frozenset[int]:
+        return frozenset(self._allowed)
+
+    def allow(self, block_ids: Iterable[int]) -> None:
+        """Widen the scope (stolen straggler leases)."""
+        self._allowed.update(int(b) for b in block_ids)
+
+    def replace(self, block_ids: Iterable[int]) -> None:
+        """Reset the scope (elastic re-deal changed this host's ownership)."""
+        self._allowed = set(int(b) for b in block_ids)
+
+    def fetch(self, block_id: int) -> torch.Tensor:
+        if int(block_id) not in self._allowed:
+            raise PermissionError(
+                f"block {block_id} is outside this host's owned/stolen scope"
+            )
+        return self._inner.fetch(block_id)
+
+
 def as_fetcher(
     source: Any, *, mode: str = "auto", device: torch.device | str | None = None
 ) -> BlockFetcher:
@@ -236,7 +277,9 @@ def as_fetcher(
     ``num_blocks`` and ``block``/``load``.  Arrays and store blocks land on
     ``device``, the card unless asked for the CPU.
     """
-    if isinstance(source, (MemoryFetcher, StoreFetcher, MmapFetcher, _AdapterFetcher)):
+    if isinstance(
+        source, (MemoryFetcher, StoreFetcher, MmapFetcher, _AdapterFetcher, ScopedFetcher)
+    ):
         return source
     if isinstance(source, (np.ndarray, torch.Tensor)):
         return MemoryFetcher(source, device)

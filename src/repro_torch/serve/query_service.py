@@ -337,7 +337,11 @@ class QueryService:
         with self._lock:
             if self._first_submit is None:
                 self._first_submit = ticket.submitted_at
-        qe = QueryExecutor(self.ds, q)  # validates the query
+        # datasets that provide their own executor factory (a
+        # DistributedDataset fanning block work over a mesh) plug in here;
+        # plain RSPDatasets get the stock executor.  Validates the query.
+        make_qe = getattr(self.ds, "query_executor", None)
+        qe = make_qe(q) if callable(make_qe) else QueryExecutor(self.ds, q)
 
         # zero-I/O fast path: answer sketch-eligible queries (moments,
         # label counts, and -- with v2 suites -- ungrouped unfiltered

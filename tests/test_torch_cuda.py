@@ -18,7 +18,10 @@ scan and the WKV within 2e-4, the reference's own tolerances for its Pallas
 kernels (``tests/test_kernels.py``).
 The drift monitor, the loader and the similarity functions on the card
 against the same calls on the CPU: monitor reports and MMD^2 within 1e-5
-(1 + |b|), loader batches, KS and label frequencies exactly.
+(1 + |b|), loader batches, KS and label frequencies exactly.  A four-host
+``LocalTransport`` mesh on the card answers as the single host on the card
+bit for bit, and a two-rank gloo collective partition (both ranks on
+``cuda:0``) equals the ``cuda`` backend bit for bit.
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -95,6 +98,8 @@ SHUFFLE_TILES = {
     "rows: tile of 2100 x 116 B, over 227 KB": (torch.float32, 29, 2100, 2, 2, "rows"),
     "staged: bf16 rows of 58 B, tile 1104": (torch.bfloat16, 29, 1104, 3, 2, "staged"),
     "rows: bf16 rows of 58 B, tile 110": (torch.bfloat16, 29, 110, 3, 2, "rows"),
+    "rows: the collective partition's long tile, 68,750 x 116 B":
+        (torch.float32, 29, 68750, 4, 1, "rows"),
 }
 
 
@@ -743,3 +748,77 @@ def test_smoke_arch_runs_its_kernels_on_the_card(dev, arch):
     assert not bool((diff > SMOKE_TOL * (1 + want.abs())).any()), float(diff.max())
     out = Server(cfg, card, device=dev).generate(tokens[:, :24].numpy(), max_new_tokens=4)
     assert out.shape == (2, 28)
+
+
+def test_mesh_query_on_the_card_equals_single_host(dev, tmp_path):
+    """Four LocalTransport hosts over a stored RSP on the card: every host's
+    answer equals the single-host answer on the card bit for bit, and the
+    sketch kernels ran once for every block a host read (no host died and
+    the queries read all their blocks, so once a block the fold read)."""
+    import json
+
+    from repro_torch import rsp
+    from repro_torch.distributed import LocalTransport, run_local_hosts
+
+    data = _data(16 * 1200, 6, classes=2)
+    rsp.partition(data, blocks=16, seed=2, num_classes=2, backend="np", device="cpu") \
+        .save(str(tmp_path))
+    ds = rsp.open(str(tmp_path), device=dev, cache_blocks=16)
+    queries = {"block_sketch": ("p90", dict(max_blocks=12, use_sketches=False, seed=4)),
+               "plan_sketch": ("mean", dict(where="c0 > 1.5", columns=(0, 5), max_blocks=10,
+                                            use_sketches=False, seed=5))}
+
+    def sig(r):
+        return json.dumps([[np.asarray(getattr(a, f)).ravel().tolist()
+                            for f in ("estimate", "ci_lo", "ci_hi")] for a in r.aggregates]
+                          + [r.blocks_read, r.converged])
+
+    for kernel, (agg, kw) in queries.items():
+        single = ds.query(agg, **kw)
+
+        def run(t):
+            dds = ds.distribute(t, straggler_grace=5.0, poll_interval=0.01)
+            return sig(dds.query(agg, **kw)), dds.executor.stats().accesses
+
+        kernels.reset_launch_counts()
+        out = run_local_hosts(LocalTransport.group(4), run)
+        counts = kernels.launch_counts()
+        assert all(s == sig(single) for s, _ in out)
+        assert counts[kernel] == sum(n for _, n in out) == single.blocks_read
+    ds.close()
+
+
+def test_collective_partition_on_the_card_equals_the_cuda_backend(dev):
+    """Two gloo ranks, each on cuda:0: rank k's block equals block k of the
+    cuda backend's partition on the card, with one rsp_shuffle launch a
+    rank."""
+    from repro_torch.distributed import serve_store
+    from test_torch_mesh import assert_ok, gloo_init, marked, run_children
+
+    source = r"""
+import os, json
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import kernels, rsp
+from repro_torch.core import distributed_rsp_partition
+rank, d = int(os.environ["RSP_PROCESS_ID"]), int(os.environ["RSP_NUM_PROCESSES"])
+%s
+rng = np.random.default_rng(0)
+data = rng.normal(size=(8000, 29)).astype(np.float32)
+want = rsp.partition(data, blocks=d, original_blocks=d, backend="cuda", seed=5,
+                     summaries=False, device="cuda:0").stacked()
+n = data.shape[0] // d
+kernels.reset_launch_counts()
+mine = distributed_rsp_partition(torch.from_numpy(data[rank * n:(rank + 1) * n]).cuda(), 5)
+launches = kernels.launch_counts()["rsp_shuffle"]
+print("RESULT " + json.dumps({"equal": bool(torch.equal(mine, want[rank])),
+                              "device": str(mine.device), "launches": launches}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+print("PARTITION_OK", flush=True)
+""" % gloo_init()
+    server = serve_store()
+    children = run_children(source, 2, env={"RSP_STORE": f"127.0.0.1:{server.port}"},
+                            timeout=300.0)
+    assert_ok(children, "PARTITION_OK")
+    for c in children:
+        assert marked(c, "RESULT ") == {"equal": True, "device": "cuda:0", "launches": 1}

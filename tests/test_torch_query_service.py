@@ -497,3 +497,34 @@ def test_dataset_serve_opens_a_service_over_its_blocks(stored):
     assert res.from_sketches
     assert float(np.sum(res.aggregates[0].estimate)) == K * BLOCK
     ds.close()
+
+
+class _FactoryDataset:
+    """A dataset that brings its own executor factory (as a
+    ``DistributedDataset`` does) and records every query it was asked for."""
+
+    def __init__(self, ds):
+        self._ds = ds
+        self.made = []
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def query_executor(self, q):
+        self.made.append(q)
+        return QueryExecutor(self._ds, q)
+
+
+def test_service_builds_executors_through_the_dataset_factory(stored):
+    path, _ = stored
+    ds = _open(path)
+    stub = _FactoryDataset(ds)
+    with QueryService(stub, capacity=8, workers=2, seed=3) as svc:
+        tickets = [svc.submit("mean", use_sketches=False, max_blocks=4),
+                   svc.submit(["mean", "count"])]
+        results = [svc.result(t, timeout=TIMEOUT) for t in tickets]
+    assert [q.seed for q in stub.made] == [t.query.seed for t in tickets]
+    assert results[0].blocks_read == 4 and results[1].from_sketches
+    solo = QueryExecutor(ds, stub.made[0]).run()
+    _equal(results[0], solo)
+    ds.close()

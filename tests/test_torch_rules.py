@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.serve, repro_torch.launch.serve, repro_torch.checkpoint.store, "
         "repro_torch.kernels.mamba2_ssd, repro_torch.models.mamba2, "
         "repro_torch.kernels.rwkv6_wkv, repro_torch.models.rwkv6, repro_torch.core.ensemble, "
-        "repro_torch.core.similarity, repro_torch.core.monitor, repro_torch.data.loader\n"
+        "repro_torch.core.similarity, repro_torch.core.monitor, repro_torch.data.loader, "
+        "repro_torch.distributed, repro_torch.distributed.rsp, "
+        "repro_torch.distributed.elastic\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'jaxlib') "
         "or m.startswith(('jax.', 'repro.', 'jaxlib.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -56,6 +58,34 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_distributed_package_imports_without_jax():
+    """With ``jax`` and the reference unimportable, the mesh layer loads, and
+    its elastic helpers pull in no model code."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "from repro_torch.distributed import (DistributedDataset, LocalTransport, "
+        "BlockOwnership, LeaseScheduler, TCPStoreTransport)\n"
+        "import repro_torch.distributed.elastic\n"
+        "models = sorted(m for m in sys.modules if m.startswith(('repro_torch.models', "
+        "'repro_torch.configs', 'repro_torch.serve.engine')))\n"
+        "print(models); sys.exit(1 if models else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_collective_entry_points_default_to_the_card():
+    _cuda_absent()
+    data = np.zeros((64, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rsp.partition(data, blocks=2, backend="collective", mesh=object())
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
