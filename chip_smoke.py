@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA card: the RSP
-main path, ingest from disk, block-level estimation, learning from the
-blocks (ensembles, similarity, drift monitoring and the training loader),
+kernels' autotuning, the RSP main path, the ``torch`` partition backend,
+ingest from disk, block-level estimation, learning from the blocks
+(ensembles, similarity, drift monitoring and the training loader),
 concurrent query serving, the multi-host mesh (distributed queries and the
-collective partition), dense LM serving, zamba2 hybrid serving, and rwkv6
-scoring, loss and serving.
+collective partition), dense LM serving, zamba2 hybrid serving, rwkv6
+scoring, loss and serving, and MoE serving (granite-moe-3b-a800m,
+qwen3-moe-30b-a3b).
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
@@ -46,6 +48,29 @@ Phases, one line each with its seconds:
                 a smoke config's width through ``impl="auto"``, which pads
                 it to the kernel's (flash D = 16, the SSD's P = N = 16 at
                 chunk 8, the WKV's C = 16), with the launch counted;
+2b. autotune -- into a fresh cache file in a temporary directory
+                (``REPRO_AUTOTUNE_CACHE``, which the mesh's children read;
+                ``REPRO_AUTOTUNE=on``): every configuration the tuner may
+                choose for rsp_shuffle at [100, R, 29] and tile R / 100
+                (the staged and row kernels at each CTA size) and at [4, N /
+                4, 29] and tile N / 16 (phase 3f's cuda partition), block_sketch
+                on a [N / 100, 29] block at 128 bins and 0 and on its 28
+                features at 0 (thread budget, histogram place, rows a CTA)
+                and plan_sketch for query (b)'s plan at 0 bins and query
+                (c)'s at 0 and 128 (read path, thread budget, staged tile,
+                histogram place) held against the plain version (the
+                shuffle bit for bit, moments within 1e-5, counts, nsel and
+                histograms equal), then measured (CUDA events around 20
+                back-to-back calls on copies of the input that rotate past
+                the L2, after a warm call; 3 rounds in turns, each
+                candidate's best kept; the default stays unless beaten by
+                more than the spread of the runs): each candidate's
+                microseconds and spread and the winner printed, no
+                candidate a plain version, none excluded.  These are every key the later phases meet: the
+                main path, the ingest, estimator and learning phases, the
+                serve phase and the mesh phase (its threads here, its
+                processes in their own report) must record no new tuner
+                measurement, so no tuning time lands in a query;
 3. main path -- a class-sorted HIGGS-shaped corpus (N x 29 float32, label in
                 the last column) partitioned into K blocks on the card by the
                 ``cuda`` backend (checked bit for bit against the plain
@@ -59,6 +84,12 @@ Phases, one line each with its seconds:
                 run of each query under ``torch.profiler`` gives the device's
                 busy and idle share, and one under ``cProfile`` the host
                 functions that take the caller's time;
+3g. torch    -- the same corpus partitioned by the ``torch`` backend on
+                the card (K = 100; no kernel): its seconds beside the
+                ``cuda`` backend's, Definition 2 on the card (the blocks'
+                rows and the corpus's sorted by a hash of their bits, equal
+                bit for bit), and a tenth of the corpus partitioned on the
+                card and on the CPU, equal bit for bit;
 3b. ingest   -- the same corpus written to a ``.npy`` file (1.276 GB at
                 full size) and ingested from disk by ``rsp.from_source(path,
                 out=...)`` (the ``np_stream`` host scatter, default chunks,
@@ -138,7 +169,7 @@ Phases, one line each with its seconds:
                 wait up to the re-deal, from telemetry in the run itself)
                 and the partition's parts are printed; every child has a
                 timeout;
-5. times     -- each kernel's time per call with CUDA events around a run
+5. times     -- (run after 9) each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
                 it -- for the sketches the launchers that return the packed
                 output -- so host work that outlasts the kernel shows) beside its
@@ -152,7 +183,8 @@ Phases, one line each with its seconds:
                 query (c)'s grouped plan, which carries most of its main-path
                 launches, and on query (b)'s plan on a line of its own; a
                 plan's bound reads only the 32-byte sectors of the columns
-                it touches;
+                it touches; the three RSP kernels also at the tuner's
+                winning configuration (``tuned_ms``, ``tuned_config``);
 6. serving   -- llama3.2-1b at full width (16 layers, d_model 2048, 32 over
                 8 heads, vocab 128,256; random weights from the seed):
                 ``Server.generate`` of 8 prompts of 2048 tokens, 64 new
@@ -207,13 +239,30 @@ Phases, one line each with its seconds:
                 (state not carried across chunks, bonus u dropped) must
                 refuse both, and name the parts that refuse; (d) the
                 numbers as for llama, the forward's and the loss's seconds,
-                and the WKV kernel timed at the prefill shape.
+                and the WKV kernel timed at the prefill shape;
+9. moe       -- granite-moe-3b-a800m at full width and depth (32 layers,
+                d_model 1536, 40 experts top-8, 24 over 8 heads of 64,
+                vocab 49,155; random weights from the seed):
+                ``Server.generate`` of 8 prompts of 2048 tokens, 64 new
+                (32 flash launches, the MoE layers dropless, no other
+                kernel), teacher forced through cached passes (dropless, as
+                served) with the plain attention and with the kernel, the
+                served run's expert choices replayed in both (top-k is
+                discontinuous: a one-ulp change of a router input swaps
+                experts); the two known-wrong attentions must be refused;
+                then qwen3-moe-30b-a3b at full width and 8 of its 48
+                layers (the 48 layers' 122 GB of float32 weights exceed
+                the card; head dim 128, 128 experts top-8) serving 8
+                prompts of 1024 tokens, 16 new, with the same check.  Each
+                model's parameters, weight GB, prefill seconds, first
+                token and decode tokens/s printed beside the card.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
 path, the estimator, the drift monitor, the first serve wave, each mesh
-run on threads, each rank of the collective partition, each LM path).
+run on threads, each rank of the collective partition, each LM path, each
+MoE generate).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -796,6 +845,244 @@ def main_path(args, device) -> dict:
         },
     }
     return {"counts": counts, "e2e": e2e, "data": data}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: the autotuner; phase 3g: the torch partition backend
+# ---------------------------------------------------------------------------
+
+def tuner_record(kernel: str, key: str, device, gpu: str) -> dict:
+    """The tuner's record of ``(kernel, key)``, printed with every
+    candidate's microseconds and the winner, and checked: kernel
+    configurations only, none excluded, a measured winner."""
+    from repro_torch.kernels import autotune
+
+    name = f"{kernel}|{key}|{autotune.device_key(device)}"
+    rec = autotune.get_tuner().records().get(name)
+    check(rec is not None, f"autotune: no record for {name}")
+    winner = ",".join([rec["impl"]] + [f"{k}={v}" for k, v in rec["params"]])
+    if rec["tile_rows"] is not None:
+        winner = f"{rec['impl']}:{rec['tile_rows']}"
+    check(rec["impl"] == "cuda" and not rec["fallback"],
+          f"autotune {kernel} {key}: the winner is {winner} (fallback {rec['fallback']})")
+    check(all(label.startswith("cuda") for label in rec["measured_us"]),
+          f"autotune {kernel} {key}: a plain version among {list(rec['measured_us'])}")
+    check(not rec["excluded"], f"autotune {kernel} {key}: excluded {rec['excluded']}")
+    us = ", ".join(f"{label} {t:.3f} (spread {rec['spread_us'][label]:.3f})" for label, t in
+                   sorted(rec["measured_us"].items(), key=lambda kv: kv[1]))
+    print(f"autotune {kernel} {key}: winner {winner} at {rec['us']:.3f} us a call; candidates"
+          f" (us a call over {autotune.CALLS} back-to-back calls on rotating copies, best of"
+          f" 3 rounds): {us} [{gpu}]", flush=True)
+    return {"winner": winner, "us": rec["us"], "measured_us": rec["measured_us"],
+            "spread_us": rec["spread_us"]}
+
+
+def autotune_phase(args, device, cache: str, gpu: str) -> dict:
+    """Phase 2b: tune the three RSP kernels at the main path's shapes, into
+    a fresh cache file (``REPRO_AUTOTUNE_CACHE``, which the mesh's children
+    read): every candidate held against the plain version first (the
+    shuffle exact, moments within 1e-5, counts and histograms exact), then
+    measured, each candidate's time and the winner printed.  The keys are
+    every one the later phases meet: the shuffle at [100, R, 29] and tile
+    R / 100, and at [4, N / 4, 29] and tile N / 16 (phase 3f partitions the
+    corpus through the cuda backend with P = K = 4); block_sketch on a block at 128 bins (queries (a) and the p95
+    tenants) and at 0 (the estimator), and on its 28 features at 0 (the
+    drift monitor's reference blocks); plan_sketch for
+    query (b)'s plan and query (c)'s, at 0 bins as they run, and query
+    (c)'s at 128 bins."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import _cuda, autotune
+    from repro_torch.kernels.block_sketch import ops as bs_ops
+    from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
+    from repro_torch.kernels.plan import PlanArrays, QueryPlan
+    from repro_torch.kernels.plan import ops as plan_ops
+    from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
+    from repro_torch.kernels.rsp_shuffle import ops as rs_ops
+    from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain
+
+    os.environ["REPRO_AUTOTUNE"] = "on"
+    os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+    tuner = autotune.get_tuner()
+    tuner.clear()
+    P = K = BLOCKS
+    R = args.records // P
+    delta = R // K
+    n = args.records // K
+    out = {"cache": cache, "records": {}}
+    errs = []
+
+    t0 = time.perf_counter()
+    x = torch.randn((P, R, 29), generator=torch.Generator(device=device).manual_seed(args.seed),
+                    device=device)
+    tp, ip = (torch.from_numpy(a).to(device)
+              for a in rs_ops.partition_permutations(args.seed, P, K, delta))
+    want = rsp_shuffle_plain(x, tp, ip, tile_rows=delta)
+    cands = rs_ops.shuffle_candidates(delta, 29 * 4,
+                                      smem_limit=_cuda.library().repro_smem_optin())
+    for c in cands:
+        got = rsp_shuffle_cuda(x, tp, ip, tile_rows=delta, path=c.get("path"),
+                               threads=c.get("threads"))
+        check(bool(torch.equal(got, want)), f"rsp_shuffle {c.label}: differs from the plain gather")
+    del got, want
+    rs_ops.shuffle_config(x, tp, ip, delta)
+    out["records"]["rsp_shuffle"] = tuner_record("rsp_shuffle", rs_ops.shuffle_key(x, delta),
+                                                 device, gpu)
+    del x, tp, ip
+    # phase 3f partitions the corpus with P = K = MESH_HOSTS through the cuda
+    # backend too (the collective's yardstick): tiles of N / MESH_HOSTS^2
+    d = MESH_HOSTS
+    x = torch.randn((d, args.records // d, 29), device=device,
+                    generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+    tile = args.records // (d * d)
+    tp, ip = (torch.from_numpy(a).to(device)
+              for a in rs_ops.partition_permutations(args.seed, d, d, tile))
+    want = rsp_shuffle_plain(x, tp, ip, tile_rows=tile)
+    for c in rs_ops.shuffle_candidates(tile, 29 * 4,
+                                       smem_limit=_cuda.library().repro_smem_optin()):
+        got = rsp_shuffle_cuda(x, tp, ip, tile_rows=tile, path=c.get("path"),
+                               threads=c.get("threads"))
+        check(bool(torch.equal(got, want)), f"rsp_shuffle {c.label}: differs from the plain gather")
+    del got, want
+    rs_ops.shuffle_config(x, tp, ip, tile)
+    out["records"]["rsp_shuffle, the mesh's partition"] = tuner_record(
+        "rsp_shuffle", rs_ops.shuffle_key(x, tile), device, gpu)
+    del x, tp, ip
+    phase("autotune rsp_shuffle", t0, f"{len(cands)} configurations, each equal to the plain"
+          f" gather bit for bit, at [{P}, {R}, 29] tile {delta}, and the row kernel's at"
+          f" [{d}, {args.records // d}, 29] tile {tile} (phase 3f's cuda partition)")
+
+    t0 = time.perf_counter()
+    blk = make_block(n, args.seed + 1, device)
+    glo, ghi = grid_of(blk)
+    lo, invw = bs_ops.grid_tensors(glo, ghi, BINS, device)
+    # the drift monitor sketches its reference blocks' 28 features
+    features = blk[:, :28].contiguous()
+    for xb, bins in ((blk, BINS), (blk, 0), (features, 0)):
+        f = xb.shape[1]
+        s2, h2 = block_sketch_plain(xb, lo[:f], invw[:f], bins=bins)
+        cands = bs_ops.block_sketch_candidates(bins)
+        for c in cands:
+            s1, h1 = block_sketch_cuda(xb, lo[:f], invw[:f], bins=bins, config=bs_ops.as_config(c))
+            compare_sketch(f"block_sketch {c.label} F={f} bins={bins}", s1, s2, h1, h2, errs)
+        bs_ops.sketch_config(xb, lo[:f], invw[:f], bins=bins)
+        out["records"][f"block_sketch F{f} b{bins}"] = tuner_record(
+            "block_sketch", bs_ops.sketch_key(n, f, bins), device, gpu)
+    del features
+    phase("autotune block_sketch", t0, f"{len(bs_ops.block_sketch_candidates(BINS))} and"
+          f" {len(bs_ops.block_sketch_candidates(0))} configurations at [{n}, 29], bins"
+          f" {BINS} and 0, and at [{n}, 28], bins 0 (the drift monitor's); each within"
+          f" {MOMENT_RTOL} of the plain version, counts and histograms equal")
+
+    t0 = time.perf_counter()
+    plans = {"query (b)": (QueryPlan(predicates="c0 > 0.5", columns=(0, 28)), (0,)),
+             "query (c)": (QueryPlan(group_by=28, num_classes=2), (0, BINS))}
+    for name, (plan, bin_counts) in plans.items():
+        cols = plan.resolve_columns(29)
+        arrays = {p: PlanArrays.build(plan, 29, device, path=p) for p in ("stage", "gather")}
+        for bins in bin_counts:
+            plo = pinvw = None
+            if bins:
+                plo, pinvw = bs_ops.grid_tensors(*grid_of(blk, cols), bins, device)
+            s2, h2, n2 = plan_sketch_plain(blk, plan, plo, pinvw, bins=bins)
+            for c in plan_ops.plan_candidates(bins):
+                s1, h1, n1 = plan_sketch_cuda(blk, arrays[c.get("path")], plo, pinvw, bins=bins,
+                                              config=plan_ops.as_config(c))
+                check(bool(torch.equal(n1, n2)), f"plan {name} {c.label}: nsel differs")
+                compare_sketch(f"plan {name} {c.label} bins={bins}", s1, s2, h1, h2, errs)
+            plan_ops.plan_config(plan, blk, plo, pinvw, bins=bins)
+            out["records"][f"plan_sketch {name} b{bins}"] = tuner_record(
+                "plan_sketch", plan_ops.plan_key(plan, n, 29, bins), device, gpu)
+    phase("autotune plan_sketch", t0, f"{len(plan_ops.plan_candidates(BINS))} configurations"
+          f" a key at [{n}, 29]: query (b)'s plan at 0 bins, query (c)'s at 0 and {BINS}; each"
+          f" within {MOMENT_RTOL} of the plain version, counts, nsel and histograms equal")
+    out["max_abs_err"] = max(errs)
+    out["measurements"] = tuner.measurements
+    return out
+
+
+def tuner_measurements() -> int:
+    from repro_torch.kernels import autotune
+
+    return autotune.get_tuner().measurements
+
+
+def no_new_tuning(before: int, where: str) -> int:
+    """Gate: the tuner measured nothing since ``before`` (tuning time must
+    not land in a query's latency); prints the count."""
+    now = tuner_measurements()
+    print(f"autotune: {now - before} new tuner measurements on {where}", flush=True)
+    check(now == before, f"the tuner measured {now - before} keys on {where}")
+    return now
+
+
+def row_order(x):
+    """Rows of ``x [N, F]`` (4-byte values) sorted by a 64-bit hash of
+    their bits, on its device."""
+    import torch
+
+    words = x.reshape(x.shape[0], -1).contiguous().view(torch.int32).to(torch.int64)
+    mult = torch.tensor([(i * 0x9E3779B97F4A7C15) % (1 << 61) | 1
+                         for i in range(1, words.shape[1] + 1)], device=x.device)
+    h = (words * mult).sum(1) ^ (words[:, 0] << 32)
+    return x.reshape(x.shape[0], -1)[torch.argsort(h)], torch.sort(h).values
+
+
+def same_rows(blocks, data) -> bool:
+    """Definition 2 on the card: the blocks' rows and the corpus's, sorted
+    by their hashes, equal bit for bit (distinct rows that share a hash
+    could only make it fail, never pass wrongly)."""
+    import torch
+
+    a, ha = row_order(blocks.reshape(-1, blocks.shape[-1]))
+    b, hb = row_order(data)
+    return bool(torch.equal(ha, hb)) and bool(torch.equal(a.view(torch.int32),
+                                                          b.view(torch.int32)))
+
+
+def torch_backend(args, data, device, cuda_s: float) -> dict:
+    """Phase 3g: the HIGGS corpus partitioned by the ``torch`` backend on
+    the card (host permutations from a CPU generator, one gather on the
+    card): Definition 2 against the corpus; a 1/10 slice's blocks on the
+    card equal to the CPU's bit for bit; no kernel launched."""
+    import torch
+
+    from repro_torch import kernels, rsp
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = rsp.partition(data, blocks=BLOCKS, seed=args.seed, num_classes=2, summaries=False,
+                       backend="torch", device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(ds.backend == "torch", f"backend {ds.backend}")
+    check(sum(counts.values()) == 0, f"the torch backend launched kernels: {counts}")
+    blocks = ds.stacked()
+    check(blocks.device == device and tuple(blocks.shape) == (BLOCKS, args.records // BLOCKS, 29),
+          f"blocks {blocks.shape} on {blocks.device}")
+    x_dev = torch.from_numpy(data).to(device)
+    part = same_rows(blocks, x_dev)
+    check(part, "torch backend: the blocks are not a partition of the corpus (Definition 2)")
+    del blocks, x_dev
+    ds.close()
+    m = max(BLOCKS * BLOCKS, args.records // 10 // (BLOCKS * BLOCKS) * BLOCKS * BLOCKS)
+    card = rsp.partition(data[:m], blocks=BLOCKS, seed=args.seed, summaries=False,
+                         backend="torch", device=device).stacked()
+    cpu = rsp.partition(data[:m], blocks=BLOCKS, seed=args.seed, summaries=False,
+                        backend="torch", device="cpu").stacked()
+    equal = bool(torch.equal(card.cpu(), cpu))
+    check(equal, f"torch backend: the card's blocks of {m} rows differ from the CPU's")
+    del card, cpu
+    torch.cuda.empty_cache()
+    phase("torch backend", t0, f"{seconds:.4f} s for [{args.records}, 29] into {BLOCKS} blocks"
+          f" (the cuda backend: {cuda_s:.4f} s); Definition 2 holds; {m} rows: the card's"
+          " blocks equal the CPU's bit for bit; no kernel launched")
+    return {"seconds": seconds, "cuda_seconds": cuda_s, "definition_2": part,
+            "card_equals_cpu_rows": m}
 
 
 # ---------------------------------------------------------------------------
@@ -1574,6 +1861,9 @@ class CountingTransport:
     def poll(self, prefix: str):
         return self.inner.poll(prefix)
 
+    def beat(self, key: str) -> None:
+        self.inner.beat(key)
+
 
 def mesh_threads(ds, single: dict, *, kill: bool) -> dict:
     """Four ``LocalTransport`` hosts on threads, each ``ds.distribute(t)``
@@ -1691,6 +1981,7 @@ def mesh_child(store: str, device: str) -> dict:
         out["seconds"][name] = time.perf_counter() - t0
     out["hosts"] = dds.ownership.hosts()
     out["steals"] = steal_seconds().get(t.host_id)
+    out["tuner_measurements"] = tuner_measurements()
     dds.close()
     ds.close()
     return out
@@ -1770,6 +2061,9 @@ def mesh_processes(store: str, device, single: dict, *, kill: bool) -> dict:
                   " single host's")
         want = list(range(n - 1)) if kill else list(range(n))
         check(child["hosts"] == want, f"process {child['host']}: hosts {child['hosts']}")
+        check(child["tuner_measurements"] == 0,
+              f"process {child['host']}: the tuner measured {child['tuner_measurements']} keys"
+              " (the launcher's cache file should have held them)")
     steals = {c["host"]: c["steals"] for c in got if c["steals"]}
     check(bool(steals) == kill, f"steals {steals} in a run {'with' if kill else 'without'}"
           " a killed process")
@@ -1961,9 +2255,12 @@ def times(args, device) -> dict:
     from repro_torch.kernels.block_sketch.ops import grid_tensors
     from repro_torch.kernels.plan import PlanArrays, QueryPlan
     from repro_torch.kernels.plan.kernel import plan_sketch_packed, plan_sketch_plain
+    from repro_torch.kernels.block_sketch import ops as bs_ops
+    from repro_torch.kernels.plan import ops as plan_ops
     from repro_torch.kernels.rsp_shuffle import (
         flat_gather_index, partition_permutations, rsp_shuffle_cuda, rsp_shuffle_plain,
         shuffle_path)
+    from repro_torch.kernels.rsp_shuffle import ops as rs_ops
 
     P = K = BLOCKS
     R = args.records // P
@@ -1980,8 +2277,13 @@ def times(args, device) -> dict:
     # the staged kernel at the HIGGS tile (1100 x 116 B), the row kernel at
     # --records 1100000's (110 x 116 B)
     path = shuffle_path(delta, F * 4, x_ptr=x.data_ptr())
+    tuned = rs_ops.shuffle_config(x, tp, ip, delta)   # the tuner's winner, cached
     out["rsp_shuffle"] = {
         "ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), reps=5),
+        "tuned_ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta,
+                                                         path=tuned.get("path"),
+                                                         threads=tuned.get("threads")), reps=5),
+        "tuned_config": tuned.label,
         "plain_ms": time_cuda(lambda i: rsp_shuffle_plain(x, tp, ip, tile_rows=delta), reps=5),
         "library_ms": time_cuda(lambda i: xf.index_select(0, flat), reps=5),
         "device_ms": device_ms(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), 5,
@@ -2000,9 +2302,13 @@ def times(args, device) -> dict:
     nbytes = blk.numel() * 4 + 2 * F * 4 + 5 * F * 4 + F * BINS * 8
     b, by = bound_ms(nbytes, 10 * blk.numel())
     # the launchers the query path calls: one launch, the packed output
+    tuned = bs_ops.sketch_config(blk, lo, invw, bins=BINS)
     out["block_sketch"] = {
         "ms": time_cuda(lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS),
                         reps=REPS),
+        "tuned_ms": time_cuda(lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS,
+                                                            config=tuned), reps=REPS),
+        "tuned_config": bs_ops.as_candidate(tuned).label,
         "plain_ms": time_cuda(lambda i: block_sketch_plain(blks[i % 8], lo, invw, bins=BINS),
                               reps=REPS),
         "device_ms": device_ms(
@@ -2019,12 +2325,19 @@ def times(args, device) -> dict:
         sectors of the columns the plan touches and writes its outputs."""
         arrays = PlanArrays.build(plan, F, device)
         fp, g = arrays.cols.numel(), arrays.groups
+        tuned = plan_ops.plan_config(plan, blk, None, None, bins=0)
+        t_arrays = PlanArrays.build(plan, F, device, path=tuned.get("path"))
+        t_config = plan_ops.as_config(tuned)
         read = sector_bytes(n, F, arrays.touched)
         nbytes = read + arrays.pcol.numel() * 12 + fp * 4 + 5 * g * fp * 4 + 4
         b, by = bound_ms(nbytes, (len(plan.predicates) + 5 * fp) * n)
         return {
             "ms": time_cuda(lambda i: plan_sketch_packed(blks[i % 8], arrays, None, None, bins=0),
                             reps=REPS),
+            "tuned_ms": time_cuda(lambda i: plan_sketch_packed(blks[i % 8], t_arrays, None, None,
+                                                               bins=0, config=t_config),
+                                  reps=REPS),
+            "tuned_config": tuned.label,
             "plain_ms": time_cuda(
                 lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0), reps=REPS),
             "device_ms": device_ms(
@@ -3470,13 +3783,308 @@ def wkv_times(args, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE serving: granite-moe-3b-a800m at full width and depth, qwen3-moe-30b-a3b
+# at full width and MOE_BIG_LAYERS of its 48 layers
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_BIG_ARCH = "qwen3-moe-30b-a3b"
+# qwen3-moe's 48 layers are 122 GB of float32 weights; 8 are 20.0 GB, plus
+# 2.5 GB of embeddings.  Its dropless prefill buffer [E, B*S, d] in bf16 is
+# 128 x 8,192 x 2,048 x 2 B = 4.3 GB at 8 x 1024 (8.6 GB at 8 x 2048), and
+# the expert outputs as much again, plus [E, B*S, 768] twice: 8 x 1024 keeps
+# a layer's transient buffers near 13 GB
+MOE_BIG_LAYERS = 8
+# The shares of teacher-forced logits beyond TF_TOL (1 + |b|) an MoE run
+# may have.  The random models' logits are ~1, so TF_TOL (1 + |b|) is ~0.1,
+# and 32 layers of bf16 experts carry float32-level differences past it even
+# with the expert choices replayed.  Set above what one run on an NVIDIA
+# H100 80GB HBM3 at 700 W gave: served through the plain attention with no
+# kernel at all, 45,831
+# of granite's 25.2M served logits (1.82e-3) and 79 of qwen3-moe's 19.4M;
+# the sound kernel run 49,422 (1.96e-3) and 84 served, 3.83e-3 and 1.6e-5
+# of every position's.  The known-wrong attentions put 3.9e-3 and 1.1e-2
+# of the served logits and 0.47 and 0.63 of every position's beyond it;
+# the layer-by-layer check (LAYER_TOL, none beyond) refuses them too.
+MOE_TF_RATE = {"served": 2.5e-3, "sequence": 1e-2}
+MOE_BIG_BATCH, MOE_BIG_PROMPT, MOE_BIG_NEW = 8, 1024, 16
+
+
+@contextlib.contextmanager
+def routing_recorded(into: list):
+    """Record every MoE layer's top-k expert choice ``[G, T, k]``, in call
+    order, while a served run routes its tokens."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def recording(params, xt, cfg):
+        out = real(params, xt, cfg)
+        into.append(out[3])
+        return out
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def served_routing(records: list, layers: int, batch: int) -> list:
+    """Each layer's expert choices over a served run's tokens ``[B, P +
+    new - 1, k]``, from the records of its prefill (``[1, B*P, k]``) and
+    decode steps (``[1, B, k]``), ``layers`` records a pass."""
+    import torch
+
+    passes = [records[i:i + layers] for i in range(0, len(records), layers)]
+    return [torch.cat([p[i].reshape(batch, -1, p[i].shape[-1]) for p in passes], dim=1)
+            for i in range(layers)]
+
+
+@contextlib.contextmanager
+def routing_replayed(per_layer: list):
+    """Route a pass's tokens to the experts a served run chose (layer by
+    layer, in call order), each choice's weights renormalised from this
+    pass's own router probabilities.  Top-k is discontinuous: a router
+    input one bf16 ulp away can swap a token's experts, and a random model's
+    logits then move by whole units; with the choices held fixed, the
+    comparison sees the attention's numerics alone."""
+    import torch
+
+    from repro_torch.models import moe
+
+    real = moe.route
+    calls = iter(per_layer)
+
+    def replaying(params, xt, cfg):
+        logits, probs, _, _ = real(params, xt, cfg)
+        idx = next(calls).reshape(xt.shape[0], xt.shape[1], -1)
+        top = torch.gather(probs, -1, idx)
+        return logits, probs, top / torch.clamp_min(top.sum(-1, keepdim=True), 1e-9), idx
+
+    moe.route = replaying
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def moe_teacher_forced(model, tokens, step_logits, routing: list) -> dict:
+    """``teacher_forced`` for an MoE model: the served sequence through
+    cached passes from fresh float32 caches, so that the experts dispatch
+    dropless as the served prefill and decode do (a stateless pass drops
+    at the configured capacity, as the reference's does), with the served
+    run's expert choices replayed (``routing_replayed``)."""
+    import torch
+
+    from repro_torch.models.transformer import init_caches
+
+    seq = torch.as_tensor(tokens, device=step_logits.device, dtype=torch.int64)[:, :-1]
+    B, L = seq.shape
+    start = L - step_logits.shape[1] + 1
+    with torch.no_grad():
+        hs = {}
+        for name, impl in (("plain", "torch"), ("model", "auto")):
+            caches = init_caches(model.cfg, B, L, torch.float32, step_logits.device)
+            with routing_replayed(routing):
+                hs[name], _ = model.hidden(seq, caches=caches, attn_impl=impl)
+            del caches
+        served = logit_deviation(model.logits(hs["plain"][:, start - 1:]), step_logits)
+        sequence = compare_hidden(model, hs["model"], hs["plain"])
+    return {"served": served, "sequence": sequence}
+
+
+def moe_layer_by_layer(model, tokens) -> dict:
+    """Each layer's attention fed the layer's input from a cached pass
+    through the plain attention (forward pre-hooks on the layers), and run
+    from that input once through the kernel (``impl="auto"``) and once
+    through the plain version: the outputs held to LAYER_TOL (1 + |b|) at
+    every position of every layer.  Layers see the same input on both
+    sides, so no rounding is carried from one layer to the next, and no
+    expert choice can differ."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.transformer import init_caches
+
+    seq = torch.as_tensor(tokens, device=model.embed.table.device, dtype=torch.int64)[:, :-1]
+    out: dict = {}
+
+    def layer_input(layer, args, kwargs):
+        h, positions = args[:2]
+        a_in = rmsnorm(layer.norm1, h, eps=layer.cfg.norm_eps)
+        got, want = (attention.attention_apply(layer.attn, a_in, layer.acfg,
+                                                positions=positions, impl=impl)[0]
+                     for impl in ("auto", "torch"))
+        _tally(out, "attention output", got, want, LAYER_TOL)
+
+    hooks = [layer.register_forward_pre_hook(layer_input, with_kwargs=True)
+             for layer in model.layers]
+    try:
+        with torch.no_grad():
+            caches = init_caches(model.cfg, seq.shape[0], seq.shape[1], torch.float32, seq.device)
+            model.hidden(seq, caches=caches, attn_impl="torch")
+            del caches
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return out
+
+
+def _plain_attention(q, k, v, causal):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, causal=causal, impl="torch")
+
+
+def moe_generate(tag, model, prompts, new: int, device, gpu: str, *, controls: bool) -> dict:
+    """One timed ``Server.generate`` of an MoE model (flash once a layer in
+    the prefill), teacher forced through the plain attention; with
+    ``controls`` the two known-wrong attentions must be refused."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import Server
+
+    cfg = model.cfg
+    B, P = prompts.shape
+    server = Server(cfg, model, device=device)
+    server.generate(prompts[::-1].copy(), max_new_tokens=2)     # warm-up at the full prompt
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    records: list = []
+    with routing_recorded(records):
+        tokens, step_logits = server.generate(prompts, max_new_tokens=new, return_logits=True)
+    counts = kernels.launch_counts()            # the MoE serving path ends here
+    routing = served_routing(records, cfg.num_layers, B)
+    del records
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = dict(server.last_stats)
+    phase(f"{tag} serve", t0, f"Server.generate {B} x {P} + {new}; launches {json.dumps(counts)}")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"{tag}: flash launched {counts['flash_attention']} times, not {cfg.num_layers}")
+    check(sum(v for k, v in counts.items() if k != "flash_attention") == 0,
+          f"{tag}: kernels beside flash {counts}")
+    check(tokens.shape == (B, P + new), f"{tag}: tokens {tokens.shape}")
+    check(bool((tokens[:, :P] == prompts).all()), f"{tag}: the prompts came back changed")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"{tag}: token ids out of range")
+    check(bool(torch.isfinite(step_logits).all()), f"{tag}: served logits are not finite")
+    t0 = time.perf_counter()
+    tf = moe_teacher_forced(model, tokens, step_logits, routing)
+    del step_logits, routing
+    layers = moe_layer_by_layer(model, tokens)["attention output"]
+    # the floor: the same served run with no kernel at all (the plain
+    # attention in the prefill too), teacher forced the same way
+    frecords: list = []
+    with attention_replaced(_plain_attention):
+        with routing_recorded(frecords):
+            ftokens, flogits = server.generate(prompts, max_new_tokens=new, return_logits=True)
+        floor = moe_teacher_forced(model, ftokens, flogits,
+                                   served_routing(frecords, cfg.num_layers, B))
+    del frecords, flogits
+    phase(f"{tag} teacher forcing", t0, f"{json.dumps(tf)}; with no kernel: {json.dumps(floor)}"
+          f" (tolerance {TF_TOL} (1 + |b|)); layer by layer {json.dumps(layers)}")
+    check(layers["bad"] == 0, f"{tag}: {layers['bad']} attention outputs beyond LAYER_TOL"
+          f" (largest deviation {layers['max_abs_err']:.4g})")
+    for part in ("served", "sequence"):
+        check(tf[part]["bad"] <= MOE_TF_RATE[part] * tf[part]["logits"],
+              f"{tag}: {tf[part]['bad']} of {tf[part]['logits']} {part} logits beyond the"
+              f" teacher-forced tolerance, more than {MOE_TF_RATE[part]} of them (largest"
+              f" deviation {tf[part]['max_abs_err']:.4g})")
+    refusals = {}
+    if controls:
+        t0 = time.perf_counter()
+        for name, stand_in in CONTROLS.items():
+            crecords: list = []
+            with attention_replaced(stand_in):
+                with routing_recorded(crecords):
+                    ctokens, clogits = server.generate(prompts, max_new_tokens=new,
+                                                       return_logits=True)
+                refusals[name] = moe_teacher_forced(
+                    model, ctokens, clogits, served_routing(crecords, cfg.num_layers, B))
+                refusals[name]["layers"] = moe_layer_by_layer(model, ctokens)["attention output"]
+            del crecords, clogits
+            c = refusals[name]
+            check(c["layers"]["bad"] > 0
+                  and c["sequence"]["bad"] > MOE_TF_RATE["sequence"] * c["sequence"]["logits"],
+                  f"{tag}: the checks passed {name} attention: {json.dumps(c)}")
+        phase(f"{tag} controls", t0, json.dumps(refusals))
+    decode_tps = B * (new - 1) / stats["decode_s"]
+    profile = None
+    if controls:   # the full-depth model: where its time goes
+        torch.cuda.empty_cache()
+        profile = serve_profile(tag, model, server, prompts, new, stats, peak_gb, gpu)
+    else:
+        for line in (f"prefill seconds {stats['prefill_s']:.4f}",
+                     f"time to first token {stats['first_token_s']:.4f} s",
+                     f"decode tokens/s {decode_tps:.1f} ({B} x {new - 1} tokens"
+                     f" in {stats['decode_s']:.4f} s)",
+                     f"peak device memory {peak_gb:.3f} GB"):
+            print(f"serve {cfg.name} ({cfg.num_layers} layers) {B} x {P} + {new}: {line}"
+                  f" [{gpu}]", flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return {"counts": counts, "profile": profile, "prefill_s": stats["prefill_s"],
+            "first_token_s": stats["first_token_s"], "decode_s": stats["decode_s"],
+            "decode_tokens_per_s": decode_tps, "peak_gb": peak_gb, "teacher_forced": tf,
+            "no_kernel_floor": floor, "layer_by_layer": layers, "controls": refusals}
+
+
+def moe_serving(args, device, gpu: str) -> dict:
+    """granite-moe-3b-a800m at full width and depth (32 layers, d_model
+    1536, 40 experts top-8, random weights from the seed) served at the
+    dense path's sizes with the controls; then qwen3-moe-30b-a3b at full
+    width and MOE_BIG_LAYERS of its 48 layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import MoELM
+
+    rng = np.random.default_rng(args.seed)
+    out = {}
+    for tag, cfg, (B, P, new), controls in (
+            ("moe", ARCHS[MOE_ARCH], (SERVE_BATCH, SERVE_PROMPT, SERVE_NEW), True),
+            ("moe big", dataclasses.replace(ARCHS[MOE_BIG_ARCH], num_layers=MOE_BIG_LAYERS),
+             (MOE_BIG_BATCH, MOE_BIG_PROMPT, MOE_BIG_NEW), False)):
+        t0 = time.perf_counter()
+        model = MoELM(cfg, device=device, seed=args.seed)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        cut = "" if cfg.num_layers == ARCHS[cfg.name].num_layers else (
+            f"; depth cut to {cfg.num_layers} of {ARCHS[cfg.name].num_layers} layers (its"
+            f" {ARCHS[cfg.name].num_layers} layers' float32 weights would not fit the card)")
+        phase(f"{tag} model", t0, f"{cfg.name}: {n_params:,} float32 parameters"
+              f" ({4 * n_params / 1e9:.3f} GB), {cfg.num_experts} experts top"
+              f" {cfg.num_experts_per_token}, d_model {cfg.d_model}, seed {args.seed}{cut}")
+        prompts = rng.integers(0, cfg.vocab_size, (B, P), np.int32)
+        got = moe_generate(tag, model, prompts, new, device, gpu, controls=controls)
+        got.update(params=n_params, weight_gb=4 * n_params / 1e9, layers=cfg.num_layers,
+                   shape=[B, P, new])
+        print(f"serve {cfg.name}: {n_params:,} parameters, {4 * n_params / 1e9:.3f} GB,"
+              f" prefill {got['prefill_s']:.4f} s, first token {got['first_token_s']:.4f} s,"
+              f" decode {got['decode_tokens_per_s']:.1f} tokens/s [{gpu}]", flush=True)
+        out[cfg.name] = got
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 # the kernels redesigned for Hopper, by their names in the build log
 REDESIGNED = {
     "fa_wgmma_bf16<64>": "fa_wgmma_bf16ILi64E", "fa_wgmma_bf16<112>": "fa_wgmma_bf16ILi112E",
     "fa_wgmma_bf16<128>": "fa_wgmma_bf16ILi128E",
-    "rsp_shuffle_staged<u32>": "rsp_shuffle_stagedIjE",
-    "rsp_shuffle_staged<u16>": "rsp_shuffle_stagedItE",
-    "rsp_shuffle_rows<u32>": "rsp_shuffle_rowsIjE", "rsp_shuffle_rows<u16>": "rsp_shuffle_rowsItE",
+    # the shuffle's default CTA sizes (the tuner's other sizes are built too)
+    "rsp_shuffle_staged<u32, 1024>": "rsp_shuffle_stagedIjLi1024EE",
+    "rsp_shuffle_staged<u16, 1024>": "rsp_shuffle_stagedItLi1024EE",
+    "rsp_shuffle_rows<u32, 256>": "rsp_shuffle_rowsIjLi256EE",
+    "rsp_shuffle_rows<u16, 256>": "rsp_shuffle_rowsItLi256EE",
     "ssd_state": "ssd_state", "ssd_scan": "ssd_scan", "wkv6_chunks": "wkv6_chunks",
     "block_sketch_fused<512>": "block_sketch_fusedILi512E",
     "plan_sketch_fused<512, G 1>": "plan_sketch_fusedILi512ELi1E",
@@ -3514,7 +4122,7 @@ def ptxas_report(log: str, kernels: dict) -> dict:
         if name.startswith("fa_wgmma_bf16"):
             d = int(name.split("<")[1].rstrip(">"))
             info["dynamic_smem"] = _cuda.library().flash_attention_smem_bytes(d)
-        elif name == "rsp_shuffle_staged<u32>":
+        elif name == "rsp_shuffle_staged<u32, 1024>":
             info["dynamic_smem_higgs_tile"] = staged_smem_bytes(1100, 29 * 4)
         out[name] = info
     return out
@@ -3600,33 +4208,53 @@ def main() -> int:
     errs["rwkv6_wkv"] = wkv_parity(args, device)
     phase("wkv parity", t0, f"max |kernel - plain| {errs['rwkv6_wkv']:.3g}")
 
-    path = main_path(args, device)
-    data = path.pop("data")
-    tmp = tempfile.mkdtemp(prefix="rsp_ingest_")
+    tune_dir = tempfile.mkdtemp(prefix="rsp_autotune_")
     try:
-        ing = ingest(args, data, tmp, device)
-        inputs = learning_inputs(data, args.records // BLOCKS)
-        del data
-        ds = ing.pop("dataset")
-        est = estimator(ds)
-        learn = learning(args, ds, inputs)
-        ds.close()
-        del ds
-        srv = serving(str(Path(tmp) / "ingested.rsp"), device)
-        msh = mesh(args, tmp, device)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
-    path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv,
-                       mesh=msh)
-    lm = lm_serving(args, device, gpu)
-    hy = hybrid_serving(args, device, gpu)
-    t0 = time.perf_counter()
-    rw = rwkv_serving(args, device, gpu)
-    phase("rwkv", t0)
+        t0 = time.perf_counter()
+        tuned = autotune_phase(args, device, str(Path(tune_dir) / "autotune_torch.json"), gpu)
+        phase("autotune", t0, f"{tuned['measurements']} keys tuned into {tuned['cache']};"
+              f" max |candidate - plain| {tuned['max_abs_err']:.3g}")
+        measured = tuned["measurements"]
 
-    t0 = time.perf_counter()
-    tm = times(args, device)
+        path = main_path(args, device)
+        measured = no_new_tuning(measured, "the main path")
+        data = path.pop("data")
+        path["e2e"]["torch_backend"] = torch_backend(args, data, device,
+                                                     path["e2e"]["partition_s"])
+        tmp = tempfile.mkdtemp(prefix="rsp_ingest_")
+        try:
+            ing = ingest(args, data, tmp, device)
+            inputs = learning_inputs(data, args.records // BLOCKS)
+            del data
+            ds = ing.pop("dataset")
+            est = estimator(ds)
+            learn = learning(args, ds, inputs)
+            ds.close()
+            del ds
+            measured = no_new_tuning(measured, "the ingest, the estimator and the learning phase")
+            srv = serving(str(Path(tmp) / "ingested.rsp"), device)
+            measured = no_new_tuning(measured, "the serve phase")
+            msh = mesh(args, tmp, device)
+            measured = no_new_tuning(measured, "the mesh phase (its children report theirs)")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv,
+                           mesh=msh, autotune=tuned)
+        lm = lm_serving(args, device, gpu)
+        hy = hybrid_serving(args, device, gpu)
+        t0 = time.perf_counter()
+        rw = rwkv_serving(args, device, gpu)
+        phase("rwkv", t0)
+        t0 = time.perf_counter()
+        mo = moe_serving(args, device, gpu)
+        phase("moe", t0)
+
+        t0 = time.perf_counter()
+        tm = times(args, device)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
     tm["flash_attention"] = flash_times(args, device)
     print(f"flash_attention times: {json.dumps(tm['flash_attention'])} [{gpu}]", flush=True)
     tm["flash_attention_d112"] = flash_times(args, device, "zamba2-7b shared block")
@@ -3665,7 +4293,9 @@ def main() -> int:
                         "serve wave": srv["wave"]["launches"]["plan_sketch"],
                         "mesh query": msh["threads"]["launches"]["plan_sketch"]},
         "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
-                            "zamba2-7b generate": hy["counts"]["flash_attention"]},
+                            "zamba2-7b generate": hy["counts"]["flash_attention"],
+                            **{f"{name} generate": m["counts"]["flash_attention"]
+                               for name, m in mo.items()}},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},
         "rwkv6_wkv": {f"rwkv6-1.6b {p}": rw["counts"][p]["rwkv6_wkv"]
                       for p in ("forward", "loss", "generate")},
@@ -3687,8 +4317,8 @@ def main() -> int:
             "device_ms_seen": {k: v for k, v in tm[name]["device_ms"].items() if k != "ms"},
             "shape": tm[name]["shape"],
             **({"launches_by_path": by_path[name]} if name in by_path else {}),
-            **{k: tm[name][k] for k in ("kernels_per_call", "x3_bound_ms", "x3_bound_by", "launch")
-               if k in tm[name]},
+            **{k: tm[name][k] for k in ("kernels_per_call", "x3_bound_ms", "x3_bound_by", "launch",
+                                        "tuned_ms", "tuned_config") if k in tm[name]},
         }
         for name in replaces
     ]}
@@ -3697,6 +4327,7 @@ def main() -> int:
     print(f"hybrid serving: {json.dumps(hy['serve'])}", flush=True)
     print(f"rwkv scoring: {json.dumps(rw['scoring'])}", flush=True)
     print(f"rwkv serving: {json.dumps(rw['serve'])}", flush=True)
+    print(f"moe serving: {json.dumps(mo)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
@@ -3706,7 +4337,7 @@ def main() -> int:
             {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
              "flash_attention_d112": tm["flash_attention_d112"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
-             "rwkv": rw, "gpu": gpu},
+             "rwkv": rw, "moe": mo, "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 reduced smoke variants, and the shape cells.
 
 ``ARCHS`` holds the five dense architectures (llama3.2-1b, qwen2-0.5b,
-qwen3-14b, granite-20b, chameleon-34b), the zamba2-7b hybrid and
+qwen3-14b, granite-20b, chameleon-34b), the two MoE decoders
+(granite-moe-3b-a800m, qwen3-moe-30b-a3b), the zamba2-7b hybrid and
 rwkv6-1.6b at their published widths; ``smoke_config`` shrinks them
-exactly as the reference's does.  The MoE and encoder configs come with
-their families.
+exactly as the reference's does.  The encoder config comes with its
+family.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import dataclasses
 
 from repro_torch.configs.chameleon_34b import CONFIG as CHAMELEON_34B
 from repro_torch.configs.granite_20b import CONFIG as GRANITE_20B
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA32_1B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_05B
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3_14B
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE
 from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6_1_6B
 from repro_torch.configs.shapes import SHAPES, ShapeCell
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
@@ -24,7 +27,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, RWKV6_1_6B,
-                        CHAMELEON_34B]
+                        CHAMELEON_34B, GRANITE_MOE, QWEN3_MOE]
 }
 
 
@@ -41,6 +44,9 @@ def smoke_config(arch: str) -> ModelConfig:
         d_ff=96,
         vocab_size=256,
     )
+    if cfg.family == "moe":
+        # ample capacity so smoke decode-vs-forward comparisons see no drops
+        shrink.update(num_experts=8, num_experts_per_token=2, d_ff=32, moe_capacity_factor=8.0)
     if cfg.family == "hybrid":
         # exercise the epilogue: 5 layers, shared attn every 2 -> 2 rounds + 1
         shrink.update(num_layers=5, attn_every=2, ssm_state=16, ssm_head_dim=16, ssm_chunk=8)

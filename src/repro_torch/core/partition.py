@@ -6,9 +6,12 @@ bit-identical to the reference package's: the same ``SeedSequence``
 streams draw the same permutations.  The on-card form of Algorithm 1 is
 the ``cuda`` partition backend (``repro_torch.rsp.backends``), which
 draws its permutations here on the host (:func:`_np_rng`) and moves rows
-with the ``rsp_shuffle`` kernel.  :func:`distributed_rsp_partition` is
-Algorithm 1 as one collective over a ``torch.distributed`` group, each
-rank holding one original block.
+with the ``rsp_shuffle`` kernel.  :func:`two_stage_partition_torch` is
+Algorithm 1 in plain PyTorch (the ``torch`` backend, the counterpart of the
+reference's jit path): any dtype, any trailing shape, permutations from a
+``torch.Generator``.  :func:`distributed_rsp_partition` is Algorithm 1 as
+one collective over a ``torch.distributed`` group, each rank holding one
+original block.
 """
 
 from __future__ import annotations
@@ -68,6 +71,55 @@ def two_stage_partition_np(
         # sub-block assign[k] of original block i -> slice i of RSP block k
         out[:, i * delta : (i + 1) * delta] = sub[assign]
     return out
+
+
+def two_stage_partition_torch(
+    data: torch.Tensor,
+    generator: torch.Generator,
+    *,
+    num_blocks: int,
+    num_original_blocks: int,
+    permute_assignment: bool = True,
+) -> torch.Tensor:
+    """Algorithm 1 in plain PyTorch.  Returns ``[K, n, ...]`` on ``data``'s
+    device.
+
+    One ``torch.randperm`` a original block permutes it; with
+    ``permute_assignment``, one permutation of the K sub-blocks a original
+    block deals them (all P row permutations are drawn first, then the P
+    assignments).  The permutations are drawn on ``generator``'s device --
+    a CPU generator gives the same blocks on every device -- and the
+    slice-and-recombine is the reference's transpose/reshape, applied to
+    the row indices so that the rows move in one gather on ``data``'s
+    device.
+    """
+    N = data.shape[0]
+    P, K = int(num_original_blocks), int(num_blocks)
+    tail = data.shape[1:]
+    if N % (P * K) != 0:
+        raise ValueError(f"N={N} must be divisible by P*K={P * K}")
+    delta, R = N // (P * K), N // P
+    gen_dev = generator.device
+    perms = torch.stack([
+        torch.randperm(R, generator=generator, device=gen_dev) for _ in range(P)
+    ])
+    # global row ids of each original block's sub-blocks: [P, K, delta]
+    sub = (perms + torch.arange(P, device=gen_dev)[:, None] * R).reshape(P, K, delta)
+    if permute_assignment:
+        assign = torch.stack([
+            torch.randperm(K, generator=generator, device=gen_dev) for _ in range(P)
+        ])
+        sub = sub[torch.arange(P, device=gen_dev)[:, None], assign]
+    # recombine: RSP block k = concat over i of sub[i, k] -> [K, P*delta]
+    idx = sub.transpose(0, 1).reshape(-1).to(data.device)
+    return data.index_select(0, idx).reshape(K, P * delta, *tail)
+
+
+def randomize_dataset(data: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Global randomization (for non-randomized sources; paper Sec. 2): one
+    ``torch.randperm`` over the rows, drawn on ``generator``'s device."""
+    perm = torch.randperm(data.shape[0], generator=generator, device=generator.device)
+    return data.index_select(0, perm.to(data.device))
 
 
 def distributed_rsp_partition(shard: torch.Tensor, seed: int, group=None) -> torch.Tensor:

@@ -40,13 +40,20 @@
 //    size) still fill the card.
 // Rows whose intra_perm index lies outside the tile, and tiles whose
 // tile_perm index lies outside the block, are skipped rather than read.
+//
+// The threads a CTA are a template argument of both kernels: the staged
+// kernel takes 512 or 1024, the row kernel 256, 512 or 1024 (128 threads,
+// and 256 staged, were the slowest of their paths on the H100), with
+// defaults kStagedThreads and kRowsThreads.  The autotuner
+// (kernels/autotune.py) times each; the output is the same gather, bit for
+// bit, whatever the count and the path.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kStagedThreads = 1024;
-constexpr int kRowsThreads = 256;
+constexpr int kStagedThreads = 1024;  // the staged kernel's default CTA
+constexpr int kRowsThreads = 256;     // the row kernel's default CTA
 constexpr int kRowsPerCta = 1024;   // rows of one tile a row-kernel CTA copies
 constexpr int kCopyBytes = 16384;  // one bulk copy of the staged tile
 
@@ -67,8 +74,8 @@ __device__ __forceinline__ uint4 pack16(const W (&w)[kPer]) {
   }
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kStagedThreads)
+template <typename W, int kThreads>
+__global__ void __launch_bounds__(kThreads)
     rsp_shuffle_staged(const unsigned char* __restrict__ x, const int32_t* __restrict__ tile_perm,
                        const int32_t* __restrict__ intra, unsigned char* __restrict__ out,
                        int n_tiles, int tile_rows, int row_words) {
@@ -164,8 +171,8 @@ __global__ void __launch_bounds__(kStagedThreads)
   }
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kRowsThreads)
+template <typename W, int kThreads>
+__global__ void __launch_bounds__(kThreads)
     rsp_shuffle_rows(const W* __restrict__ x, const int32_t* __restrict__ tile_perm,
                      const int32_t* __restrict__ intra, W* __restrict__ out, int n_tiles,
                      int tile_rows, int row_words) {
@@ -187,25 +194,48 @@ __global__ void __launch_bounds__(kRowsThreads)
   }
 }
 
+template <typename W, int kThreads>
+cudaError_t launch_rows_t(const void* x, const int32_t* tp, const int32_t* ip, void* out,
+                          dim3 grid, int tile_rows, int row_bytes, cudaStream_t st) {
+  rsp_shuffle_rows<W, kThreads><<<grid, kThreads, 0, st>>>(
+      static_cast<const W*>(x), tp, ip, static_cast<W*>(out), (int)grid.x, tile_rows,
+      row_bytes / (int)sizeof(W));
+  return cudaGetLastError();
+}
+
 template <typename W>
 cudaError_t launch_rows(const void* x, const int32_t* tp, const int32_t* ip, void* out, dim3 grid,
-                        int tile_rows, int row_bytes, cudaStream_t st) {
-  rsp_shuffle_rows<W><<<grid, kRowsThreads, 0, st>>>(static_cast<const W*>(x), tp, ip,
-                                                      static_cast<W*>(out), (int)grid.x,
-                                                      tile_rows, row_bytes / (int)sizeof(W));
+                        int tile_rows, int row_bytes, int threads, cudaStream_t st) {
+  switch (threads) {
+    case 256: return launch_rows_t<W, 256>(x, tp, ip, out, grid, tile_rows, row_bytes, st);
+    case 512: return launch_rows_t<W, 512>(x, tp, ip, out, grid, tile_rows, row_bytes, st);
+    case 1024: return launch_rows_t<W, 1024>(x, tp, ip, out, grid, tile_rows, row_bytes, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename W, int kThreads>
+cudaError_t launch_staged_t(const void* x, const int32_t* tp, const int32_t* ip, void* out,
+                            dim3 grid, int tile_rows, int row_bytes, int smem, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rsp_shuffle_staged<W, kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  rsp_shuffle_staged<W, kThreads><<<grid, kThreads, smem, st>>>(
+      static_cast<const unsigned char*>(x), tp, ip, static_cast<unsigned char*>(out),
+      (int)grid.x, tile_rows, row_bytes / (int)sizeof(W));
   return cudaGetLastError();
 }
 
 template <typename W>
 cudaError_t launch_staged(const void* x, const int32_t* tp, const int32_t* ip, void* out,
-                          dim3 grid, int tile_rows, int row_bytes, int smem, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      rsp_shuffle_staged<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  rsp_shuffle_staged<W><<<grid, kStagedThreads, smem, st>>>(
-      static_cast<const unsigned char*>(x), tp, ip, static_cast<unsigned char*>(out),
-      (int)grid.x, tile_rows, row_bytes / (int)sizeof(W));
-  return cudaGetLastError();
+                          dim3 grid, int tile_rows, int row_bytes, int smem, int threads,
+                          cudaStream_t st) {
+  switch (threads) {
+    case 512: return launch_staged_t<W, 512>(x, tp, ip, out, grid, tile_rows, row_bytes, smem, st);
+    case 1024:
+      return launch_staged_t<W, 1024>(x, tp, ip, out, grid, tile_rows, row_bytes, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -218,10 +248,12 @@ extern "C" {
 // staged = 1 takes rsp_shuffle_staged, which needs tile_rows * row_bytes a
 // multiple of 16, x and out 16-byte aligned and the staged shared memory
 // within the card's opt-in limit (repro_smem_optin); staged = 0 takes
-// rsp_shuffle_rows.  Returns cudaGetLastError() after the launch.
+// rsp_shuffle_rows.  threads: a CTA's threads (staged 512 or 1024, rows
+// 256, 512 or 1024; 0 takes the path's default).  Returns
+// cudaGetLastError() after the launch.
 int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, void* out,
                        long long batch, long long rows_per_batch, int tile_rows, int row_bytes,
-                       int staged, void* stream) {
+                       int staged, int threads, void* stream) {
   if (tile_rows <= 0 || rows_per_batch % tile_rows != 0 || batch > 65535 || row_bytes % 2 ||
       rows_per_batch / tile_rows > 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
@@ -232,13 +264,14 @@ int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, 
   const dim3 grid((unsigned)n_tiles, (unsigned)batch);
   const auto* tp = static_cast<const int32_t*>(tile_perm);
   const auto* ip = static_cast<const int32_t*>(intra);
+  if (threads == 0) threads = staged ? kStagedThreads : kRowsThreads;
   if (!staged) {
     const long long slices = ((long long)tile_rows + kRowsPerCta - 1) / kRowsPerCta;
     const dim3 rows_grid(grid.x, grid.y, (unsigned)(slices < 65535 ? slices : 65535));
     return (int)(row_bytes % 4 == 0 ? launch_rows<uint32_t>(x, tp, ip, out, rows_grid,
-                                                            tile_rows, row_bytes, st)
+                                                            tile_rows, row_bytes, threads, st)
                                     : launch_rows<uint16_t>(x, tp, ip, out, rows_grid,
-                                                            tile_rows, row_bytes, st));
+                                                            tile_rows, row_bytes, threads, st));
   }
   const long long tile_bytes = (long long)tile_rows * row_bytes;
   // the tile, its intra_perm padded to 16 bytes, one mbarrier; a size over
@@ -249,8 +282,10 @@ int rsp_shuffle_launch(const void* x, const void* tile_perm, const void* intra, 
     return (int)cudaErrorInvalidValue;
   }
   return (int)(row_bytes % 4 == 0
-                   ? launch_staged<uint32_t>(x, tp, ip, out, grid, tile_rows, row_bytes, (int)smem, st)
-                   : launch_staged<uint16_t>(x, tp, ip, out, grid, tile_rows, row_bytes, (int)smem, st));
+                   ? launch_staged<uint32_t>(x, tp, ip, out, grid, tile_rows, row_bytes, (int)smem,
+                                             threads, st)
+                   : launch_staged<uint16_t>(x, tp, ip, out, grid, tile_rows, row_bytes, (int)smem,
+                                             threads, st));
 }
 
 // Shared memory a block may opt into on the current device (bytes), or -1.

@@ -9,6 +9,7 @@ helpers; import it directly.
 """
 
 from repro_torch.distributed.mesh import (
+    Heartbeat,
     HostKilledError,
     LocalTransport,
     TCPStoreTransport,

@@ -18,6 +18,14 @@ provides two implementations:
   over one shared in-memory store.  ``kill_after_puts(k)`` arms deterministic
   fault injection: the k-th subsequent publish raises
   :class:`HostKilledError`, emulating a host dying mid-query.
+
+Liveness does not rest on the wall clock alone: a host that works on a
+query runs a :class:`Heartbeat`, a thread that advances a counter of its
+own (``Transport.beat``) every ``period`` seconds.  A peer waiting for that
+host's payload restarts its grace whenever the counter moves, so a host
+that is alive but late (a slow payload, a busy interpreter lock) is never
+taken for dead, while a dead host's counter stops and it is stolen from
+after one grace.
 """
 
 from __future__ import annotations
@@ -53,6 +61,50 @@ class Transport(Protocol):
 
     def poll(self, prefix: str) -> dict[str, bytes]: ...
 
+    def beat(self, key: str) -> None:
+        """Advance the counter at ``key`` by one.  ``get(key)`` reads it as
+        the decimal count; beats are not publishes (a counter is re-written,
+        a published key is not)."""
+        ...
+
+
+class Heartbeat:
+    """A thread that calls ``transport.beat(key)`` at once and then every
+    ``period`` seconds until :meth:`stop`.
+
+    A transport error ends the beating: a killed host
+    (:class:`HostKilledError`) or a lost store makes the counter stop,
+    which is what its peers read as death."""
+
+    def __init__(self, transport: "Transport", key: str, period: float):
+        if period <= 0:
+            raise ValueError("period must be > 0")
+        self._transport = transport
+        self._key = key
+        self._period = float(period)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name=f"rsp-heartbeat-{key}", daemon=True
+        )
+
+    def start(self) -> "Heartbeat":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while True:
+            try:
+                self._transport.beat(self._key)
+            except TransportError:
+                return
+            if self._stop.wait(self._period):
+                return
+
+    def stop(self) -> None:
+        """Stop beating and join the thread (idempotent)."""
+        self._stop.set()
+        self._thread.join()
+
 
 # ---------------------------------------------------------------------------
 # In-process emulation
@@ -86,6 +138,11 @@ class _LocalStore:
         with self._cond:
             return {k: v for k, v in self._kv.items() if k.startswith(prefix)}
 
+    def add(self, key: str, amount: int) -> None:
+        with self._cond:
+            self._kv[key] = str(int(self._kv.get(key, b"0")) + amount).encode()
+            self._cond.notify_all()
+
 
 class LocalTransport:
     """One emulated host of an in-process mesh (see ``group``).
@@ -94,7 +151,9 @@ class LocalTransport:
     thread (``run_local_hosts``).  Fault injection: ``kill_after_puts(k)``
     makes the k-th subsequent ``put`` (and every transport call after it)
     raise :class:`HostKilledError` -- from the peers' point of view the host
-    simply stops publishing, exactly like a crashed process.
+    simply stops publishing, exactly like a crashed process.  Beats do not
+    count as publishes, and a killed host's ``beat`` raises too, so its
+    heartbeat stops with it.
     """
 
     def __init__(self, store: _LocalStore, host_id: int, num_hosts: int):
@@ -146,6 +205,10 @@ class LocalTransport:
     def poll(self, prefix: str) -> dict[str, bytes]:
         self._check_alive()
         return self._store.poll(prefix)
+
+    def beat(self, key: str) -> None:
+        self._check_alive()
+        self._store.add(key, 1)
 
 
 def run_local_hosts(
@@ -227,6 +290,9 @@ class TCPStoreTransport:
     * ``poll(prefix)`` reads the index of the prefix's directory and returns
       the published keys under ``prefix`` in that directory (keys in deeper
       directories are not listed).
+    * ``beat(key)`` is the store's atomic ``add(key, 1)``: a counter cannot
+      be a compare-set key, whose first value would stay.  Beat keys are
+      not indexed.
 
     Errors of the store itself (a lost connection) propagate as
     :class:`TransportError`.
@@ -292,6 +358,12 @@ class TCPStoreTransport:
             return {k: bytes(self._store.get(k)) for k in keys}
         except RuntimeError as e:
             raise TransportError(f"poll({prefix!r}) failed: {e}") from e
+
+    def beat(self, key: str) -> None:
+        try:
+            self._store.add(key, 1)
+        except RuntimeError as e:
+            raise TransportError(f"beat({key!r}) failed: {e}") from e
 
 
 def init_from_env(env=None) -> TCPStoreTransport | None:

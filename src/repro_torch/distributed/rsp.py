@@ -40,7 +40,16 @@ nodes" (Sec. 7).  This module makes that concrete:
     free by block exchangeability), duplicate publishes are idempotent
     (identical bytes), and a host whose consumer stops early publishes a
     ``fin`` marker so peers steal its remainder without waiting out the
-    grace.
+    grace.  The grace counts from the holder's last sign of life: each host
+    runs a :class:`~repro_torch.distributed.mesh.Heartbeat` for as long as
+    it works on the query, and a waiter restarts the grace whenever the
+    holder's counter moves, so a live but late host is never presumed dead.
+    The heartbeat shows only that the host lives, not that it gets on: a
+    holder alive but stuck (a hung fetch, a ``compute`` that never returns)
+    beats on.  So a waiter gives a beating holder at most
+    :data:`LIVE_GRACES` graces for one position, then computes the position
+    itself and takes the holder's later positions without waiting.  The
+    holder is not presumed dead and keeps its blocks: it is only stalled.
 """
 
 from __future__ import annotations
@@ -48,13 +57,14 @@ from __future__ import annotations
 import hashlib
 import heapq
 import json
+import threading
 import time
 from typing import Iterator
 
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.distributed.mesh import HostKilledError, Transport
+from repro_torch.distributed.mesh import Heartbeat, HostKilledError, Transport
 from repro_torch.distributed.ownership import BlockOwnership
 from repro_torch.distributed.straggler import LeaseScheduler
 from repro_torch.kernels.block_sketch import BlockSketch
@@ -126,6 +136,13 @@ def decode_payload(data: bytes) -> dict:
 # The distributed query executor
 # ---------------------------------------------------------------------------
 
+#: beats a grace: a live host's counter moves this many times a grace, so
+#: a beat delayed by a busy interpreter lock still lands within it
+BEATS_PER_GRACE = 8
+#: graces a waiter gives a beating holder for one position before it
+#: computes the position itself (the holder lives but may be stuck)
+LIVE_GRACES = 4
+
 class DistributedQueryExecutor(QueryExecutor):
     """Fans one query's block work out over the mesh (see module docstring).
 
@@ -138,6 +155,9 @@ class DistributedQueryExecutor(QueryExecutor):
         #: hosts this query declared dead (grace expired with no payload);
         #: DistributedDataset re-deals their blocks after the query
         self.presumed_dead: set[int] = set()
+        #: holders that beat on but kept a position past LIVE_GRACES graces;
+        #: this host computed their positions after that, and they stay owners
+        self.stalled: set[int] = set()
 
     # -- the one overridden seam -------------------------------------------
     def _payload_source(
@@ -153,6 +173,7 @@ class DistributedQueryExecutor(QueryExecutor):
 
         ns, base, fp = self._namespace(ids, lo, hi)
         transport.put(f"{base}/fp/{me}", fp.encode())
+        heartbeat = dds._start_heartbeat(f"{ns}/hb/{me}")
 
         ownership = dds.ownership
         assign: dict[int, list[int]] = {h: [] for h in ownership.hosts()}
@@ -176,6 +197,12 @@ class DistributedQueryExecutor(QueryExecutor):
             computed[p] = data
             sched.complete(me, p)
             return data
+
+        def take(p: int) -> bytes:
+            """Compute a stalled holder's position here; its ownership
+            stays as it is."""
+            dds.allow_blocks([ids[p]])
+            return compute(p)
 
         def work_ahead() -> bool:
             """Compute one pending owned/stolen position while waiting."""
@@ -222,6 +249,8 @@ class DistributedQueryExecutor(QueryExecutor):
                     data = compute(p)
                 waiting = time.monotonic()
                 deadline = waiting + grace
+                stall_at = waiting + LIVE_GRACES * grace   # the most a beating holder gets
+                seen = None  # (holder, its counter) at this wait's last look
                 while data is None:
                     data = transport.get(f"{ns}/p/{p}", poll)
                     if data is not None:
@@ -240,13 +269,26 @@ class DistributedQueryExecutor(QueryExecutor):
                             break
                         reassign(p, waiting)
                         deadline = time.monotonic() + grace
+                        stall_at = time.monotonic() + LIVE_GRACES * grace
                         continue
                     self._check_fingerprints(transport, base, fp)
+                    if holder in self.stalled or time.monotonic() > stall_at:
+                        # alive but no payload in LIVE_GRACES graces: stuck
+                        self.stalled.add(holder)
+                        data = take(p)
+                        break
+                    beat = transport.get(f"{ns}/hb/{holder}", 0.0)
+                    if seen is not None and seen != (holder, beat):
+                        # the holder is alive: its grace starts again
+                        deadline = time.monotonic() + grace
+                    seen = (holder, beat)
                     if time.monotonic() > deadline:
                         reassign(p, waiting)
                         deadline = time.monotonic() + grace
+                        stall_at = time.monotonic() + LIVE_GRACES * grace
                 yield ids[p], decode_payload(data)
         finally:
+            dds._stop_heartbeat(heartbeat)
             # reached on convergence, close(), and exhaustion alike: tell
             # the peers this host computes nothing further for this query
             try:
@@ -367,6 +409,8 @@ class DistributedDataset:
             prefetch=dataset._prefetch,
             cache_blocks=dataset._cache_blocks,
         )
+        self._heartbeats: set[Heartbeat] = set()
+        self._heartbeats_lock = threading.Lock()
 
     # -- RSPDataset protocol surface (QueryExecutor + QueryService) --------
     @property
@@ -477,8 +521,26 @@ class DistributedDataset:
         self._scoped.replace(self.ownership.blocks_of(self.host_id))
         return self.ownership
 
+    # -- liveness ----------------------------------------------------------
+    def _start_heartbeat(self, key: str) -> Heartbeat:
+        """Beat ``key`` while this host works on one query (see
+        :class:`~repro_torch.distributed.mesh.Heartbeat`)."""
+        hb = Heartbeat(self.transport, key, self.straggler_grace / BEATS_PER_GRACE)
+        with self._heartbeats_lock:
+            self._heartbeats.add(hb)
+        return hb.start()
+
+    def _stop_heartbeat(self, hb: Heartbeat) -> None:
+        hb.stop()
+        with self._heartbeats_lock:
+            self._heartbeats.discard(hb)
+
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
+        with self._heartbeats_lock:
+            beating = list(self._heartbeats)
+        for hb in beating:
+            self._stop_heartbeat(hb)
         self._executor.close()
 
     def __enter__(self) -> "DistributedDataset":

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 
 # C signatures of the exported functions: name -> (restype, argtypes)
 _SIGNATURES = {
-    "rsp_shuffle_launch": (_I, [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
+    "rsp_shuffle_launch": (_I, [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     "repro_smem_optin": (_I, []),
     "sketch_scratch_bytes": (_L, [_I, _I, _I]),

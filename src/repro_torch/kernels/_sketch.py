@@ -8,7 +8,9 @@ launch geometry, the per-stream scratch and the packed output.
   to the clusters the card holds at once (``max_ctas``, from the CUDA
   occupancy calculator), never fewer than ``MIN_ROWS_PER_CTA`` rows a CTA;
   the last CTAs of the last cluster may have no rows.  Both are fixed
-  functions of ``n`` and the card, so the kernels' fixed fold order is too.
+  functions of ``n``, the card and the launch's configuration (its threads,
+  its histogram's place, its fewest rows a CTA: the autotuner's choice,
+  fixed for a key once made), so the kernels' fixed fold order is too.
 * **Scratch.**  The clusters' partials, the int32 histogram accumulator and
   the fold's ticket (``csrc/sketch_common.cuh``) live in one buffer a
   (device, CUDA stream, shape class), zeroed once when it is made; every
@@ -42,11 +44,12 @@ def max_ctas(clusters: int) -> int:
     return CLUSTER * max(1, min(MAX_CLUSTERS, clusters))
 
 
-def launch_geometry(n: int, most: int) -> tuple[int, int]:
+def launch_geometry(n: int, most: int, min_rows: int = MIN_ROWS_PER_CTA) -> tuple[int, int]:
     """``(ctas, rows_per_cta)`` of a launch over ``n`` rows with at most
-    ``most`` CTAs (a multiple of ``CLUSTER``)."""
+    ``most`` CTAs (a multiple of ``CLUSTER``) of at least ``min_rows`` rows
+    (a multiple of ``ROW_QUANTUM``)."""
     quads = -(-n // ROW_QUANTUM)
-    per = max(MIN_ROWS_PER_CTA // ROW_QUANTUM, -(-quads // most))
+    per = max(min_rows // ROW_QUANTUM, -(-quads // most))
     rows = ROW_QUANTUM * per
     ctas = max(1, -(-n // rows))
     return -(-ctas // CLUSTER) * CLUSTER, rows

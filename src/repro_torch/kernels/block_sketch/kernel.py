@@ -17,9 +17,19 @@ only.
 * :func:`block_sketch_plain` is the same function in plain PyTorch, on any
   device: the CPU tests run it, and ``chip_smoke.py`` holds the kernel
   against it on the card.
+
+A launch's configuration (:class:`SketchConfig`: the thread budget, whether
+the histogram may live in shared memory, the fewest rows a CTA) is the
+default unless the caller passes one (the autotuner's candidates,
+``ops.block_sketch_candidates``).  It changes the fold order, so the
+low bits of mean and M2 (within 1e-5 of the plain version); histogram
+counts stay exact.  For one configuration the geometry, and so the bits,
+are a fixed function of n and the card.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -31,6 +41,28 @@ KERNELS = ("block_sketch_fused",)   # the device kernels one call launches
 MAX_FEATURES = 1024
 _THREADS = 512         # a CTA's threads: F * J, J the largest power of two that fits
 _SMEM_LIMIT = 200 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchConfig:
+    """A sketch launch's tunable configuration.  ``threads``: the budget a
+    CTA's F * J threads fit in (J the largest power of two that fits);
+    ``hist_in_smem``: the CTA's histogram in shared memory where it fits
+    (False: in the global scratch); ``min_rows``: the fewest rows a CTA
+    (a multiple of 4; fewer CTAs than the card holds once it binds)."""
+
+    threads: int = _THREADS
+    hist_in_smem: bool = True
+    min_rows: int = _sketch.MIN_ROWS_PER_CTA
+
+    def __post_init__(self):
+        if self.threads < 1 or self.threads > 1024:
+            raise ValueError(f"a thread budget in [1, 1024], got {self.threads}")
+        if self.min_rows < _sketch.ROW_QUANTUM or self.min_rows % _sketch.ROW_QUANTUM:
+            raise ValueError(f"min_rows must be a positive multiple of {_sketch.ROW_QUANTUM}")
+
+
+DEFAULT_CONFIG = SketchConfig()
 
 
 def _check_args(x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, bins: int) -> None:
@@ -79,26 +111,28 @@ def block_sketch_plain(
     return stats, hist
 
 
-_LAUNCH: dict[tuple, tuple] = {}   # launch parameters by (device, stream, n, F, bins)
+_LAUNCH: dict[tuple, tuple] = {}   # launch parameters by (device, stream, n, F, bins, config)
 
 
-def _launch_params(dev: torch.device, stream: int, n: int, f: int, bins: int) -> tuple:
+def _launch_params(dev: torch.device, stream: int, n: int, f: int, bins: int,
+                   cfg: SketchConfig) -> tuple:
     """``(J, hist_in_smem, ctas, rows_per_cta, ld, scratch, records)`` of a
-    launch, computed once a shape and stream; ``records[aligned]`` is the
-    launch record :data:`LAUNCHES` keeps."""
-    key = (dev.index, stream, n, f, bins)
+    launch, computed once a shape, stream and configuration;
+    ``records[aligned]`` is the launch record :data:`LAUNCHES` keeps."""
+    key = (dev.index, stream, n, f, bins, cfg)
     params = _LAUNCH.get(key)
     if params is None:
         lib = _cuda.library()
-        lanes = _sketch.pow2_floor(_THREADS // f)       # J: threads a feature
+        lanes = _sketch.pow2_floor(cfg.threads // f)    # J: threads a feature
         threads = f * lanes
-        in_smem = int(bins > 0
+        in_smem = int(bins > 0 and cfg.hist_in_smem
                       and lib.block_sketch_smem_bytes(threads, f, bins, 1) <= _SMEM_LIMIT)
         ld = min(_sketch.MAX_CLUSTERS, _sketch.clusters(
             lib.block_sketch_max_clusters, threads, f, bins, in_smem))
-        ctas, rows = _sketch.launch_geometry(n, _sketch.max_ctas(ld))
+        ctas, rows = _sketch.launch_geometry(n, _sketch.max_ctas(ld), cfg.min_rows)
         scratch = _sketch.scratch(dev, stream, f, bins, ld)
-        geometry = {"ctas": ctas, "rows_per_cta": rows, "threads": threads, "clusters_held": ld}
+        geometry = {"ctas": ctas, "rows_per_cta": rows, "threads": threads, "clusters_held": ld,
+                    "hist_in_smem": in_smem}
         records = {True: {"path": "vec4", **geometry}, False: {"path": "scalar", **geometry}}
         params = (lanes, in_smem, ctas, rows, ld, scratch, records)
         if len(_LAUNCH) >= _sketch.SCRATCH_ENTRIES:
@@ -108,10 +142,12 @@ def _launch_params(dev: torch.device, stream: int, n: int, f: int, bins: int) ->
 
 
 def block_sketch_packed(
-    x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int
+    x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int,
+    config: SketchConfig | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors (float32, contiguous); returns
-    its packed output (``_sketch.unpack(packed, 1, F, bins)``)."""
+    """Launch the CUDA kernel on CUDA tensors (float32, contiguous) at
+    ``config`` (:data:`DEFAULT_CONFIG` when None); returns its packed
+    output (``_sketch.unpack(packed, 1, F, bins)``)."""
     _check_args(x, lo, inv_width, bins)
     if bins > 0:
         _cuda.require_same_device(x.device, lo=lo, inv_width=inv_width)
@@ -129,7 +165,8 @@ def block_sketch_packed(
     lib = _cuda.library()
     dev = x.device
     stream = _cuda.stream_handle(dev)
-    lanes, in_smem, ctas, rows, ld, scratch, records = _launch_params(dev, stream, n, f, bins)
+    lanes, in_smem, ctas, rows, ld, scratch, records = _launch_params(
+        dev, stream, n, f, bins, DEFAULT_CONFIG if config is None else config)
     vec = x.data_ptr() % 16 == 0   # 16-byte loads, or scalar loads of the same values
     packed, stats, hist, nsel = _sketch.new_packed(f, bins, dev)
     code = lib.block_sketch_launch(
@@ -144,11 +181,12 @@ def block_sketch_packed(
 
 
 def block_sketch_cuda(
-    x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int
+    x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *, bins: int,
+    config: SketchConfig | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the CUDA kernel on CUDA tensors (float32, contiguous): one
     launch, ``(stats, hist)`` views of its packed output."""
-    packed = block_sketch_packed(x, lo, inv_width, bins=bins)
+    packed = block_sketch_packed(x, lo, inv_width, bins=bins, config=config)
     f = x.shape[1]
     stats = packed[: 20 * f].view(torch.float32).view(5, f)
     if bins == 0:

@@ -8,7 +8,10 @@ in int64):
 * ``impl="torch"`` -- the plain PyTorch version, on the block's device.
 * ``impl="cuda"``  -- the hand-written CUDA kernel (CUDA tensors only; a
   CPU tensor raises).
-* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise.
+* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise;
+  on the card the kernel launches at the autotuner's configuration for the
+  block's shape bucket and ``bins`` (:func:`sketch_config`; the default
+  with ``REPRO_AUTOTUNE=off``), where ``impl="cuda"`` keeps the default.
 
 The outputs come back to the host in one device-to-host copy of the packed
 buffer (``kernels/_sketch.py``).  The float32 grid tensors are cached on the
@@ -23,6 +26,8 @@ edge into the neighbouring bin (moments agree to 1e-5).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import threading
 from collections import OrderedDict
 
@@ -30,14 +35,70 @@ import numpy as np
 import torch
 
 from repro_torch.device import as_numpy
-from repro_torch.kernels import _sketch
+from repro_torch.kernels import _sketch, autotune
+from repro_torch.kernels.autotune import Candidate
 from repro_torch.kernels.block_sketch.kernel import (
+    DEFAULT_CONFIG,
+    SketchConfig,
     block_sketch_packed,
     block_sketch_plain,
 )
 from repro_torch.kernels.block_sketch.ref import BlockSketch, _grid, block_sketch_ref
 
 IMPLS = ("auto", "ref", "torch", "cuda")
+SKETCH_THREADS = (256, 512, 1024)    # thread budgets the tuner times
+SKETCH_MIN_ROWS = (256, 1024, 4096)  # fewest rows a CTA the tuner times
+
+
+def as_candidate(cfg: SketchConfig) -> Candidate:
+    return Candidate.of("cuda", threads=cfg.threads, hist_in_smem=cfg.hist_in_smem,
+                        min_rows=cfg.min_rows)
+
+
+def as_config(c: Candidate) -> SketchConfig:
+    return SketchConfig(threads=c.get("threads"), hist_in_smem=c.get("hist_in_smem"),
+                        min_rows=c.get("min_rows"))
+
+
+@functools.lru_cache(maxsize=2)
+def _candidates(with_hist: bool) -> tuple[Candidate, ...]:
+    places = (True, False) if with_hist else (False,)
+    return tuple(as_candidate(SketchConfig(t, h, m))
+                 for t in SKETCH_THREADS for h in places for m in SKETCH_MIN_ROWS)
+
+
+def block_sketch_candidates(bins: int) -> tuple[Candidate, ...]:
+    """The kernel configurations the tuner times: every thread budget,
+    histogram place (shared memory only where there is a histogram) and
+    fewest rows a CTA.  Kernel configurations only."""
+    return _candidates(bins > 0)
+
+
+_DEFAULT = as_candidate(DEFAULT_CONFIG)
+# with no histogram its place means nothing: the default as the candidates name it
+_DEFAULT_NO_HIST = as_candidate(dataclasses.replace(DEFAULT_CONFIG, hist_in_smem=False))
+
+
+def sketch_key(n: int, f: int, bins: int) -> str:
+    return autotune.shape_key(n, f) + f"|b{bins}"
+
+
+def sketch_config(x: torch.Tensor, lo: torch.Tensor, inv_width: torch.Tensor, *,
+                  bins: int) -> SketchConfig:
+    """The tuned configuration of a launch over ``x [n, F]`` (the default
+    with tuning off or on a CPU tensor)."""
+    n, f = x.shape
+    xs = autotune.Rotation(x)
+
+    def measure(c: Candidate) -> float:
+        cfg = as_config(c)
+        return autotune.cuda_seconds(
+            lambda i: block_sketch_packed(xs(i), lo, inv_width, bins=bins, config=cfg), x.device)
+
+    return as_config(autotune.choose(
+        "block_sketch", sketch_key(n, f, bins), block_sketch_candidates(bins), measure,
+        default=_DEFAULT if bins > 0 else _DEFAULT_NO_HIST, device=x.device,
+    ))
 
 
 def _inv_width(lo: np.ndarray, hi: np.ndarray, bins: int) -> np.ndarray:
@@ -120,12 +181,14 @@ def block_sketch(
     if impl == "ref":
         return block_sketch_ref(as_numpy(block), bins=bins, lo=lo, hi=hi)
     x = as_block_tensor(block)
+    tuned = impl == "auto"
     impl = resolve_impl(impl, x)
     f = x.shape[1]
     glo, ghi = _grid(lo, hi, f)
     lo_t, invw_t = grid_tensors(glo, ghi, bins, x.device)
     if impl == "cuda":
-        packed = block_sketch_packed(x, lo_t, invw_t, bins=bins)
+        cfg = sketch_config(x, lo_t, invw_t, bins=bins) if tuned else None
+        packed = block_sketch_packed(x, lo_t, invw_t, bins=bins, config=cfg)
     else:
         stats, hist = block_sketch_plain(x, lo_t, invw_t, bins=bins)
         packed = _sketch.pack(stats, hist, torch.zeros(1, dtype=torch.int64, device=x.device))

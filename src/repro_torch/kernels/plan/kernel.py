@@ -29,6 +29,11 @@ The kernel reads a block one of two ways, chosen by :func:`read_path` from
 the share of the block's 32-byte sectors that the plan's columns touch:
 ``"gather"`` stages only the touched columns (a narrow plan, such as a
 ``where=`` / ``columns=`` query over two columns), ``"stage"`` whole rows.
+A caller may name the path (``PlanArrays.build(..., path=)``) and the
+launch's other parameters (:class:`PlanConfig`: the thread budget, the
+staged tile's bytes, the histogram's place), as the autotuner's candidates
+do; the defaults are those above.  A configuration changes the fold order
+(mean and M2 within 1e-5 of the plain version); counts stay exact.
 """
 
 from __future__ import annotations
@@ -57,6 +62,30 @@ _TILE_ROWS = 128          # rows a tile of the kernel's four-tile ring
 _TILE_BYTES = 8 * 1024    # ... unless the tile's rows are wider than this
 _MAX_ROW_BYTES = 32 * 1024
 _SMEM_LIMIT = 200 * 1024
+
+PATHS = ("stage", "gather")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanConfig:
+    """A plan launch's tunable parameters (its read path is its
+    :class:`PlanArrays`'): ``threads``, the budget a CTA's Fp * J threads
+    fit in (None: the path's default, ``_THREADS``); ``tile_bytes``, the
+    bytes a staged tile's rows may span (at most ``_TILE_ROWS`` rows);
+    ``hist_in_smem``, the histogram in shared memory where it fits."""
+
+    threads: int | None = None
+    tile_bytes: int = _TILE_BYTES
+    hist_in_smem: bool = True
+
+    def __post_init__(self):
+        if self.threads is not None and not 1 <= self.threads <= 1024:
+            raise ValueError(f"a thread budget in [1, 1024], got {self.threads}")
+        if self.tile_bytes < 4:
+            raise ValueError("tile_bytes must be >= 4")
+
+
+DEFAULT_CONFIG = PlanConfig()
 
 _TORCH_OPS = {
     "lt": torch.lt,
@@ -115,7 +144,10 @@ class PlanArrays:
     launches: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
-    def build(cls, plan: QueryPlan, num_features: int, device) -> "PlanArrays":
+    def build(cls, plan: QueryPlan, num_features: int, device,
+              path: str | None = None) -> "PlanArrays":
+        """The plan's device arrays for a read ``path`` (default:
+        :func:`read_path`'s pick)."""
         f = int(num_features)
         preds = plan.predicates
         if len(preds) > MAX_PREDICATES:
@@ -127,7 +159,10 @@ class PlanArrays:
                 raise ValueError(f"predicate column {p.column} out of range for F={f}")
         cols = plan.resolve_columns(f)
         touched = touched_columns(plan, f)
-        path = read_path(f, touched)
+        if path is None:
+            path = read_path(f, touched)
+        elif path not in PATHS:
+            raise ValueError(f"unknown read path {path!r} (one of {PATHS})")
         tile = {c: i for i, c in enumerate(touched)} if path == "gather" else None
 
         def ints(v):
@@ -221,12 +256,13 @@ def _plan_tensors(arrays: PlanArrays) -> dict:
 
 
 def _launch_params(arrays: PlanArrays, dev: torch.device, stream: int, n: int, f: int,
-                   bins: int) -> tuple:
+                   bins: int, cfg: PlanConfig) -> tuple:
     """``(tile_rows, width, J, hist_in_smem, ctas, rows_per_cta, ld,
-    scratch, records)`` of a launch, computed once a plan, shape and stream
-    (and kept on the plan's arrays, whose tensors' types are checked then);
-    ``records`` holds the launch records :data:`LAUNCHES` keeps."""
-    key = (dev.index, stream, n, bins)
+    scratch, records)`` of a launch, computed once a plan, shape, stream and
+    configuration (and kept on the plan's arrays, whose tensors' types are
+    checked then); ``records`` holds the launch records :data:`LAUNCHES`
+    keeps."""
+    key = (dev.index, stream, n, bins, cfg)
     params = arrays.launches.get(key)
     if params is not None:
         return params
@@ -239,13 +275,14 @@ def _launch_params(arrays: PlanArrays, dev: torch.device, stream: int, n: int, f
     width = len(arrays.touched) if arrays.path == "gather" else f   # the tile's columns
     if 4 * width > _MAX_ROW_BYTES:
         raise ValueError(f"the kernel takes F <= {_MAX_ROW_BYTES // 4} features, got {f}")
-    tile_rows = max(1, min(_TILE_ROWS, _TILE_BYTES // (4 * width)))
+    tile_rows = max(1, min(_TILE_ROWS, cfg.tile_bytes // (4 * width)))
     if tile_rows >= 4:
         tile_rows -= tile_rows % 4
     if g_count * fp * bins >= 2**31:
         raise ValueError("the kernel takes fewer than 2**31 histogram bins in all")
     lib = _cuda.library()
-    lanes = _sketch.pow2_floor(_THREADS[arrays.path] // fp)   # J: threads a projected feature
+    budget = _THREADS[arrays.path] if cfg.threads is None else cfg.threads
+    lanes = _sketch.pow2_floor(budget // fp)   # J: threads a projected feature
     threads = fp * lanes
     base = lib.plan_sketch_smem_bytes(threads, tile_rows, width, fp, g_count, bins, 0)
     if base > _SMEM_LIMIT:
@@ -254,7 +291,7 @@ def _launch_params(arrays: PlanArrays, dev: torch.device, stream: int, n: int, f
             f" G={g_count}, F={f}, Fp={fp})"
         )
     in_smem = int(
-        bins > 0
+        bins > 0 and cfg.hist_in_smem
         and lib.plan_sketch_smem_bytes(threads, tile_rows, width, fp, g_count, bins, 1)
         <= _SMEM_LIMIT
     )
@@ -263,7 +300,7 @@ def _launch_params(arrays: PlanArrays, dev: torch.device, stream: int, n: int, f
     ctas, rows = _sketch.launch_geometry(n, _sketch.max_ctas(ld))
     scratch = _sketch.scratch(dev, stream, g_count * fp, bins, ld)
     geometry = {"ctas": ctas, "rows_per_cta": rows, "threads": threads, "tile_rows": tile_rows,
-                "clusters_held": ld}
+                "clusters_held": ld, "hist_in_smem": in_smem}
     records = {"gather": {"path": "gather", **geometry},
                True: {"path": "stage vec4", **geometry}, False: {"path": "stage scalar", **geometry}}
     params = (tile_rows, width, lanes, in_smem, ctas, rows, ld, scratch, records)
@@ -274,11 +311,13 @@ def _launch_params(arrays: PlanArrays, dev: torch.device, stream: int, n: int, f
 
 
 def plan_sketch_packed(
-    x: torch.Tensor, arrays: PlanArrays, lo, inv_width, *, bins: int
+    x: torch.Tensor, arrays: PlanArrays, lo, inv_width, *, bins: int,
+    config: PlanConfig | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor with prepared plan arrays
-    (on the block's device); returns its packed output
-    (``_sketch.unpack(packed, arrays.groups, Fp, bins)``)."""
+    (on the block's device) at ``config`` (:data:`DEFAULT_CONFIG` when
+    None); returns its packed output (``_sketch.unpack(packed,
+    arrays.groups, Fp, bins)``)."""
     grid = {"lo": lo, "inv_width": inv_width} if bins > 0 else {}
     _cuda.require_same_device(x.device, **_plan_tensors(arrays), **grid)
     _cuda.require_cuda(x, "x", torch.float32)
@@ -298,7 +337,7 @@ def plan_sketch_packed(
     dev = x.device
     stream = _cuda.stream_handle(dev)
     tile_rows, width, lanes, in_smem, ctas, rows, ld, scratch, records = _launch_params(
-        arrays, dev, stream, n, f, bins)
+        arrays, dev, stream, n, f, bins, DEFAULT_CONFIG if config is None else config)
     gather = arrays.path == "gather"
     vec = not gather and tile_rows % 4 == 0 and x.data_ptr() % 16 == 0
     packed, stats, hist, nsel = _sketch.new_packed(arrays.groups * fp, bins, dev)
@@ -320,10 +359,11 @@ def plan_sketch_packed(
 
 
 def plan_sketch_cuda(
-    x: torch.Tensor, arrays: PlanArrays, lo, inv_width, *, bins: int
+    x: torch.Tensor, arrays: PlanArrays, lo, inv_width, *, bins: int,
+    config: PlanConfig | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """Launch the CUDA kernel on a CUDA tensor with prepared plan arrays
     (on the block's device): one launch, ``(stats, hist, nsel)`` views of
     its packed output."""
-    packed = plan_sketch_packed(x, arrays, lo, inv_width, bins=bins)
+    packed = plan_sketch_packed(x, arrays, lo, inv_width, bins=bins, config=config)
     return _sketch.unpack(packed, arrays.groups, arrays.cols.shape[0], bins)

@@ -9,19 +9,26 @@ PlanResult`:
   copy of the block.
 * ``impl="torch"`` -- the plain PyTorch version, on the block's device.
 * ``impl="cuda"``  -- the hand-written CUDA kernel (CUDA tensors only).
-* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise.
+* ``impl="auto"``  -- ``"cuda"`` for a CUDA tensor, ``"torch"`` otherwise;
+  on the card the kernel launches at the autotuner's configuration
+  (:func:`plan_config`: the read path, thread budget, staged tile and
+  histogram place, once a shape bucket and the plan's groups, predicates,
+  columns and bins), where ``impl="cuda"`` keeps the default.
 
 Executors are **compiled per plan**: :func:`compile_plan` memoizes on
-``(plan.key(), features, bins, impl, device)``.  The CUDA kernel is one
-build for every plan, so what the cache keeps for it are the plan's
-prepared device arrays (predicates, columns, group column, read path) --
-re-running a plan hits the cache, changing any predicate misses.  The
-outputs come back to the host in one device-to-host copy of the packed
-buffer (``kernels/_sketch.py``).
+``(plan.key(), features, bins, impl, tuned, device)``.  The CUDA kernel is
+one build for every plan, so what the cache keeps for it are the plan's
+prepared device arrays (predicates, columns, group column) for each read
+path it launches -- re-running a plan hits the cache, changing any
+predicate misses.  A tuned executor resolves its configuration at each
+launch (a cache hit of the tuner after the first), so a cached executor
+never keeps a stale one.  The outputs come back to the host in one
+device-to-host copy of the packed buffer (``kernels/_sketch.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Callable
@@ -31,10 +38,24 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE, as_numpy, resolve_device
-from repro_torch.kernels import _sketch
+from repro_torch.kernels import _sketch, autotune
+from repro_torch.kernels.autotune import Candidate
 from repro_torch.kernels.block_sketch.ops import IMPLS, as_block_tensor, grid_tensors, resolve_impl
 from repro_torch.kernels.block_sketch.ref import BlockSketch, _grid
-from repro_torch.kernels.plan.kernel import PlanArrays, plan_sketch_packed, plan_sketch_plain
+from repro_torch.kernels.plan.kernel import (
+    _THREADS,
+    DEFAULT_CONFIG,
+    PATHS,
+    PlanArrays,
+    PlanConfig,
+    plan_sketch_packed,
+    plan_sketch_plain,
+    read_path,
+    touched_columns,
+)
+
+PLAN_THREADS = (128, 256, 512, 1024)   # thread budgets the tuner times
+PLAN_TILE_BYTES = (4096, 8192, 16384)  # staged tile bytes the tuner times
 from repro_torch.kernels.plan.plan import QueryPlan
 from repro_torch.kernels.plan.ref import PlanResult, plan_sketch_ref
 
@@ -89,8 +110,82 @@ def _build_ref(plan, bins):
     return run
 
 
-def _build_tensor(plan, f, bins, impl, device):
-    arrays = PlanArrays.build(plan, f, device) if impl == "cuda" else None
+@functools.lru_cache(maxsize=2)
+def _candidates(with_hist: bool) -> tuple[Candidate, ...]:
+    places = (True, False) if with_hist else (False,)
+    return tuple(Candidate.of("cuda", path=p, threads=t, tile_bytes=b, hist_in_smem=h)
+                 for p in PATHS for t in PLAN_THREADS for b in PLAN_TILE_BYTES for h in places)
+
+
+def plan_candidates(bins: int) -> tuple[Candidate, ...]:
+    """The kernel configurations the tuner times: every read path, thread
+    budget, staged tile and histogram place (shared memory only where there
+    is a histogram).  Kernel configurations only."""
+    return _candidates(bins > 0)
+
+
+def default_candidate(plan: QueryPlan, f: int, bins: int) -> Candidate:
+    """The configuration of an untuned launch of ``plan`` over F columns
+    at ``bins`` (with no histogram its place means nothing, and the
+    candidates name it ``False``)."""
+    path = read_path(f, touched_columns(plan, f))
+    return Candidate.of("cuda", path=path, threads=_THREADS[path],
+                        tile_bytes=DEFAULT_CONFIG.tile_bytes,
+                        hist_in_smem=DEFAULT_CONFIG.hist_in_smem and bins > 0)
+
+
+def as_config(c: Candidate) -> PlanConfig:
+    return PlanConfig(threads=c.get("threads"), tile_bytes=c.get("tile_bytes"),
+                      hist_in_smem=c.get("hist_in_smem"))
+
+
+def plan_key(plan: QueryPlan, n: int, f: int, bins: int) -> str:
+    """The tuner's key: the shape bucket, the plan's groups, predicates and
+    projected columns, and the bins (the reference's key)."""
+    return (autotune.shape_key(n, f)
+            + f"|g{plan.groups}p{len(plan.predicates)}c{len(plan.resolve_columns(f))}b{bins}")
+
+
+class _PathArrays:
+    """A plan's device arrays by read path, built at first use."""
+
+    def __init__(self, plan, f, device):
+        self._plan, self._f, self._device = plan, f, device
+        self._by_path: dict[str, PlanArrays] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, path: str) -> PlanArrays:
+        with self._lock:
+            arrays = self._by_path.get(path)
+            if arrays is None:
+                arrays = PlanArrays.build(self._plan, self._f, self._device, path=path)
+                self._by_path[path] = arrays
+            return arrays
+
+
+def plan_config(plan: QueryPlan, x: torch.Tensor, lo, invw, *, bins: int,
+                arrays=None, default: Candidate | None = None) -> Candidate:
+    """The tuned configuration (read path and :class:`PlanConfig`
+    parameters) of ``plan`` over ``x [n, F]``: ``default`` (that of
+    :func:`default_candidate`) with tuning off or on a CPU tensor.
+    ``arrays(path)`` gives the plan's device arrays."""
+    n, f = x.shape
+    arrays = _PathArrays(plan, f, x.device) if arrays is None else arrays
+    default = default_candidate(plan, f, bins) if default is None else default
+    xs = autotune.Rotation(x)
+
+    def measure(c: Candidate) -> float:
+        a, cfg = arrays(c.get("path")), as_config(c)
+        return autotune.cuda_seconds(
+            lambda i: plan_sketch_packed(xs(i), a, lo, invw, bins=bins, config=cfg), x.device)
+
+    return autotune.choose("plan_sketch", plan_key(plan, n, f, bins), plan_candidates(bins),
+                           measure, default=default, device=x.device)
+
+
+def _build_tensor(plan, f, bins, impl, tuned, device):
+    arrays = _PathArrays(plan, f, device) if impl == "cuda" else None
+    default = default_candidate(plan, f, bins)
     fp = len(plan.resolve_columns(f))
 
     def run(x, glo, ghi):
@@ -98,7 +193,12 @@ def _build_tensor(plan, f, bins, impl, device):
         if bins > 0:
             lo, invw = grid_tensors(glo, ghi, bins, x.device)
         if impl == "cuda":
-            packed = plan_sketch_packed(x, arrays, lo, invw, bins=bins)
+            if tuned:
+                c = plan_config(plan, x, lo, invw, bins=bins, arrays=arrays, default=default)
+                a, cfg = arrays(c.get("path")), as_config(c)
+            else:
+                a, cfg = arrays(default.get("path")), None
+            packed = plan_sketch_packed(x, a, lo, invw, bins=bins, config=cfg)
         else:
             packed = _sketch.pack(*plan_sketch_plain(x, plan, lo, invw, bins=bins))
         return _result(plan, fp, bins, glo, ghi, n=x.shape[0], packed=packed.cpu())
@@ -113,16 +213,20 @@ def compile_plan(
     bins: int = 0,
     impl: str = "torch",
     device: str | torch.device = DEFAULT_DEVICE,
+    tuned: bool = False,
 ) -> Callable:
     """The compiled executor ``run(x, glo, ghi) -> PlanResult`` for ``plan``
     at this shape and device (the card unless asked for the CPU), memoized
-    on ``(plan.key(), features, bins, impl, device)`` -- the plan-keyed
-    compile cache.  The executor takes blocks on ``device`` only."""
+    on ``(plan.key(), features, bins, impl, tuned, device)`` -- the
+    plan-keyed compile cache.  The executor takes blocks on ``device``
+    only; with ``tuned`` a ``cuda`` executor launches at
+    :func:`plan_config`'s configuration, else at the default."""
     global _HITS, _MISSES
     if impl not in IMPLS or impl == "auto":
         raise ValueError(f"compile_plan impl must be concrete, got {impl!r}")
     device = resolve_device(device)
-    key = (plan.key(), int(num_features), int(bins), impl, str(device))
+    tuned = bool(tuned) and impl == "cuda"
+    key = (plan.key(), int(num_features), int(bins), impl, tuned, str(device))
     telemetry = obs.enabled()
     with _CACHE_LOCK:
         fn = _CACHE.get(key)
@@ -137,7 +241,7 @@ def compile_plan(
     if impl == "ref":
         fn = _build_ref(plan, bins)
     else:
-        fn = _build_tensor(plan, int(num_features), bins, impl, device)
+        fn = _build_tensor(plan, int(num_features), bins, impl, tuned, device)
     if telemetry:
         reg = obs.get_registry()
         reg.counter("rsp_plan_compile_total", "plan-cache lookups", outcome="miss").inc()
@@ -169,7 +273,8 @@ def plan_sketch(
     glo = ghi = None
     if bins > 0:
         glo, ghi = _grid(lo, hi, fp)
+    tuned = impl == "auto"
     if impl != "ref":
         impl = resolve_impl(impl, x)  # validates the name
-    fn = compile_plan(plan, num_features=f, bins=bins, impl=impl, device=x.device)
+    fn = compile_plan(plan, num_features=f, bins=bins, impl=impl, device=x.device, tuned=tuned)
     return fn(x, glo, ghi)

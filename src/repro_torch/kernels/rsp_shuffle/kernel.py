@@ -15,7 +15,10 @@ bit for bit; the kernel takes rows of an even number of bytes), ``tile_perm`` ``
   picks its kernel: ``staged`` (the source tile staged in shared memory by
   bulk copies, the output written 16 bytes a store) where a tile's bytes
   are a multiple of 16, the base pointers 16-byte aligned and the tile fits
-  in shared memory; ``rows`` (one warp per output row) elsewhere.
+  in shared memory; ``rows`` (one warp per output row) elsewhere.  A
+  launch may name its path and the threads a CTA (``path=``,
+  ``threads=``, the autotuner's configurations); both leave the output
+  bit for bit as it is.
 * :func:`rsp_shuffle_plain` is the same gather in plain PyTorch, on any
   device.
 """
@@ -30,6 +33,9 @@ LAUNCHES = _cuda.LaunchCounter("rsp_shuffle")
 
 # shared memory a block may opt into on the H100 (227 KB)
 SMEM_OPTIN_H100 = 232_448
+PATHS = ("staged", "rows")
+THREADS = {"staged": (512, 1024), "rows": (256, 512, 1024)}   # a CTA's
+DEFAULT_THREADS = {"staged": 1024, "rows": 256}
 
 
 def staged_smem_bytes(tile_rows: int, row_bytes: int) -> int:
@@ -89,8 +95,12 @@ def rsp_shuffle_plain(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tens
     return out if batched else out[0]
 
 
-def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tensor:
-    """Launch the CUDA kernel (all batches in one launch)."""
+def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int, path: str | None = None,
+                     threads: int | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel (all batches in one launch).  ``path`` and
+    ``threads`` default to :func:`shuffle_path`'s pick and that path's
+    :data:`DEFAULT_THREADS`; a ``"staged"`` path the launch cannot take
+    raises."""
     xb, tp, ip, batched = _batched(x, tile_perm, intra_perm, tile_rows)
     b, r, d = xb.shape
     if (d * xb.element_size()) % 2:
@@ -105,19 +115,32 @@ def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tenso
     out = torch.empty_like(xb)
     row_bytes = d * xb.element_size()
     lib = _cuda.library()
-    path = shuffle_path(tile_rows, row_bytes, x_ptr=xb.data_ptr(), out_ptr=out.data_ptr(),
+    fits = shuffle_path(tile_rows, row_bytes, x_ptr=xb.data_ptr(), out_ptr=out.data_ptr(),
                         smem_limit=lib.repro_smem_optin())
+    path = fits if path is None else path
+    if path not in PATHS:
+        raise ValueError(f"unknown shuffle path {path!r} (one of {PATHS})")
+    if path == "staged" and fits != "staged":
+        raise ValueError("this launch cannot take the staged path (tile bytes, alignment"
+                         " or shared memory)")
+    threads = DEFAULT_THREADS[path] if threads is None else int(threads)
+    if threads not in THREADS[path]:
+        raise ValueError(f"the {path} kernel takes {THREADS[path]} threads a CTA, got {threads}")
     code = lib.rsp_shuffle_launch(
         xb.data_ptr(), tp.data_ptr(), ip.data_ptr(), out.data_ptr(),
-        b, r, tile_rows, row_bytes, int(path == "staged"), _cuda.stream_handle(xb.device),
+        b, r, tile_rows, row_bytes, int(path == "staged"), threads,
+        _cuda.stream_handle(xb.device),
     )
     _cuda.check(code, "rsp_shuffle kernel")
     LAUNCHES.add()
     return out if batched else out[0]
 
 
-def rsp_shuffle(x, tile_perm, intra_perm, *, tile_rows: int) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+def rsp_shuffle(x, tile_perm, intra_perm, *, tile_rows: int, path: str | None = None,
+                threads: int | None = None) -> torch.Tensor:
+    """The kernel for a CUDA tensor (at the given configuration), the plain
+    version for a CPU tensor."""
     if x.is_cuda:
-        return rsp_shuffle_cuda(x, tile_perm, intra_perm, tile_rows=tile_rows)
+        return rsp_shuffle_cuda(x, tile_perm, intra_perm, tile_rows=tile_rows, path=path,
+                                threads=threads)
     return rsp_shuffle_plain(x, tile_perm, intra_perm, tile_rows=tile_rows)

@@ -6,6 +6,8 @@ block ensemble (Sec. 9's combination at decode time).
     python -m repro_torch.launch.serve --arch zamba2-7b --preset full
     python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset full
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --preset full
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
 
 Prints tokens per second beside the device's name.
 """

@@ -2,9 +2,13 @@
 and serve steps.
 
 The step functions close over a model -- a :class:`~repro_torch.models.
-transformer.DenseLM`, :class:`~repro_torch.models.transformer.HybridLM` or
+transformer.DenseLM`, :class:`~repro_torch.models.transformer.MoELM`,
+:class:`~repro_torch.models.transformer.HybridLM` or
 :class:`~repro_torch.models.transformer.RWKVLM`, which holds its
-parameters.  The serve steps take ``(caches, batch)`` with ``batch =
+parameters.  For an MoE model the loss is ``ce + aux`` (the router's aux
+loss summed over the layers), the stateless forward drops at the
+configured capacity and the prefill and decode steps dispatch dropless,
+as the reference's do.  The serve steps take ``(caches, batch)`` with ``batch =
 {"tokens": [B, S]}``, where the reference's take ``(params, caches,
 batch)``; the forward and the loss take ``(batch)`` where the reference's
 take ``(params, batch)``.

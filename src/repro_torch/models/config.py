@@ -1,9 +1,9 @@
-"""Model configuration: the fields the dense decoder, the zamba2 hybrid
-and the RWKV6 families read.
+"""Model configuration: the fields the dense decoder, the MoE decoder, the
+zamba2 hybrid and the RWKV6 families read.
 
-The reference's MoE and encoder fields (and its ``use_pallas`` switch:
-here attention, the SSD scan and the WKV take their kernels whenever their
-tensors are on the card) come with the families that read them.
+The reference's encoder fields (and its ``use_pallas`` switch: here
+attention, the SSD scan and the WKV take their kernels whenever their
+tensors are on the card) come with the family that reads them.
 """
 
 from __future__ import annotations
@@ -12,13 +12,14 @@ import dataclasses
 
 from repro_torch.models.attention import AttentionConfig
 from repro_torch.models.mamba2 import Mamba2Config
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.rwkv6 import RWKV6Config
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | hybrid | rwkv (moe | encoder not ported yet)
+    family: str                 # dense | moe | hybrid | rwkv (encoder: ROADMAP section 1, item 1)
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +35,10 @@ class ModelConfig:
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # MoE
+    num_experts: int = 0
+    num_experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
     # SSM / hybrid (zamba2)
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -44,6 +49,7 @@ class ModelConfig:
     # rwkv
     rwkv_head_dim: int = 64
     lora_rank: int = 32
+    moe_sort_dispatch: bool = False  # argsort capacity positions
 
     @property
     def resolved_head_dim(self) -> int:
@@ -61,6 +67,16 @@ class ModelConfig:
             rope_theta=self.rope_theta,
             causal=self.causal,
             norm_eps=self.norm_eps,
+        )
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model,
+            d_ff=self.d_ff,
+            num_experts=self.num_experts,
+            top_k=self.num_experts_per_token,
+            capacity_factor=self.moe_capacity_factor,
+            sort_dispatch=self.moe_sort_dispatch,
         )
 
     def mamba_config(self) -> Mamba2Config:

@@ -3,6 +3,10 @@
 * :class:`DenseLM` (llama / qwen / granite / chameleon backbones):
   embedding, a ``ModuleList`` of pre-norm layers (attention + SwiGLU or GELU
   MLP), final RMS norm and a (tied or separate) unembedding.
+* :class:`MoELM` (granite-moe / qwen3-moe): the dense decoder with a
+  Mixture-of-Experts layer (``models/moe.py``) in place of every MLP;
+  ``forward_lm`` returns the router aux loss summed over the layers, and a
+  pass with caches (prefill and decode) dispatches dropless.
 * :class:`HybridLM` (zamba2): embedding, then rounds of one invocation of
   the single shared transformer block -- applied to ``concat(embedding,
   hidden)`` -- followed by ``attn_every`` pre-norm Mamba2 layers, an
@@ -41,8 +45,8 @@ in the activations' dtype (bf16), as the reference's does, so a float32
 one is replaced by a bf16 copy at the first pass.
 
 The training losses ``lm_loss`` / ``loss_fn`` take the model and a batch
-of ``tokens [B, S + 1]``.  The MoE and encoder families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+of ``tokens [B, S + 1]``.  The encoder family raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn, mamba2, rwkv6
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     Params,
     Tree,
@@ -77,8 +82,7 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ModelConfig
 
 NOT_PORTED = {
-    "moe": "the MoE family (router and dispatch) waits for ROADMAP section 1, item 8",
-    "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 9",
+    "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 1",
 }
 
 
@@ -106,7 +110,9 @@ def _dense_layer_specs(cfg: ModelConfig) -> Tree:
         "attn": attn.attention_specs(cfg.attention_config()),
         "norm2": rmsnorm_spec(cfg.d_model),
     }
-    if cfg.mlp_type == "gelu":
+    if cfg.family == "moe":
+        specs["moe"] = moe_lib.moe_specs(cfg.moe_config())
+    elif cfg.mlp_type == "gelu":
         specs["mlp"] = ffn.gelu_mlp_specs(cfg.d_model, cfg.d_ff, bias=False)
     else:
         specs["mlp"] = ffn.swiglu_specs(cfg.d_model, cfg.d_ff)
@@ -210,7 +216,9 @@ def _layer_tree(stacked: Tree, i: int) -> Tree:
 # ===========================================================================
 
 class DenseLayer(nn.Module):
-    """Pre-norm decoder layer: h + attn(norm1(h)), then + mlp(norm2(h))."""
+    """Pre-norm decoder layer: h + attn(norm1(h)), then + mlp(norm2(h)) --
+    or, in the MoE family, + moe(norm2(h)), dropless when a cache is given.
+    Returns (h, new cache, the MoE router's aux loss or 0)."""
 
     def __init__(self, cfg: ModelConfig, params: Tree):
         super().__init__()
@@ -219,7 +227,10 @@ class DenseLayer(nn.Module):
         self.norm1 = Params(params["norm1"])
         self.attn = Params(params["attn"])
         self.norm2 = Params(params["norm2"])
-        self.mlp = Params(params["mlp"])
+        if cfg.family == "moe":
+            self.moe = Params(params["moe"])
+        else:
+            self.mlp = Params(params["mlp"])
 
     def forward(self, h, positions, cache=None, *, attn_impl: str = "auto"):
         a_in = rmsnorm(self.norm1, h, eps=self.cfg.norm_eps)
@@ -229,11 +240,15 @@ class DenseLayer(nn.Module):
         # (see the module's notes)
         h32 = h.float() + a_out.float()
         f_in = rmsnorm(self.norm2, h32, eps=self.cfg.norm_eps).to(h.dtype)
-        if self.cfg.mlp_type == "gelu":
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if self.cfg.family == "moe":
+            f_out, aux = moe_lib.moe_apply(self.moe, f_in, self.cfg.moe_config(),
+                                           dropless=cache is not None)
+        elif self.cfg.mlp_type == "gelu":
             f_out = ffn.gelu_mlp_apply(self.mlp, f_in)
         else:
             f_out = ffn.swiglu_apply(self.mlp, f_in)
-        return h32.to(h.dtype) + f_out, new_cache
+        return h32.to(h.dtype) + f_out, new_cache, aux
 
 
 def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int):
@@ -262,10 +277,18 @@ class _LM(nn.Module):
         table = self.embed if self.cfg.tie_embeddings else self.unembed
         return unembed_logits(table, h)
 
-    def forward(self, tokens: torch.Tensor, *, caches: Any = None):
-        """Every position's logits and the new caches."""
-        h, new_caches = self.hidden(tokens, caches=caches)
-        return self.logits(h), new_caches
+    def forward(self, tokens: torch.Tensor, *, caches: Any = None, with_aux: bool = False):
+        """Every position's logits and the new caches (and, ``with_aux``,
+        the pass's auxiliary loss)."""
+        h, new_caches, aux = self.hidden_aux(tokens, caches=caches)
+        logits = self.logits(h)
+        return (logits, new_caches, aux) if with_aux else (logits, new_caches)
+
+    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, **impls):
+        """``hidden``'s (h, new caches) and the pass's auxiliary loss (0
+        outside the MoE family)."""
+        h, new_caches = self.hidden(tokens, caches=caches, **impls)
+        return h, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
 
 
 class DenseLM(_LM):
@@ -277,25 +300,34 @@ class DenseLM(_LM):
     def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
                  seed: int = 0):
         super().__init__()
-        _require_class(cfg, DenseLM)
+        _require_class(cfg, type(self))
         params, _ = _build_params(cfg, params, device, seed)
         self._init_ends(cfg, params)
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, _layer_tree(params["layers"], i)) for i in range(cfg.num_layers))
+            DenseLayer(cfg, _layer_tree(params["layers"], i))
+            for i in range(cfg.num_layers))
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
         """Final-normed hidden states [B, S, d] (bf16) and the new caches."""
+        h, new_caches, _ = self.hidden_aux(tokens, caches=caches, attn_impl=attn_impl)
+        return h, new_caches
+
+    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
+        """``hidden``'s (h, new caches) and the aux loss summed over the
+        layers."""
         h = embed(self.embed, tokens)
         S = tokens.shape[1]
         pos0 = caches["pos"] if caches is not None else 0
         positions = torch.arange(S, device=tokens.device) + pos0
         length = None
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i, layer in enumerate(self.layers):
             cache = None
             if caches is not None:
                 lc = caches["layers"]
                 cache = {"k": lc["k"][i], "v": lc["v"][i], "length": lc["length"]}
-            h, new_cache = layer(h, positions, cache, attn_impl=attn_impl)
+            h, new_cache, layer_aux = layer(h, positions, cache, attn_impl=attn_impl)
+            aux = aux + layer_aux
             if new_cache is not None:
                 length = new_cache["length"]
         h = rmsnorm(self.final_norm, h, eps=self.cfg.norm_eps)
@@ -303,7 +335,15 @@ class DenseLM(_LM):
         if caches is not None:
             layers = dict(caches["layers"], length=length)
             new_caches = {"layers": layers, "pos": pos0 + S}
-        return h, new_caches
+        return h, new_caches, aux
+
+
+class MoELM(DenseLM):
+    """A Mixture-of-Experts decoder LM (granite-moe, qwen3-moe): the dense
+    decoder with ``moe_apply`` in place of every MLP, tokens dispatched in
+    one group.  A pass with caches (the served prefill and decode) is
+    dropless; a stateless pass drops at the configured capacity, as the
+    reference's does."""
 
 
 class SharedBlock(nn.Module):
@@ -486,8 +526,8 @@ class RWKVLM(_LM):
         return layernorm(self.ln_out, h, eps=self.cfg.norm_eps), new_caches
 
 
-LM = DenseLM | HybridLM | RWKVLM
-MODELS = {"dense": DenseLM, "hybrid": HybridLM, "rwkv": RWKVLM}
+LM = DenseLM | MoELM | HybridLM | RWKVLM
+MODELS = {"dense": DenseLM, "moe": MoELM, "hybrid": HybridLM, "rwkv": RWKVLM}
 
 
 def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0) -> LM:
@@ -501,9 +541,9 @@ def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", see
 # ===========================================================================
 
 def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None):
-    """Returns (logits [B, S, vocab] bf16, new_caches, aux loss 0)."""
-    logits, new_caches = model(tokens, caches=caches)
-    return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
+    """Returns (logits [B, S, vocab] bf16, new_caches, aux loss): the MoE
+    router's aux summed over the layers, 0 for the other families."""
+    return model(tokens, caches=caches, with_aux=True)
 
 
 def lm_loss(model: LM, batch: dict):
@@ -540,7 +580,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16
         return {name: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=dev)
                 for name, t in state.items()}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"layers": kv(cfg.num_layers), "pos": 0}
     if cfg.family == "rwkv":
         state = rwkv6.init_rwkv_state(cfg.rwkv_config(), batch, dtype, dev)

@@ -18,6 +18,13 @@ says whether it can serve a given request:
              the tile permutation *is* the sub-block dealing.  Needs 2-D
              floating-point data and ``permute_assignment``.  On a CPU device
              it runs the kernel's plain version, with the same bits.
+    torch     -- Algorithm 1 in plain PyTorch (``core.partition.
+             two_stage_partition_torch``; the counterpart of the reference's
+             ``jax`` backend): any dtype (integer labels too), any
+             ``[N, ...]`` trailing shape, ``permute_assignment=False``; the
+             permutations come from a CPU ``torch.Generator`` seeded with
+             ``spec.seed`` and the rows move in one gather on the request's
+             device, so the card's blocks equal the CPU's.  No kernel.
     collective -- Algorithm 1 as one collective over a ``torch.distributed``
              gloo group (the counterpart of the reference's ``shard_map``):
              every rank of ``mesh`` calls ``rsp.partition`` with the whole
@@ -52,6 +59,7 @@ from repro_torch.core.partition import (
     distributed_rsp_partition,
     exchange_refusal,
     two_stage_partition_np,
+    two_stage_partition_torch,
 )
 from repro_torch.core.registry import RSPStore
 from repro_torch.core.types import RSPSpec
@@ -201,6 +209,23 @@ def _run_np(req: PartitionRequest) -> torch.Tensor:
         as_numpy(req.data), req.spec, permute_assignment=req.permute_assignment
     )
     return as_tensor(blocks, req.device)
+
+
+def _supports_torch(req: PartitionRequest) -> str | None:
+    # in-memory arrays of any dtype and trailing shape; the spec's
+    # divisibility is validated upstream
+    return _non_array_source(req)
+
+
+def _run_torch(req: PartitionRequest) -> torch.Tensor:
+    generator = torch.Generator(device="cpu").manual_seed(req.spec.seed)
+    return two_stage_partition_torch(
+        as_tensor(req.data, req.device),
+        generator,
+        num_blocks=req.spec.num_blocks,
+        num_original_blocks=req.spec.num_original_blocks,
+        permute_assignment=req.permute_assignment,
+    )
 
 
 def _supports_np_stream(req: PartitionRequest) -> str | None:
@@ -369,6 +394,15 @@ register_backend(
         # hands in-memory arrays without out= back to the in-memory paths
         auto_priority=25,
         auto_eligible=_auto_np_stream,
+    )
+)
+register_backend(
+    PartitionBackend(
+        name="torch",
+        capabilities=frozenset({"in-memory"}),
+        supports=_supports_torch,
+        run=_run_torch,
+        auto_priority=10,
     )
 )
 register_backend(

@@ -1,5 +1,6 @@
 """Batched serving engine: prefill, then KV-cache, SSM-state or RWKV-state
-decode, for every model class (``DenseLM``, ``HybridLM``, ``RWKVLM``).
+decode, for every model class (``DenseLM``, ``MoELM``, ``HybridLM``,
+``RWKVLM``).
 The caches are float32, as the reference's ``Server`` makes them: a
 served RWKV6 pass shifts its tokens in float32 where a stateless one
 shifts in bf16.
@@ -69,7 +70,7 @@ class _Clock:
 
 
 class Server:
-    """Serves one model (``DenseLM``, ``HybridLM`` or ``RWKVLM``) on
+    """Serves one model (``DenseLM``, ``MoELM``, ``HybridLM`` or ``RWKVLM``) on
     ``device`` (the card unless ``"cpu"`` is asked for)."""
 
     def __init__(self, cfg: ModelConfig, model: LM, serve_cfg: ServeConfig | None = None,

@@ -21,7 +21,11 @@ against the same calls on the CPU: monitor reports and MMD^2 within 1e-5
 (1 + |b|), loader batches, KS and label frequencies exactly.  A four-host
 ``LocalTransport`` mesh on the card answers as the single host on the card
 bit for bit, and a two-rank gloo collective partition (both ranks on
-``cuda:0``) equals the ``cuda`` backend bit for bit.
+``cuda:0``) equals the ``cuda`` backend bit for bit.  Every configuration
+the autotuner may choose for the three RSP kernels (``kernels/autotune.py``)
+is held to the plain version as the default one is; the ``torch``
+partition backend's blocks on the card equal its blocks on the CPU; the
+granite-moe smoke config serves on the card through the flash kernel.
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
@@ -719,10 +723,10 @@ def test_wkv_kernel_refuses_what_it_does_not_take(dev):
 
 
 # the kernels each family's prefill launches through impl="auto"
-SMOKE_KERNELS = {"dense": ("flash_attention",), "hybrid": ("mamba2_ssd", "flash_attention"),
-                 "rwkv": ("rwkv6_wkv",)}
+SMOKE_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+                 "hybrid": ("mamba2_ssd", "flash_attention"), "rwkv": ("rwkv6_wkv",)}
 SMOKE_ARCHS = ["llama3.2-1b", "qwen2-0.5b", "qwen3-14b", "granite-20b", "chameleon-34b",
-               "zamba2-7b", "rwkv6-1.6b"]
+               "zamba2-7b", "rwkv6-1.6b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
 # the card's logits against the CPU run's: the reference's decode-vs-forward
 # tolerance (tests/test_models_smoke.py), |a - b| <= 8e-2 (1 + |b|)
 SMOKE_TOL = 8e-2
@@ -822,3 +826,107 @@ print("PARTITION_OK", flush=True)
     assert_ok(children, "PARTITION_OK")
     for c in children:
         assert marked(c, "RESULT ") == {"equal": True, "device": "cuda:0", "launches": 1}
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's configurations and the torch partition backend
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile", [1100, 110])
+def test_every_tuned_shuffle_configuration_copies_the_plain_gather(dev, tile):
+    from repro_torch.kernels.rsp_shuffle import shuffle_candidates
+
+    x = torch.from_numpy(_data(4 * 3 * tile, 29, seed=tile)).reshape(4, -1, 29).to(dev)
+    tp, ip = (torch.from_numpy(a).to(dev) for a in _perms(tile, 4, 3, tile))
+    want = rsp_shuffle_plain(x, tp, ip, tile_rows=tile)
+    cands = shuffle_candidates(tile, 29 * 4)
+    assert {c.impl for c in cands} == {"cuda"}
+    for c in cands:
+        got = rsp_shuffle_cuda(x, tp, ip, tile_rows=tile, path=c.get("path"),
+                               threads=c.get("threads"))
+        assert torch.equal(got, want), c.label
+
+
+@pytest.mark.parametrize("bins", [128, 0])
+def test_every_tuned_block_sketch_configuration_matches_plain(dev, bins):
+    from repro_torch.kernels.block_sketch.ops import as_config, block_sketch_candidates
+
+    x = torch.from_numpy(_data(110_000, 29, seed=3)).to(dev)
+    lo, invw = _block_args(x, bins)
+    s2, h2 = block_sketch_plain(x, lo, invw, bins=bins)
+    for c in block_sketch_candidates(bins):
+        s1, h1 = block_sketch_cuda(x, lo, invw, bins=bins, config=as_config(c))
+        _close(s1, s2)
+        assert torch.equal(s1[0], s2[0]), c.label
+        assert (h1 is None) == (bins == 0) and (h1 is None or torch.equal(h1, h2)), c.label
+        again = block_sketch_cuda(x, lo, invw, bins=bins, config=as_config(c))
+        assert _same((s1, h1), again), c.label    # one configuration: one fold order
+
+
+@pytest.mark.parametrize("plan", [QUERY_B, QUERY_C], ids=["query b", "query c"])
+def test_every_tuned_plan_configuration_matches_plain(dev, plan):
+    from repro_torch.kernels.plan.ops import as_config, plan_candidates
+
+    x = torch.from_numpy(_data(110_000, 29, classes=2, seed=4)).to(dev)
+    fp = len(plan.resolve_columns(29))
+    lo = torch.full((fp,), -8.0, device=dev)
+    invw = torch.full((fp,), 128 / 20.0, device=dev)
+    want = plan_sketch_plain(x, plan, lo, invw, bins=128)
+    arrays = {p: PlanArrays.build(plan, 29, dev, path=p) for p in ("stage", "gather")}
+    for c in plan_candidates(128):
+        got = plan_sketch_cuda(x, arrays[c.get("path")], lo, invw, bins=128,
+                               config=as_config(c))
+        _close(got[0], want[0])
+        assert torch.equal(got[0][0::5], want[0][0::5]) and torch.equal(got[2], want[2]), c.label
+        assert torch.equal(got[1], want[1]), c.label
+
+
+def test_the_tuner_on_the_card_measures_kernel_configurations_only(dev, tmp_path, monkeypatch):
+    """With tuning on, the auto paths measure once a key, persist the
+    winner in their own file and launch it; every record is a kernel
+    configuration, and the answers equal the untuned ones."""
+    import json
+
+    from repro_torch import rsp
+    from repro_torch.kernels import autotune
+
+    x = torch.from_numpy(_data(20_000, 29, classes=2, seed=5)).to(dev)
+    monkeypatch.setenv("REPRO_AUTOTUNE", "off")
+    want = (block_sketch(x, bins=32, lo=-8.0, hi=8.0).mean,
+            plan_sketch(x, QUERY_C, bins=32, lo=-8.0, hi=8.0).sketches[1].mean,
+            rsp.partition(x.cpu().numpy(), blocks=10, seed=3, summaries=False).stacked())
+    path = tmp_path / "autotune_torch.json"
+    monkeypatch.setenv("REPRO_AUTOTUNE", "on")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    tuner = autotune.Autotuner()
+    monkeypatch.setattr(autotune, "_TUNER", tuner)
+    got = (block_sketch(x, bins=32, lo=-8.0, hi=8.0).mean,
+           plan_sketch(x, QUERY_C, bins=32, lo=-8.0, hi=8.0).sketches[1].mean,
+           rsp.partition(x.cpu().numpy(), blocks=10, seed=3, summaries=False).stacked())
+    assert tuner.measurements == 3
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+    assert torch.equal(got[2], want[2])
+    records = json.loads(path.read_text())
+    assert {k.split("|")[0] for k in records} == {"block_sketch", "plan_sketch", "rsp_shuffle"}
+    for rec in records.values():
+        assert rec["impl"] == "cuda" and not rec["fallback"] and rec["measured_us"]
+    block_sketch(x, bins=32, lo=-8.0, hi=8.0)
+    assert tuner.measurements == 3            # a cache hit
+
+
+def test_torch_backend_on_the_card_equals_the_cpu(dev):
+    from repro_torch import rsp
+    from repro_torch.core.partition import is_partition
+
+    data = _data(12_000, 5, classes=3)
+    labels = (data[:, -1]).astype(np.int64)
+    for arr in (data, labels, data.reshape(12_000, 5, 1)):
+        kernels.reset_launch_counts()
+        on_card = rsp.partition(arr, blocks=10, seed=7, backend="torch", summaries=False)
+        on_cpu = rsp.partition(arr, blocks=10, seed=7, backend="torch", device="cpu",
+                               summaries=False)
+        assert on_card.stacked().device.type == "cuda"
+        assert torch.equal(on_card.stacked().cpu(), on_cpu.stacked())
+        assert is_partition(on_card.stacked(), arr)
+        assert sum(kernels.launch_counts().values()) == 0   # no kernel on this path

@@ -63,7 +63,8 @@ def test_smoke_configs_match_the_reference():
         for f in dataclasses.fields(ours):
             assert getattr(ours, f.name) == getattr(ref, f.name), (arch, f.name)
     assert set(ARCHS) == {"llama3.2-1b", "qwen2-0.5b", "qwen3-14b", "granite-20b",
-                          "chameleon-34b", "zamba2-7b", "rwkv6-1.6b"}
+                          "chameleon-34b", "zamba2-7b", "rwkv6-1.6b",
+                          "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"}
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "pallas"])
@@ -188,9 +189,10 @@ def test_checkpoint_keys_parse():
 @pytest.mark.parametrize("family", ["moe", "hybrid", "rwkv", "encoder"])
 def test_other_families_name_their_roadmap_item(family):
     cfg = dataclasses.replace(smoke_config("llama3.2-1b"), family=family)
-    if family in ("hybrid", "rwkv"):
+    if family in ("moe", "hybrid", "rwkv"):
         # ported: DenseLM points at the family's own class
-        with pytest.raises(ValueError, match={"hybrid": "HybridLM", "rwkv": "RWKVLM"}[family]):
+        with pytest.raises(ValueError, match={"moe": "MoELM", "hybrid": "HybridLM",
+                                              "rwkv": "RWKVLM"}[family]):
             DenseLM(cfg, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP section 1, item"):

@@ -128,7 +128,7 @@ def test_reference_blocks_go_through_the_sketch_wrapper(monkeypatch):
     On the host the launcher is swapped for a counting plain stand-in."""
     calls = []
 
-    def stand_in(x, lo, inv_width, *, bins):
+    def stand_in(x, lo, inv_width, *, bins, config=None):
         calls.append(tuple(x.shape))
         stats, hist = block_sketch_plain(x, lo, inv_width, bins=bins)
         return _sketch.pack(stats, hist, torch.zeros(1, dtype=torch.int64))

@@ -81,7 +81,7 @@ def test_backend_predicates_and_auto_selection():
     spec = RSPSpec(num_records=400, num_blocks=4, num_original_blocks=4, record_shape=(29,))
     cpu = torch.device("cpu")
     elig = backend_eligibility(PartitionRequest(data=data, spec=spec, device=cpu))
-    assert elig == {"np": None, "np_stream": None, "cuda": None,
+    assert elig == {"np": None, "np_stream": None, "cuda": None, "torch": None,
                     "collective": "requires a device mesh or process group (mesh=)"}
     ints = np.arange(400 * 2).reshape(400, 2)
     spec2 = RSPSpec(num_records=400, num_blocks=4, num_original_blocks=4, record_shape=(2,))
