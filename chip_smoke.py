@@ -5,21 +5,24 @@ ingest from disk, block-level estimation, learning from the blocks
 (ensembles, similarity, drift monitoring and the training loader),
 concurrent query serving, the multi-host mesh (distributed queries and the
 collective partition), dense LM serving, zamba2 hybrid serving, rwkv6
-scoring, loss and serving, and MoE serving (granite-moe-3b-a800m,
-qwen3-moe-30b-a3b).
+scoring, loss and serving, MoE serving (granite-moe-3b-a800m,
+qwen3-moe-30b-a3b), and training (llama3.2-1b and the hubert-xlarge
+encoder, through the flash backward kernel).
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds:
 
-1. build     -- compile the six CUDA kernels (``src/repro_torch/csrc``) with
+1. build     -- compile the seven CUDA sources (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
                 ``build/``, and print the registers, spills and shared
                 memory of the kernels redesigned for Hopper (flash's
                 wgmma + TMA kernel at each head dim, the shuffle's staged
                 and row kernels, the SSD's ssd_state and ssd_scan, the
                 WKV's wkv6_chunks, block_sketch_fused and the main path's
-                plan_sketch_fused) from the ``-Xptxas -v`` log;
+                plan_sketch_fused), and of the flash backward's
+                fa_bwd_dkdv and fa_bwd_dq at D = 64, 112 and 128, from the
+                ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative, histograms
@@ -47,7 +50,18 @@ Phases, one line each with its seconds:
                 recurrence; and each of flash, the SSD and the WKV once at
                 a smoke config's width through ``impl="auto"``, which pads
                 it to the kernel's (flash D = 16, the SSD's P = N = 16 at
-                chunk 8, the WKV's C = 16), with the launch counted;
+                chunk 8, the WKV's C = 16), with the launch counted; the
+                flash backward (dq, dk, dv) within 2e-2 (1 + |plain|) of its
+                plain version (the port of the reference's custom VJP) on
+                the same q, k, v, output and statistics at llama3.2-1b's
+                training shape (q [8, 32, 2048, 64], k/v [8, 8, 2048, 64],
+                causal, the layer's strided views) and hubert-xlarge's
+                ([8, 16, 2048, 80] zero-padded to 112, full), the same bits
+                on a second call, the padded columns zero, two known-wrong
+                controls (Dvec dropped; dK and dV in the wrong kv head)
+                refused; the forward with lse equal to the one without and
+                lse within 1e-5 (1 + |b|) of the plain statistics; and
+                ``FlashAttention`` at D = 80 against the plain Function;
 2b. autotune -- into a fresh cache file in a temporary directory
                 (``REPRO_AUTOTUNE_CACHE``, which the mesh's children read;
                 ``REPRO_AUTOTUNE=on``): every configuration the tuner may
@@ -184,7 +198,14 @@ Phases, one line each with its seconds:
                 launches, and on query (b)'s plan on a line of its own; a
                 plan's bound reads only the 32-byte sectors of the columns
                 it touches; the three RSP kernels also at the tuner's
-                winning configuration (``tuned_ms``, ``tuned_config``);
+                winning configuration (``tuned_ms``, ``tuned_config``; the
+                default and the winner timed in turns, ABBA, after a
+                discarded warm window of each, each side's best window); the
+                flash backward at both training shapes beside its bound
+                (2.5x the forward's products), its plain version and the
+                backward of ``scaled_dot_product_attention`` on
+                head-expanded K/V.  Every timed loop follows a discarded
+                warm window;
 6. serving   -- llama3.2-1b at full width (16 layers, d_model 2048, 32 over
                 8 heads, vocab 128,256; random weights from the seed):
                 ``Server.generate`` of 8 prompts of 2048 tokens, 64 new
@@ -255,14 +276,37 @@ Phases, one line each with its seconds:
                 the card; head dim 128, 128 experts top-8) serving 8
                 prompts of 1024 tokens, 16 new, with the same check.  Each
                 model's parameters, weight GB, prefill seconds, first
-                token and decode tokens/s printed beside the card.
+                token and decode tokens/s printed beside the card;
+10. training -- (after 9) llama3.2-1b as ``launch/train.py --preset full``
+                builds it (16 layers, d_model 2048, remat) trained by the
+                ``Trainer`` 20 steps of 8 x 2048 tokens of the Zipf token
+                corpus in 16 RSP blocks (AdamW, lr 3e-4, warmup 2): 32
+                forward and 16 backward flash launches a step, the loss
+                falling by 1 nat or more; its step seconds (synchronised),
+                tokens/s, share of the bf16 peak and peak memory printed
+                beside the card; one step of the trained state under the
+                flat-head layout and a 16-chunk cross entropy
+                (``launch/dryrun.py``'s training overrides) against the
+                grouped step: loss within 1e-2, peak memory lower;
+                hubert-xlarge at full width and depth (48 layers, d_model
+                1280, 16 heads of 80): ``make_forward_fn`` on 8 x 2048 x
+                1280 frames against the plain attention's (48 launches, no
+                logit beyond 8e-2 (1 + |b|)), then 20 training steps on
+                frames that embed RSP-sampled targets (a seeded table plus
+                noise, 30% masked): 96 forward and 48 backward launches a
+                step, the loss falling by 1 nat or more; the restart gate:
+                llama3.2-1b at full width and 2 layers, 4 steps unbroken
+                against 2, a checkpoint, a fresh Trainer and 2 more, under
+                ``torch.use_deterministic_algorithms``: master weights,
+                moments and step equal bit for bit (the bytes written and
+                the free disk printed).
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
 path, the estimator, the drift monitor, the first serve wave, each mesh
 run on threads, each rank of the collective partition, each LM path, each
-MoE generate).
+MoE generate, each training run and step).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -335,25 +379,51 @@ def max_abs(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def _window(fn, reps: int) -> float:
+    """Milliseconds per call of ``reps`` back-to-back calls of ``fn(i)``
+    between two CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def time_cuda(fn, *, reps: int, windows: int = 3) -> float:
     """Milliseconds per call of ``fn(i)``: CUDA events around ``reps``
     back-to-back calls (i = 0 .. reps-1), divided by ``reps``; the median
-    over ``windows`` such windows, after one warm-up call."""
+    over ``windows`` such windows, after one warm-up call and one discarded
+    window (the first window of a launch read up to 45% slow: the card
+    coming up to its clocks)."""
     import torch
 
     fn(0)
     torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(reps):
-            fn(i)
-        stop.record()
-        stop.synchronize()
-        per_call.append(start.elapsed_time(stop) / reps)
-    return statistics.median(per_call)
+    _window(fn, reps)
+    return statistics.median(_window(fn, reps) for _ in range(windows))
+
+
+def time_turns(fns: dict, *, reps: int, rounds: int = 3) -> dict:
+    """``time_cuda`` for several launches of one kernel at once, so that no
+    side carries the order effect: a warm-up call and a discarded window of
+    each, then ``rounds`` windows of each taken in turns, ABBA..., and each
+    side's best window."""
+    import torch
+
+    for fn in fns.values():
+        fn(0)
+        torch.cuda.synchronize()
+        _window(fn, reps)
+    best = dict.fromkeys(fns, float("inf"))
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            best[name] = min(best[name], _window(fns[name], reps))
+    return best
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -2279,10 +2349,11 @@ def times(args, device) -> dict:
     path = shuffle_path(delta, F * 4, x_ptr=x.data_ptr())
     tuned = rs_ops.shuffle_config(x, tp, ip, delta)   # the tuner's winner, cached
     out["rsp_shuffle"] = {
-        "ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta), reps=5),
-        "tuned_ms": time_cuda(lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta,
-                                                         path=tuned.get("path"),
-                                                         threads=tuned.get("threads")), reps=5),
+        **time_turns({"ms": lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta),
+                      "tuned_ms": lambda i: rsp_shuffle_cuda(x, tp, ip, tile_rows=delta,
+                                                             path=tuned.get("path"),
+                                                             threads=tuned.get("threads"))},
+                     reps=5),
         "tuned_config": tuned.label,
         "plain_ms": time_cuda(lambda i: rsp_shuffle_plain(x, tp, ip, tile_rows=delta), reps=5),
         "library_ms": time_cuda(lambda i: xf.index_select(0, flat), reps=5),
@@ -2304,10 +2375,9 @@ def times(args, device) -> dict:
     # the launchers the query path calls: one launch, the packed output
     tuned = bs_ops.sketch_config(blk, lo, invw, bins=BINS)
     out["block_sketch"] = {
-        "ms": time_cuda(lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS),
-                        reps=REPS),
-        "tuned_ms": time_cuda(lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS,
-                                                            config=tuned), reps=REPS),
+        **time_turns({"ms": lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS),
+                      "tuned_ms": lambda i: block_sketch_packed(blks[i % 8], lo, invw, bins=BINS,
+                                                                config=tuned)}, reps=REPS),
         "tuned_config": bs_ops.as_candidate(tuned).label,
         "plain_ms": time_cuda(lambda i: block_sketch_plain(blks[i % 8], lo, invw, bins=BINS),
                               reps=REPS),
@@ -2332,11 +2402,11 @@ def times(args, device) -> dict:
         nbytes = read + arrays.pcol.numel() * 12 + fp * 4 + 5 * g * fp * 4 + 4
         b, by = bound_ms(nbytes, (len(plan.predicates) + 5 * fp) * n)
         return {
-            "ms": time_cuda(lambda i: plan_sketch_packed(blks[i % 8], arrays, None, None, bins=0),
-                            reps=REPS),
-            "tuned_ms": time_cuda(lambda i: plan_sketch_packed(blks[i % 8], t_arrays, None, None,
-                                                               bins=0, config=t_config),
-                                  reps=REPS),
+            **time_turns({"ms": lambda i: plan_sketch_packed(blks[i % 8], arrays, None, None,
+                                                             bins=0),
+                          "tuned_ms": lambda i: plan_sketch_packed(blks[i % 8], t_arrays, None,
+                                                                   None, bins=0, config=t_config)},
+                         reps=REPS),
             "tuned_config": tuned.label,
             "plain_ms": time_cuda(
                 lambda i: plan_sketch_plain(blks[i % 8], plan, None, None, bins=0), reps=REPS),
@@ -2653,8 +2723,8 @@ def attention_replaced(stand_in):
 
     real = attention.flash_attention
 
-    def patched(q, k, v, *, causal, impl="auto"):
-        return real(q, k, v, causal=causal, impl=impl) if impl == "torch" else stand_in(
+    def patched(q, k, v, *, causal, impl="auto", **kw):
+        return real(q, k, v, causal=causal, impl=impl, **kw) if impl == "torch" else stand_in(
             q, k, v, causal)
 
     attention.flash_attention = patched
@@ -4076,6 +4146,543 @@ def moe_serving(args, device, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernel, llama3.2-1b and hubert-xlarge
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+ENC_ARCH = "hubert-xlarge"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2048, 20, 2, 3e-4
+TRAIN_SEQUENCES, TRAIN_BLOCKS = 256, 16     # the corpus: N % (P * K) == 0 at P = K = 16
+# llama3.2-1b trains on the drifting corpus, as launch/train.py feeds it:
+# each sequence's Zipf ranking is rotated by its place in the corpus, so
+# until the loader's epoch wraps (256 sequences, 32 steps of 8) nearly every
+# batch's frequent tokens are ones no earlier batch made frequent, and 20
+# steps leave its loss near where it starts.  That run is held to stay
+# stable; a second run from the same initial state on the corpus without
+# drift is held to learn.
+DRIFT_RISE = 0.1        # gate: the mean of the drift run's last 5 losses at most the first's + this
+LOSS_DROP = 1.0         # gate: a learning run's last loss below its first by this many nats
+# the flat + seq-chunked step against the grouped step: |loss difference|
+# (5e-7 on the H100) and each gradient leaf's relative L2 distance (0.0041;
+# the card tests' gate for the flash backward's gradients)
+FLAT_LOSS_TOL, FLAT_GRAD_TOL = 1e-4, 3e-2
+FLAT_OVERRIDES = {"flat_attention": True, "loss_seq_chunks": 16}   # launch/dryrun.py:88
+ENC_NOISE = 0.5         # hubert's frames: a seeded embedding of the targets plus this noise
+ENC_MASK = 0.3          # the share of masked positions, as concrete_inputs draws it
+RESTART_LAYERS, RESTART_STEPS, RESTART_AT = 2, 4, 2
+BWD_TOL = FLASH_TOL["bfloat16"]   # |a - b| <= tol (1 + |b|), the bf16 forward's gate
+LSE_TOL = 1e-5
+BWD_CASES = {
+    # name: (B, H, Hkv, S, D, causal); D is padded to the kernel's width
+    "llama3.2-1b train": (8, 32, 8, 2048, 64, True),
+    "hubert-xlarge train": (8, 16, 16, 2048, 80, False),
+}
+
+
+def bwd_inputs(case: str, device, seed: int):
+    """q, k, v, dout at a training shape as the attention layer hands them
+    to the kernel: views of [B, S, heads, D] (llama), or zero-padded to the
+    kernel's head dim (hubert's 80 to 112, dout's padded columns zero as
+    autograd gives them); the scale is the unpadded D's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import padded_head_dim
+
+    B, H, Hkv, S, D, causal = BWD_CASES[case]
+    Dp = padded_head_dim(D)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(h):
+        t = torch.randn((B, S, h, D), generator=g, device=device).bfloat16().transpose(1, 2)
+        return t if Dp == D else F.pad(t, (0, Dp - D))
+
+    q, k, v, dout = make(H), make(Hkv), make(Hkv), make(H)
+    return q, k, v, dout, causal, 1.0 / D**0.5
+
+
+def _beyond(got, want, tol: float) -> int:
+    return int(((got.float() - want.float()).abs() > tol * (1 + want.float().abs())).sum())
+
+
+def flash_bwd_parity(args, device) -> float:
+    """The backward kernel against its plain version (the port of the
+    reference's custom VJP) on the same inputs, output and statistics at
+    llama3.2-1b's and hubert-xlarge's training shapes, its two known-wrong
+    controls refused; the forward with lse equal to the one without and lse
+    within LSE_TOL (1 + |b|) of the plain statistics; the same gradients
+    through ``FlashAttention`` at hubert's unpadded D; returns the largest
+    absolute deviation."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
+        flash_attention_stats, log_sum_exp)
+
+    worst = 0.0
+    for i, case in enumerate(BWD_CASES):
+        q, k, v, dout, causal, scale = bwd_inputs(case, device, args.seed + 60 + i)
+        out32, (m, l) = flash_attention_stats(q, k, v, causal=causal, scale=scale)
+        out, lse = out32.bfloat16(), log_sum_exp(m, l)
+        del out32
+        want = flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal, scale=scale)
+        got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal, scale=scale)
+        again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+            bad = _beyond(a, b, BWD_TOL)
+            errs[name] = float((a.float() - b.float()).abs().max())
+            check(a.shape == b.shape and a.dtype == torch.bfloat16, f"flash bwd {case} {name}")
+            check(bool(torch.isfinite(a).all()), f"flash bwd {case}: non-finite {name}")
+            check(bad == 0, f"flash bwd {case}: {bad} {name} values beyond {BWD_TOL} (1 + |b|)"
+                  f" (largest deviation {errs[name]:.3g})")
+            check(torch.equal(a, c), f"flash bwd {case}: {name} differs between two calls")
+            D = BWD_CASES[case][4]
+            check(bool((a[..., D:] == 0).all()), f"flash bwd {case}: padded {name} not zero")
+        worst = max(worst, *errs.values())
+        # known-wrong controls: Dvec dropped (the output zeroed), dK and dV
+        # summed into the wrong kv head
+        no_dvec = flash_attention_bwd_cuda(q, k, v, torch.zeros_like(out), dout, lse,
+                                           causal=causal, scale=scale)
+        refused = {"no Dvec": sum(_beyond(a, b, BWD_TOL) for a, b in zip(no_dvec, want)),
+                   "wrong group": sum(_beyond(a.roll(1, dims=1), b, BWD_TOL)
+                                      for a, b in zip(got[1:], want[1:]))}
+        for name, n in refused.items():
+            check(n > 0, f"flash bwd {case}: the gate passed the known-wrong '{name}' control")
+        del no_dvec, want, again
+        # the forward's lse: the output unchanged, lse the plain statistics
+        o_lse, lse_k = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=True)
+        o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o_lse), f"flash {case}: the output with lse differs from without")
+        lse_err = float((lse_k - lse).abs().max())
+        lse_bad = _beyond(lse_k, lse, LSE_TOL)
+        check(lse_bad == 0, f"flash {case}: {lse_bad} lse values beyond {LSE_TOL} (1 + |b|)"
+              f" (largest {lse_err:.3g})")
+        print(f"  flash bwd {case}: max |kernel - plain| {json.dumps(errs)} (tolerance {BWD_TOL}"
+              f" (1 + |b|)); controls refused by {json.dumps(refused)} values; lse max"
+              f" |kernel - plain| {lse_err:.3g}", flush=True)
+        del q, k, v, dout, out, lse, got, o, o_lse, lse_k, m, l
+        torch.cuda.empty_cache()
+
+    # through FlashAttention at hubert's D = 80: padding, scale and the cut
+    # of the padded gradient columns, against the plain Function
+    B, H, Hkv, S, D, causal = BWD_CASES["hubert-xlarge train"]
+    g = torch.Generator(device=device).manual_seed(args.seed + 70)
+    q, k, v, dout = (torch.randn((B, h, S, D), generator=g, device=device).bfloat16()
+                     for h in (H, Hkv, Hkv, H))
+    grads = {}
+    for impl in ("auto", "torch"):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        flash_attention(*ins, causal=causal, impl=impl).backward(dout)
+        counts = kernels.launch_counts()
+        grads[impl] = [t.grad for t in ins]
+        if impl == "auto":
+            check(counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1,
+                  f"FlashAttention at D = 80 launched {counts}")
+    bad = sum(_beyond(a, b, BWD_TOL) for a, b in zip(grads["auto"], grads["torch"]))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*grads.values()))
+    check(bad == 0, f"FlashAttention at D = 80: {bad} gradient values beyond {BWD_TOL}")
+    print(f"  FlashAttention at D = 80 (padded to 112): max |kernel - plain| {err:.3g}",
+          flush=True)
+    del q, k, v, dout, grads
+    torch.cuda.empty_cache()
+    return max(worst, err)
+
+
+def flash_bwd_times(args, device, case: str) -> dict:
+    """The backward kernel at a training shape beside its bound, its plain
+    version and the backward of one ``scaled_dot_product_attention`` call
+    on head-expanded K/V (the forward's yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        BWD_KERNELS, flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_stats,
+        log_sum_exp)
+
+    q, k, v, dout, causal, scale = bwd_inputs(case, device, args.seed + 80)
+    B, H, S, Dp = q.shape
+    Hkv, D = k.shape[1], BWD_CASES[case][4]
+    out32, (m, l) = flash_attention_stats(q, k, v, causal=causal, scale=scale)
+    out, lse = out32.bfloat16(), log_sum_exp(m, l)
+    del out32
+    pairs = S * (S + 1) // 2 if causal else S * S
+
+    def work(d):
+        # 2.5x the forward's 4 B H d pairs; q, k, v, out, dout read and dq,
+        # dk, dv written once in bf16, lse read in float32
+        return 10 * B * H * d * pairs, 2 * d * (4 * B * H * S + 4 * B * Hkv * S) + 4 * lse.numel()
+
+    # the function's work is at the unpadded D (the padded columns are
+    # zeros); the kernel's at Dp, the padding's cost beside it
+    flops, nbytes = work(D)
+    b, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    padded_flops, padded_bytes = work(Dp)
+    run = lambda i: flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal,  # noqa: E731
+                                             scale=scale)
+    # the library's call at the unpadded D, which it takes as it is
+    qr = q[..., :D].contiguous().requires_grad_()
+    ke = k[..., :D].repeat_interleave(H // Hkv, dim=1).contiguous().requires_grad_()
+    ve = v[..., :D].repeat_interleave(H // Hkv, dim=1).contiguous().requires_grad_()
+    lib_dout = dout[..., :D].contiguous()
+    lib_out = F.scaled_dot_product_attention(qr, ke, ve, is_causal=causal, scale=scale)
+    got = {
+        "ms": time_cuda(run, reps=REPS),
+        "plain_ms": time_cuda(lambda i: flash_attention_bwd_plain(
+            q, k, v, out, dout, m, l, causal=causal, scale=scale), reps=2),
+        "library_ms": time_cuda(lambda i: torch.autograd.grad(
+            lib_out, (qr, ke, ve), lib_dout, retain_graph=True), reps=REPS),
+        "device_ms": device_ms(run, REPS, *BWD_KERNELS),
+        "bound_ms": b, "bound_by": by, "flops": flops, "bytes": nbytes,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": flops / BF16_OPS_PER_S * 1e3,
+        "padded_bound_ms": bound_ms(padded_bytes, padded_flops, BF16_OPS_PER_S)[0],
+        "kernels_per_call": len(BWD_KERNELS),
+        "shape": f"q, out, dout [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16"
+                 f"{'' if D == Dp else f' padded to {Dp}'},"
+                 f" {'causal' if causal else 'full'}, lse f32",
+    }
+    del q, k, v, dout, out, lse, m, l, qr, ke, ve, lib_dout, lib_out
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """A training step's operations before remat: three times the forward's
+    (every projection over every token, attention over its pairs, the
+    unembedding or head at every position)."""
+    d, dh, T = cfg.d_model, cfg.resolved_head_dim, batch * seq
+    proj = d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = (2 if cfg.family == "encoder" or cfg.mlp_type == "gelu" else 3) * d * cfg.d_ff
+    pairs = seq * (seq + 1) // 2 if cfg.causal else seq * seq
+    attn = 4 * cfg.num_heads * dh * pairs * batch
+    ends = 2 * d * cfg.vocab_size * T + (2 * d * d * T if cfg.family == "encoder" else 0)
+    return 3 * (cfg.num_layers * (2 * (proj + mlp) * T + attn) + ends)
+
+
+def token_loader(vocab: int, seq: int, seed: int, device, drift: bool):
+    """The Zipf token corpus (``drift``: the drifting one) in RSP blocks
+    (Algorithm 1) and the RSP loader over them, batches of TRAIN_BATCH
+    sequences on ``device``."""
+    from repro_torch.core import RSPSpec, two_stage_partition_np
+    from repro_torch.data import BlockSource, RSPLoader, make_token_corpus
+
+    corpus = make_token_corpus(TRAIN_SEQUENCES, seq, vocab_size=vocab, seed=seed, drift=drift)
+    spec = RSPSpec(num_records=TRAIN_SEQUENCES, num_blocks=TRAIN_BLOCKS,
+                   num_original_blocks=TRAIN_BLOCKS, seed=1)
+    blocks = two_stage_partition_np(corpus, spec)
+    return RSPLoader(BlockSource(blocks=blocks, device=device), batch_size=TRAIN_BATCH, seed=5)
+
+
+def trained(tag: str, cfg, state, loader, transform, device, gpu: str, ckpt_dir: str,
+            seed: int, learns: bool = True):
+    """TRAIN_STEPS steps of the Trainer from ``state``, every step logged:
+    its losses, step seconds (synchronised), tokens/s, share of the bf16
+    peak, peak memory and launches a step, printed beside the card.  Every
+    loss and gradient norm must be finite; ``learns``: the loss must fall
+    by LOSS_DROP, else the mean of the last five stay within DRIFT_RISE of
+    the first."""
+    import math
+    import statistics as st
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
+                     checkpoint_every=10**9, seed=seed)
+    trainer = Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tc, loader, ckpt_dir, device=device,
+                      batch_transform=transform)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.run(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()          # the training path ends here
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    step_s = st.median(h["sec_per_step"] for h in hist[1:])
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = {
+        "steps": len(hist), "losses": losses, "first_step_s": hist[0]["sec_per_step"],
+        "step_s": step_s, "step_s_all": [h["sec_per_step"] for h in hist],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "flops_per_step": flops,
+        "bound_step_s": flops / BF16_OPS_PER_S, "peak_share": flops / BF16_OPS_PER_S / step_s,
+        "peak_gb": peak_gb, "wall_s": wall, "counts": counts,
+        "launches_per_step": {k: counts[k] / len(hist) for k in ("flash_attention",
+                                                                "flash_attention_bwd")},
+        "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+    }
+    phase(f"{tag} train", t0, f"{len(hist)} steps of {TRAIN_BATCH} x {TRAIN_SEQ}; launches"
+          f" {json.dumps(counts)}")
+    L = cfg.num_layers
+    check(counts["flash_attention"] == len(hist) * 2 * L and counts["flash_attention_bwd"]
+          == len(hist) * L, f"{tag}: {counts} launches in {len(hist)} steps, not {2 * L} forward"
+          f" and {L} backward a step")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite: {losses}")
+    check(all(math.isfinite(x) for x in out["grad_norms"]),
+          f"{tag}: a gradient norm is not finite: {out['grad_norms']}")
+    if learns:
+        check(losses[-1] < losses[0] - LOSS_DROP, f"{tag}: the loss fell from {losses[0]:.4f}"
+              f" to {losses[-1]:.4f}, not by {LOSS_DROP}")
+    else:
+        tail = st.mean(losses[-5:])
+        check(tail <= losses[0] + DRIFT_RISE, f"{tag}: the last five losses average {tail:.4f},"
+              f" above the first {losses[0]:.4f} + {DRIFT_RISE}")
+    for line in (f"losses {losses[0]:.4f} -> {losses[-1]:.4f}"
+                 f" ({json.dumps([round(x, 4) for x in losses])})",
+                 f"step seconds {step_s:.4f} (median of steps 2-{len(hist)}; first"
+                 f" {hist[0]['sec_per_step']:.4f})",
+                 f"tokens/s {out['tokens_per_s']:.1f}",
+                 f"share of the bf16 peak {out['peak_share']:.4f} ({flops / 1e12:.2f} TFLOP a"
+                 f" step before remat, {out['bound_step_s']:.4f} s at 989 TFLOP/s)",
+                 f"peak device memory {peak_gb:.3f} GB",
+                 f"flash launches a step: {json.dumps(out['launches_per_step'])}"):
+        print(f"train {tag} ({cfg.name}) {TRAIN_BATCH} x {TRAIN_SEQ}: {line} [{gpu}]", flush=True)
+    return state, out
+
+
+def step_grads(cfg, state, batch, device):
+    """One step's loss and gradients (no optimizer) and its peak memory."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.transformer import build_lm
+    from repro_torch.train import param_grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = build_lm(cfg, state["params"], device=device, trainable=True)
+    loss, _ = api.make_loss_fn(model)(batch)
+    loss.backward()
+    grads = param_grads(model, state["params"])
+    del model
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, torch.cuda.max_memory_allocated(device) / 1e9, \
+        time.perf_counter() - t0
+
+
+def restart_gate(args, device, tmp: str) -> dict:
+    """RESTART_STEPS steps unbroken, and RESTART_AT steps, a checkpoint, a
+    fresh Trainer and the rest: the resumed master weights, moments and
+    step equal the unbroken run's bit for bit, under
+    ``torch.use_deterministic_algorithms(True)`` (ops without a
+    deterministic CUDA version are named from its warnings).  llama3.2-1b
+    at full width and RESTART_LAYERS layers."""
+    import dataclasses
+    import os
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.common import iter_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer, init_state
+
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=RESTART_LAYERS)
+    tc = TrainConfig(total_steps=RESTART_STEPS, warmup_steps=1, log_every=1,
+                     checkpoint_every=10**9, seed=args.seed)
+    transform = lambda b: {"tokens": b.to(torch.int32)}  # noqa: E731
+
+    def trainer(ckpt_dir):
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, True)
+        return Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tc, loader, ckpt_dir, device=device,
+                       batch_transform=transform)
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            whole = trainer(os.path.join(tmp, "whole")).run(init_state(cfg, args.seed,
+                                                                      device=device))
+            part = os.path.join(tmp, "resumed")
+            trainer(part).run(init_state(cfg, args.seed, device=device),
+                              stop_after_steps=RESTART_AT)
+            ckpt = os.path.join(part, f"step_{RESTART_AT:08d}")
+            written = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+            free = shutil.disk_usage(part).free
+            torch.cuda.empty_cache()
+            resumed = trainer(part).run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    pairs = [(p, a, b) for part_ in ("master", "m", "v", "step")
+             for (p, a), (_, b) in zip(iter_leaves({part_: whole["opt"][part_]}),
+                                       iter_leaves({part_: resumed["opt"][part_]}))]
+    differ = [("/".join(p), float((a.float() - b.float()).abs().max()))
+              for p, a, b in pairs if not torch.equal(a, b)]
+    got = {"layers": RESTART_LAYERS, "steps": RESTART_STEPS, "checkpoint_at": RESTART_AT,
+           "bytes_written": written, "free_disk_bytes": free,
+           "step": [int(whole["opt"]["step"]), int(resumed["opt"]["step"])],
+           "leaves": len(pairs), "leaves_differing": differ, "nondeterministic_ops": nondet,
+           "latest": store.latest_step(part)}
+    phase("restart gate", t0, json.dumps(got))
+    check(got["step"] == [RESTART_STEPS, RESTART_STEPS], f"restart gate steps {got['step']}")
+    check(not differ, f"the resumed run differs from the unbroken one in {differ}"
+          f" (ops without a deterministic version: {nondet})")
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return got
+
+
+def training(args, device, gpu: str) -> dict:
+    """llama3.2-1b at full width and depth trained TRAIN_STEPS steps on the
+    drifting Zipf token corpus in RSP blocks; one step of its state under
+    the flat + seq-chunked overrides against the grouped step; TRAIN_STEPS
+    steps from the same initial state on the corpus without drift;
+    hubert-xlarge's forward and TRAIN_STEPS training steps; the restart
+    gate."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models.common import iter_leaves
+    from repro_torch.models.transformer import build_lm
+    from repro_torch.train import init_state
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="rsp_train_")
+    try:
+        # llama3.2-1b, as launch/train.py --preset full builds it
+        cfg = ARCHS[TRAIN_ARCH]
+        t0 = time.perf_counter()
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, True)
+        state = init_state(cfg, args.seed, device=device)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for _, p in iter_leaves(state["params"]))
+        phase("train setup", t0, f"{cfg.name}: {n_params:,} parameters, bf16 params + float32"
+              f" master, m and v {n_params * 14 / 1e9:.3f} GB; corpus {TRAIN_SEQUENCES} x"
+              f" {TRAIN_SEQ + 1} tokens in {TRAIN_BLOCKS} RSP blocks")
+        transform = lambda b: {"tokens": b.to(torch.int32)}  # noqa: E731
+        state, out["llama"] = trained("llama", cfg, state, loader, transform, device, gpu, tmp,
+                                      args.seed, learns=False)
+
+        # one step of the trained state, grouped and flat + seq-chunked
+        batch = transform(loader.next_batch())
+        loader.close()
+        steps = {}
+        for tag, c in (("grouped", cfg), ("flat + seq-chunked",
+                                          dataclasses.replace(cfg, **FLAT_OVERRIDES))):
+            kernels.reset_launch_counts()
+            loss, grads, peak, secs = step_grads(c, state, batch, device)
+            steps[tag] = {"loss": loss, "peak_gb": peak, "s": secs,
+                          "counts": kernels.launch_counts()}
+            if tag == "grouped":
+                ref_grads = grads
+            else:
+                rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+                          for (_, a), (_, b) in zip(iter_leaves(grads), iter_leaves(ref_grads)))
+                steps[tag]["grad_rel_l2_max"] = rel
+            del grads
+            torch.cuda.empty_cache()
+        del ref_grads
+        # where a step's device time goes: one profiled grouped forward and
+        # backward (the optimizer's update is not in it)
+        wall, busy, by_name, n_events = profiled(lambda: step_grads(cfg, state, batch, device))
+        steps["grouped"]["profile"] = {
+            "wall_s": wall, "device_busy_s": busy, "device_events": n_events,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "top": [(name[:60], sec) for name, sec in sorted(by_name.items(),
+                                                             key=lambda kv: -kv[1])[:10]]}
+        torch.cuda.empty_cache()
+        d = abs(steps["flat + seq-chunked"]["loss"] - steps["grouped"]["loss"])
+        drop = steps["grouped"]["peak_gb"] - steps["flat + seq-chunked"]["peak_gb"]
+        phase("train flat step", t0, f"{json.dumps(steps)}; |loss difference| {d:.3g}"
+              f" (tolerance {FLAT_LOSS_TOL}), largest gradient relative L2"
+              f" {steps['flat + seq-chunked']['grad_rel_l2_max']:.3g} (tolerance {FLAT_GRAD_TOL}),"
+              f" peak memory lower by {drop:.3f} GB")
+        print(f"train {cfg.name} one step, flat + loss_seq_chunks 16 against grouped: loss"
+              f" {steps['flat + seq-chunked']['loss']:.5f} against {steps['grouped']['loss']:.5f},"
+              f" peak {steps['flat + seq-chunked']['peak_gb']:.3f} against"
+              f" {steps['grouped']['peak_gb']:.3f} GB [{gpu}]", flush=True)
+        check(d <= FLAT_LOSS_TOL, f"the flat + seq-chunked step's loss is {d:.3g} from the"
+              f" grouped step's")
+        rel = steps["flat + seq-chunked"]["grad_rel_l2_max"]
+        check(rel <= FLAT_GRAD_TOL, f"a flat + seq-chunked gradient leaf is {rel:.3g} (relative"
+              f" L2) from the grouped step's, beyond {FLAT_GRAD_TOL}")
+        check(drop > 0, f"the flat + seq-chunked step's peak memory is not lower ({drop:.3f} GB)")
+        out["flat_step"] = dict(steps, loss_difference=d, peak_drop_gb=drop)
+        del state, batch
+        torch.cuda.empty_cache()
+
+        # the same initial state on the corpus without drift: it learns
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, False)
+        out["llama_no_drift"] = trained("llama no drift", cfg,
+                                        init_state(cfg, args.seed, device=device), loader,
+                                        transform, device, gpu, tmp, args.seed)[1]
+        loader.close()
+        torch.cuda.empty_cache()
+
+        # hubert-xlarge: frames are a fixed seeded embedding of RSP-sampled
+        # target ids plus noise, 30% of the positions masked
+        cfg = ARCHS[ENC_ARCH]
+        t0 = time.perf_counter()
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ, args.seed + 1, device, True)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=device)
+
+        def frames_of(targets):
+            noise = torch.randn((*targets.shape, cfg.d_model), generator=gen, device=device)
+            return {"frames": (table[targets.long()] + ENC_NOISE * noise).bfloat16(),
+                    "targets": targets.to(torch.int32),
+                    "mask": torch.rand(targets.shape, generator=gen, device=device) < ENC_MASK}
+
+        state = init_state(cfg, args.seed, device=device)
+        batch = frames_of(loader.next_batch())
+        model = build_lm(cfg, state["params"], device=device, trainable=True)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = api.make_forward_fn(model)({"frames": batch["frames"]})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t1
+            fcounts = kernels.launch_counts()
+            plain = model(batch["frames"], attn_impl="torch")
+        dev_ = logit_deviation(logits, plain)
+        enc_fwd = {"s": fwd_s, "counts": fcounts, "shape": list(logits.shape),
+                   "against_plain": dev_}
+        phase("hubert forward", t0, json.dumps(enc_fwd))
+        check(fcounts["flash_attention"] == cfg.num_layers and fcounts["flash_attention_bwd"] == 0,
+              f"hubert's forward launched {fcounts}")
+        check(list(logits.shape) == [TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size]
+              and bool(torch.isfinite(logits).all()), "hubert's logits")
+        check(dev_["bad"] == 0, f"hubert's forward: {dev_['bad']} logits beyond {TF_TOL}"
+              f" (1 + |b|) of the plain attention's (largest {dev_['max_abs_err']:.4g})")
+        del model, logits, plain, batch
+        state, out["hubert"] = trained("hubert", cfg, state, loader, frames_of, device, gpu,
+                                       tmp, args.seed)
+        out["hubert"]["forward"] = enc_fwd
+        loader.close()
+        del state, table
+        torch.cuda.empty_cache()
+
+        out["restart"] = restart_gate(args, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # the kernels redesigned for Hopper, by their names in the build log
 REDESIGNED = {
     "fa_wgmma_bf16<64>": "fa_wgmma_bf16ILi64E", "fa_wgmma_bf16<112>": "fa_wgmma_bf16ILi112E",
@@ -4089,6 +4696,10 @@ REDESIGNED = {
     "block_sketch_fused<512>": "block_sketch_fusedILi512E",
     "plan_sketch_fused<512, G 1>": "plan_sketch_fusedILi512ELi1E",
     "plan_sketch_fused<512, G 2>": "plan_sketch_fusedILi512ELi2E",
+    # the flash backward (mma.sync, not yet redesigned): llama's D = 64,
+    # hubert's padded 112, and 128
+    **{f"fa_bwd_{part}<{d}>": f"fa_bwd_{part}ILi{d}E" for part in ("dkdv", "dq")
+       for d in (64, 112, 128)},
 }
 
 
@@ -4122,6 +4733,10 @@ def ptxas_report(log: str, kernels: dict) -> dict:
         if name.startswith("fa_wgmma_bf16"):
             d = int(name.split("<")[1].rstrip(">"))
             info["dynamic_smem"] = _cuda.library().flash_attention_smem_bytes(d)
+        elif name.startswith("fa_bwd_"):
+            d = int(name.split("<")[1].rstrip(">"))
+            info["dynamic_smem"] = _cuda.library().flash_attention_bwd_smem_bytes(
+                d, 0 if "dkdv" in name else 1)
         elif name == "rsp_shuffle_staged<u32, 1024>":
             info["dynamic_smem_higgs_tile"] = staged_smem_bytes(1100, 29 * 4)
         out[name] = info
@@ -4163,6 +4778,11 @@ def main() -> int:
         print(f"chip_smoke: --records must be a multiple of {BLOCKS * BLOCKS}", file=sys.stderr)
         return 2
 
+    import os
+
+    # the restart gate runs under torch.use_deterministic_algorithms, which
+    # wants cuBLAS's workspace fixed before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -4201,6 +4821,9 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["flash_attention"] = flash_parity(args, device)
     phase("flash parity", t0, f"max |kernel - plain| {errs['flash_attention']:.3g}")
+    t0 = time.perf_counter()
+    errs["flash_attention_bwd"] = flash_bwd_parity(args, device)
+    phase("flash bwd parity", t0, f"max |kernel - plain| {errs['flash_attention_bwd']:.3g}")
     t0 = time.perf_counter()
     errs["mamba2_ssd"] = ssd_parity(args, device)
     phase("ssd parity", t0, f"max |kernel - plain| {errs['mamba2_ssd']:.3g}")
@@ -4249,6 +4872,9 @@ def main() -> int:
         t0 = time.perf_counter()
         mo = moe_serving(args, device, gpu)
         phase("moe", t0)
+        t0 = time.perf_counter()
+        tr = training(args, device, gpu)
+        phase("training", t0)
 
         t0 = time.perf_counter()
         tm = times(args, device)
@@ -4260,6 +4886,11 @@ def main() -> int:
     tm["flash_attention_d112"] = flash_times(args, device, "zamba2-7b shared block")
     print(f"flash_attention times at zamba2-7b's shared block (D = 112):"
           f" {json.dumps(tm['flash_attention_d112'])} [{gpu}]", flush=True)
+    tm["flash_attention_bwd"] = flash_bwd_times(args, device, "llama3.2-1b train")
+    print(f"flash_attention_bwd times: {json.dumps(tm['flash_attention_bwd'])} [{gpu}]", flush=True)
+    tm["flash_attention_bwd_d112"] = flash_bwd_times(args, device, "hubert-xlarge train")
+    print(f"flash_attention_bwd times at hubert-xlarge's shape (D = 80 padded to 112):"
+          f" {json.dumps(tm['flash_attention_bwd_d112'])} [{gpu}]", flush=True)
     tm["mamba2_ssd"] = ssd_times(args, device)
     print(f"mamba2_ssd times: {json.dumps(tm['mamba2_ssd'])} [{gpu}]", flush=True)
     tm["rwkv6_wkv"] = wkv_times(args, device)
@@ -4271,12 +4902,16 @@ def main() -> int:
         "block_sketch": "src/repro/kernels/block_sketch/kernel.py:82",
         "plan_sketch": "src/repro/kernels/plan/kernel.py:129",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+        # the reference's blockwise backward of that kernel's attention (jnp)
+        "flash_attention_bwd": "src/repro/models/attention.py:240",
         "mamba2_ssd": "src/repro/kernels/mamba2_ssd/kernel.py:69",
         "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:76",
     }
     launches = {k: path["counts"][k] for k in ("rsp_shuffle", "block_sketch", "plan_sketch")}
     # flash's row: llama3.2-1b's generate; zamba2-7b's is in launches_by_path
     launches["flash_attention"] = lm["counts"]["flash_attention"]
+    # the backward's row: llama3.2-1b's 20 training steps on the drift corpus
+    launches["flash_attention_bwd"] = tr["llama"]["counts"]["flash_attention_bwd"]
     launches["mamba2_ssd"] = hy["counts"]["mamba2_ssd"]
     # rwkv6_wkv's row: rwkv6-1.6b's stateless forward; the loss and the
     # generate are in launches_by_path
@@ -4295,7 +4930,22 @@ def main() -> int:
         "flash_attention": {"llama3.2-1b generate": lm["counts"]["flash_attention"],
                             "zamba2-7b generate": hy["counts"]["flash_attention"],
                             **{f"{name} generate": m["counts"]["flash_attention"]
-                               for name, m in mo.items()}},
+                               for name, m in mo.items()},
+                            "llama3.2-1b training (20 steps)":
+                                tr["llama"]["counts"]["flash_attention"],
+                            "llama3.2-1b training, no drift (20 steps)":
+                                tr["llama_no_drift"]["counts"]["flash_attention"],
+                            "hubert-xlarge training (20 steps)":
+                                tr["hubert"]["counts"]["flash_attention"],
+                            "hubert-xlarge forward": tr["hubert"]["forward"]["counts"][
+                                "flash_attention"]},
+        "flash_attention_bwd": {
+            "llama3.2-1b training (20 steps)": tr["llama"]["counts"]["flash_attention_bwd"],
+            "llama3.2-1b training, no drift (20 steps)":
+                tr["llama_no_drift"]["counts"]["flash_attention_bwd"],
+            "hubert-xlarge training (20 steps)": tr["hubert"]["counts"]["flash_attention_bwd"],
+            **{f"one {tag} step": st["counts"]["flash_attention_bwd"]
+               for tag, st in tr["flat_step"].items() if isinstance(st, dict)}},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"]},
         "rwkv6_wkv": {f"rwkv6-1.6b {p}": rw["counts"][p]["rwkv6_wkv"]
                       for p in ("forward", "loss", "generate")},
@@ -4328,6 +4978,7 @@ def main() -> int:
     print(f"rwkv scoring: {json.dumps(rw['scoring'])}", flush=True)
     print(f"rwkv serving: {json.dumps(rw['serve'])}", flush=True)
     print(f"moe serving: {json.dumps(mo)}", flush=True)
+    print(f"training: {json.dumps(tr)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
         out = Path(args.out)
@@ -4337,7 +4988,8 @@ def main() -> int:
             {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
              "flash_attention_d112": tm["flash_attention_d112"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
-             "rwkv": rw, "moe": mo, "gpu": gpu},
+             "rwkv": rw, "moe": mo, "training": tr,
+             "flash_attention_bwd_d112": tm["flash_attention_bwd_d112"], "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

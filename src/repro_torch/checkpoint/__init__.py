@@ -1,1 +1,1 @@
-"""Checkpoint reading (the reference's on-disk layout)."""
+"""Checkpoints in the reference's on-disk layout: atomic saves, a background writer, restore."""

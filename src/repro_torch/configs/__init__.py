@@ -1,12 +1,11 @@
 """Architecture registry of the port: the configs it can build, their
 reduced smoke variants, and the shape cells.
 
-``ARCHS`` holds the five dense architectures (llama3.2-1b, qwen2-0.5b,
-qwen3-14b, granite-20b, chameleon-34b), the two MoE decoders
-(granite-moe-3b-a800m, qwen3-moe-30b-a3b), the zamba2-7b hybrid and
-rwkv6-1.6b at their published widths; ``smoke_config`` shrinks them
-exactly as the reference's does.  The encoder config comes with its
-family.
+``ARCHS`` holds the reference's ten architectures at their published
+widths: the five dense decoders (llama3.2-1b, qwen2-0.5b, qwen3-14b,
+granite-20b, chameleon-34b), the two MoE decoders (granite-moe-3b-a800m,
+qwen3-moe-30b-a3b), the zamba2-7b hybrid, rwkv6-1.6b and the hubert-xlarge
+encoder; ``smoke_config`` shrinks them exactly as the reference's does.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import dataclasses
 from repro_torch.configs.chameleon_34b import CONFIG as CHAMELEON_34B
 from repro_torch.configs.granite_20b import CONFIG as GRANITE_20B
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE
+from repro_torch.configs.hubert_xlarge import CONFIG as HUBERT_XL
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA32_1B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_05B
 from repro_torch.configs.qwen3_14b import CONFIG as QWEN3_14B
@@ -27,7 +27,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, RWKV6_1_6B,
-                        CHAMELEON_34B, GRANITE_MOE, QWEN3_MOE]
+                        CHAMELEON_34B, GRANITE_MOE, QWEN3_MOE, HUBERT_XL]
 }
 
 
@@ -43,6 +43,7 @@ def smoke_config(arch: str) -> ModelConfig:
         head_dim=16,
         d_ff=96,
         vocab_size=256,
+        k_block=16,
     )
     if cfg.family == "moe":
         # ample capacity so smoke decode-vs-forward comparisons see no drops

@@ -59,6 +59,11 @@
 //    wgmma's B transpose (MN-major descriptor), with no transpose by hand.
 //  * The output divides by max(l, 1e-30), as the reference, and is stored
 //    from registers into the [B, S, H, D] layout the wrapper allocates.
+//  * Training asks for each row's log-sum-exp, lse = m + log(max(l, 1e-30))
+//    in natural units, float32 [B, H, S]: the statistics the backward kernel
+//    (flash_attention_bwd.cu) recomputes P from, as the reference's custom
+//    VJP keeps m and l (src/repro/models/attention.py, _flash_flat_cvjp_fwd).
+//    A null pointer (serving) stores nothing more.
 //
 // float32 design (fa_fwd_f32): no tensor-core path keeps float32 exact, so
 // 256 threads, four per query row, compute scores and the accumulator with
@@ -90,6 +95,7 @@ constexpr int kRowBytes = 128;  // bytes of a swizzled row
 struct TmaArgs {
   void* o;
   long long ob, oh, os;  // element strides of the output
+  float* lse;            // [B, H, S] float32, or null
   int S, group, causal;
   float scale;
 };
@@ -506,6 +512,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (a.lse != nullptr && t == 0) {
+    // m is in log2 units of the scaled score
+    float* lse = a.lse + ((long long)b * gridDim.y + h) * S;
+    if (r0 < S) lse[r0] = (m_a + log2f(fmaxf(l_a, 1e-30f))) / kLog2e;
+    if (r0 + 8 < S) lse[r0 + 8] = (m_b + log2f(fmaxf(l_b, 1e-30f))) / kLog2e;
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.ob + h * a.oh;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -531,6 +543,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;    // [B, H, S] float32, or null
   int S, group;  // group = H / Hkv
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;  // element strides
   int causal;
@@ -632,6 +645,7 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Args a) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < E; ++e) o[row * a.os + j + 4 * e] = acc[e] / den;
+    if (a.lse != nullptr && j == 0) a.lse[((long long)b * gridDim.y + h) * S + row] = m + logf(den);
   }
 }
 
@@ -696,7 +710,7 @@ cudaError_t run_wgmma(const Args& a, int B, int H, int Hkv, cudaStream_t st) {
       !encode_map(&tv, a.v, D, a.S, Hkv, B, a.vb, a.vh, a.vs, kTileK)) {
     return cudaErrorInvalidValue;
   }
-  const TmaArgs ta{a.o, a.ob, a.oh, a.os, a.S, a.group, a.causal, a.scale};
+  const TmaArgs ta{a.o, a.ob, a.oh, a.os, a.lse, a.S, a.group, a.causal, a.scale};
   const int smem = Smem<D>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(fa_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -728,9 +742,11 @@ int flash_attention_smem_bytes(int D) {
 // q [B, H, S, D], k / v [B, Hkv, S, D], o [B, H, S, D], each given by its
 // element strides over (batch, head, row) with the head dim contiguous;
 // dtype 0 = float32, 1 = bfloat16 (all four alike; bf16 rows 16-byte
-// aligned, as TMA wants); D in {64, 112, 128}; H % Hkv == 0.  Returns
-// cudaGetLastError() after the launch.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
+// aligned, as TMA wants); D in {64, 112, 128}; H % Hkv == 0.  lse, when not
+// null, is a contiguous float32 [B, H, S] that takes each row's
+// log-sum-exp.  Returns cudaGetLastError() after the launch.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int dtype,
                            int B, int H, int Hkv, int S, int D, long long qb, long long qh,
                            long long qs, long long kb, long long kh, long long ks,
                            long long vb, long long vh, long long vs, long long ob, long long oh,
@@ -740,7 +756,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   }
   if (S <= 0) return (int)cudaSuccess;
-  const Args a{q, k, v, o, S, H / Hkv, qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os,
+  const Args a{q, k, v, o, lse, S, H / Hkv, qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os,
                causal, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {

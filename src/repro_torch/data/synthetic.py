@@ -4,7 +4,9 @@ bits at the same seed).
 ``make_higgs_like`` reproduces the statistical shape of the paper's HIGGS
 experiments (two-class, 28 continuous features, moderately separable)
 without the 11M-record download; ``make_nonrandom_higgs_like`` is its
-class-sorted variant, the worst storage order for partitioning.
+class-sorted variant, the worst storage order for partitioning;
+``make_token_corpus`` is the LM training corpus (Zipf tokens, optionally
+drifting across the corpus).
 """
 
 from __future__ import annotations
@@ -54,3 +56,35 @@ def make_nonrandom_higgs_like(num_records: int, **kw) -> tuple[np.ndarray, np.nd
     x, y = make_higgs_like(num_records, shuffle=False, **kw)
     order = np.argsort(y, kind="stable")
     return x[order], y[order]
+
+
+def make_token_corpus(
+    num_sequences: int,
+    seq_len: int,
+    *,
+    vocab_size: int = 32000,
+    seed: int = 0,
+    zipf_a: float = 1.2,
+    drift: bool = False,
+) -> np.ndarray:
+    """Zipf token corpus of shape [num_sequences, seq_len] int32.
+
+    ``drift=True`` makes the token distribution drift across the corpus
+    (document-ordered storage) -- the non-randomized case where sequential
+    chunking breaks the random-sample property for LM data.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = ranks**-zipf_a
+    probs /= probs.sum()
+    out = np.empty((num_sequences, seq_len), dtype=np.int32)
+    if not drift:
+        flat = rng.choice(vocab_size, size=num_sequences * seq_len, p=probs)
+        out[:] = flat.reshape(num_sequences, seq_len).astype(np.int32)
+    else:
+        # Topic drift: rotate the zipf ranking gradually across the corpus.
+        for i in range(num_sequences):
+            shift = int(vocab_size * i / max(num_sequences, 1) * 0.5)
+            p = np.roll(probs, shift)
+            out[i] = rng.choice(vocab_size, size=seq_len, p=p).astype(np.int32)
+    return out

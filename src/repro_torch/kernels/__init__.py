@@ -7,6 +7,7 @@ version and a launch counter.
   block_sketch   fused per-block moments + histogram
   plan           fused filter / project / group-by sketch
   flash_attention  online-softmax attention with grouped-query heads
+  flash_attention_bwd  its gradient (training)
   mamba2_ssd     the Mamba2 SSD chunked scan (zamba2's SSM layers)
   rwkv6_wkv      the RWKV6 WKV recurrence (rwkv6's time mix)
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 def _counters() -> dict:
     from repro_torch.kernels.block_sketch.kernel import LAUNCHES as block_sketch
+    from repro_torch.kernels.flash_attention.kernel import BWD_LAUNCHES as flash_attention_bwd
     from repro_torch.kernels.flash_attention.kernel import LAUNCHES as flash_attention
     from repro_torch.kernels.mamba2_ssd.kernel import LAUNCHES as mamba2_ssd
     from repro_torch.kernels.plan.kernel import LAUNCHES as plan_sketch
@@ -26,7 +28,8 @@ def _counters() -> dict:
     from repro_torch.kernels.rwkv6_wkv.kernel import LAUNCHES as rwkv6_wkv
 
     return {"rsp_shuffle": rsp_shuffle, "block_sketch": block_sketch, "plan_sketch": plan_sketch,
-            "flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd, "rwkv6_wkv": rwkv6_wkv}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "mamba2_ssd": mamba2_ssd, "rwkv6_wkv": rwkv6_wkv}
 
 
 def launch_counts() -> dict[str, int]:

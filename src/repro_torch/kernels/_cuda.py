@@ -59,8 +59,12 @@ _SIGNATURES = {
     ),
     "flash_attention_smem_bytes": (_I, [_I]),
     "flash_attention_launch": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *([_L] * 12), _I, _F, _P],
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *([_L] * 12), _I, _F, _P],
     ),
+    "flash_attention_bwd_launch": (
+        _I, [*([_P] * 10), _I, _I, _I, _I, _I, _P, _I, _F, _P],
+    ),
+    "flash_attention_bwd_smem_bytes": (_I, [_I, _I]),
     "mamba2_ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "rwkv6_wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
@@ -227,6 +231,18 @@ def require_same_device(device: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, but the block is on {device}")
+
+
+def refuse_grad(what: str, why: str, **tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and a named tensor
+    requires grad: a kernel without a backward would hand back an output
+    with no ``grad_fn``, and every gradient upstream of it would silently
+    be dropped."""
+    if torch.is_grad_enabled():
+        wanted = [name for name, t in tensors.items() if t is not None and t.requires_grad]
+        if wanted:
+            raise NotImplementedError(f"{what} has no backward kernel yet ({', '.join(wanted)}"
+                                      f" require grad): {why}")
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype | None = None) -> None:

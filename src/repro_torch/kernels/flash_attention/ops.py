@@ -1,4 +1,4 @@
-"""The public flash attention: layouts and the impl dispatcher.
+"""The public flash attention: layouts, the impl dispatcher and the gradient.
 
 ``flash_attention(q, k, v, causal=..., impl=...)`` takes the model's
 grouped layout q ``[B, Hkv, G, S, D]`` or the flat q ``[B, H, S, D]``, with
@@ -16,18 +16,31 @@ ragged edge.
   and the output cut back to D: the padded columns add 0 to every score
   and every output column past D is dropped, so the padding is exact.
   Above 128 there is no width to pad to, and the kernel raises.
+
+When grad mode is on and an input requires grad, the call goes through
+:class:`FlashAttention`, a ``torch.autograd.Function``: on the card the
+forward kernel with its row log-sum-exp and the backward kernel
+(bf16 only: a float32 input raises ``NotImplementedError``), on the host
+the plain forward with the reference's statistics and the plain backward
+(the port of its custom VJP).  Padding then happens outside the Function,
+so autograd cuts the padded gradient columns off and the scale of the
+unpadded D holds in both directions.  Without grad the output carries no
+graph, as serving wants.
 """
 
 from __future__ import annotations
 
 import torch
-
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import (
+    GRAD_ROADMAP,
     HEAD_DIMS,
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_plain,
+    flash_attention_stats,
 )
 
 IMPLS = ("auto", "torch", "cuda")
@@ -42,6 +55,45 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: head dim contiguous, rows 16-byte aligned."""
+    ok = t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0 for i in range(3))
+    return t if ok else t.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: ``apply(q, k, v, causal, scale,
+    impl, k_block)`` on the flat layout, ``impl`` "cuda" (the kernels) or
+    "torch" (the plain versions, whose backward walks ``k_block`` keys at a
+    time).  The forward saves q, k, v, the output and the row statistics;
+    the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None, impl: str, k_block: int):
+        if impl == "cuda":
+            out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out32, (m, l) = flash_attention_stats(q, k, v, causal=causal, scale=scale)
+            out = out32.to(q.dtype)
+            # the reference's Dvec reads the float32 output
+            ctx.save_for_backward(q, k, v, out32, m, l)
+        ctx.causal, ctx.scale, ctx.impl, ctx.k_block = causal, scale, impl, k_block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        if ctx.impl == "cuda":
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, _aligned(dout), lse,
+                                                  causal=ctx.causal, scale=ctx.scale)
+        else:
+            q, k, v, out, m, l = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=ctx.causal,
+                                                   scale=ctx.scale, k_block=ctx.k_block)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -49,6 +101,7 @@ def flash_attention(
     *,
     causal: bool = True,
     impl: str = "auto",
+    k_block: int = 512,
 ) -> torch.Tensor:
     grouped = q.ndim == 5
     if grouped:
@@ -57,7 +110,18 @@ def flash_attention(
     else:
         qf = q
     resolved = resolve_impl(impl, q)
-    if resolved == "torch":
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if resolved == "cuda" and q.dtype != torch.bfloat16:
+            raise NotImplementedError(f"flash attention's gradient in {q.dtype}: {GRAD_ROADMAP}")
+
+        def run(q, k, v, *, causal, scale=None):
+            if resolved == "cuda":
+                q, k, v = _aligned(q), _aligned(k), _aligned(v)
+            return FlashAttention.apply(q, k, v, causal, scale, resolved, k_block)
+
+        out = run_padded(run, qf, k, v, causal=causal) if impl == "auto" and resolved == "cuda" \
+            else run(qf, k, v, causal=causal)
+    elif resolved == "torch":
         out = flash_attention_plain(qf, k, v, causal=causal)
     elif impl == "auto":
         out = run_padded(flash_attention_cuda, qf, k, v, causal=causal)

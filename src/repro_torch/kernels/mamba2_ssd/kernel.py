@@ -28,6 +28,8 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked as ssd_plain
 
 LAUNCHES = _cuda.LaunchCounter("mamba2_ssd")
+GRAD_ROADMAP = ("hybrid and RWKV6 training wait for the SSD and WKV backward kernels"
+                " (ROADMAP section 1, item 2)")
 KERNELS = ("ssd_state", "ssd_scan")   # the device kernels one call launches
 
 CHUNK = 128        # the kernel's chunk length Q
@@ -79,8 +81,10 @@ def ssd_cuda(
     *,
     h0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on CUDA tensors."""
+    """Launch the CUDA kernel on CUDA tensors.  Under grad mode, inputs
+    that require grad raise ``NotImplementedError`` (:data:`GRAD_ROADMAP`)."""
     check_shapes(xbar, dA, Bm, Cm, h0)
+    _cuda.refuse_grad("ssd_cuda", GRAD_ROADMAP, xbar=xbar, dA=dA, B=Bm, C=Cm, h0=h0)
     named = {"xbar": xbar, "dA": dA, "B": Bm, "C": Cm}
     if h0 is not None:
         named["h0"] = h0
@@ -112,5 +116,5 @@ def ssd_cuda(
     return y, h
 
 
-__all__ = ["CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES", "STATE_DIM", "check_shapes", "head_tile",
-           "ssd_cuda", "ssd_plain"]
+__all__ = ["CHUNK", "GRAD_ROADMAP", "HEAD_DIM", "KERNELS", "LAUNCHES", "STATE_DIM",
+           "check_shapes", "head_tile", "ssd_cuda", "ssd_plain"]

@@ -22,6 +22,8 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked as wkv6_plain
 
 LAUNCHES = _cuda.LaunchCounter("rwkv6_wkv")
+GRAD_ROADMAP = ("hybrid and RWKV6 training wait for the SSD and WKV backward kernels"
+                " (ROADMAP section 1, item 2)")
 KERNELS = ("wkv6_chunks",)   # the device kernels one call launches
 
 CHUNK = 16       # the kernel's chunk length Q
@@ -52,8 +54,10 @@ def wkv6_cuda(
     *,
     h0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on CUDA tensors."""
+    """Launch the CUDA kernel on CUDA tensors.  Under grad mode, inputs
+    that require grad raise ``NotImplementedError`` (:data:`GRAD_ROADMAP`)."""
     check_shapes(r, k, v, logw, u, h0)
+    _cuda.refuse_grad("wkv6_cuda", GRAD_ROADMAP, r=r, k=k, v=v, logw=logw, u=u, h0=h0)
     named = {"r": r, "k": k, "v": v, "logw": logw, "u": u}
     if h0 is not None:
         named["h0"] = h0
@@ -80,4 +84,5 @@ def wkv6_cuda(
     return y, h
 
 
-__all__ = ["CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES", "check_shapes", "wkv6_cuda", "wkv6_plain"]
+__all__ = ["CHUNK", "GRAD_ROADMAP", "HEAD_DIM", "KERNELS", "LAUNCHES", "check_shapes",
+           "wkv6_cuda", "wkv6_plain"]

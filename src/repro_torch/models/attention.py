@@ -16,8 +16,15 @@ unsupported, as in the reference.  The cache is updated in place (a decode
 step would otherwise copy every layer's cache); the returned cache dict
 holds the same tensors with the new length.
 
-The reference's flat-head layout (tensor parallelism) and its custom-VJP
-flash (training) are not ported yet.
+Training differentiates through the same call: with grad on, attention
+goes through ``kernels.flash_attention.FlashAttention`` (the forward
+kernel with its row log-sum-exp and the backward kernel on the card, the
+plain forward and the port of the reference's custom-VJP backward on the
+host), in the grouped layout or, with ``cfg.flat``, in the reference's
+flat-head layout: K and V repeated G times along the heads, attention in
+``[B, H, S, D]``, the repeat's gradient the sum over each group.  On one
+card the flat layout only changes memory and the order of sums; it is the
+reference's tensor-parallel layout.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     causal: bool = True
     norm_eps: float = 1e-5
+    k_block: int = 512      # key block of the plain flash backward
+    flat: bool = False      # flat-head layout (K/V expanded to H)
 
 
 def attention_specs(cfg: AttentionConfig) -> Tree:
@@ -110,10 +119,30 @@ def attention_apply(
             q_positions=positions,
             kv_positions=torch.arange(new_cache["k"].shape[2], device=x.device),
         )
+    elif cfg.flat:
+        out = flash_flat_cvjp(q.transpose(1, 2), kh.repeat_interleave(G, dim=1),
+                              vh.repeat_interleave(G, dim=1), cfg.causal, cfg.k_block, impl=impl)
+        out = out.transpose(1, 2).reshape(B, S, H * D).to(compute_dtype)
+        return linear(params["o"], out, compute_dtype=compute_dtype), new_cache
     else:
-        out = flash_attention(qg, kh, vh, causal=cfg.causal, impl=impl)
+        out = flash_attention(qg, kh, vh, causal=cfg.causal, impl=impl, k_block=cfg.k_block)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * D).to(compute_dtype)
     return linear(params["o"], out, compute_dtype=compute_dtype), new_cache
+
+
+def flash_flat_cvjp(q, k, v, causal: bool, k_block: int, *, impl: str = "auto"):
+    """The reference's flat flash with its custom VJP: q, k and v ``[B, H,
+    S, D]`` (K and V already expanded), the gradient through
+    ``FlashAttention`` -- whose plain backward is the port of that VJP,
+    walking ``k_block`` keys at a time."""
+    return flash_attention(q, k, v, causal=causal, impl=impl, k_block=k_block)
+
+
+def flash_attention_flat(q, k, v, *, causal: bool, k_block: int, impl: str = "auto"):
+    """The reference's flat flash without the custom VJP (its fallback
+    when ``k_block`` does not divide S): the same function and gradient
+    here, since no block size needs to divide S."""
+    return flash_flat_cvjp(q, k, v, causal, k_block, impl=impl)
 
 
 def _decode_attention(q, k, v, *, q_positions, kv_positions):

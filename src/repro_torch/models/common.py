@@ -7,12 +7,18 @@ reference's logical sharding axes have no counterpart on one card and are
 left out.  From that
 tree :func:`init_params` makes real float32 values at the reference's
 scales; :class:`Params` turns a (per-layer) tree into an ``nn.Module`` whose
-leaves are parameters and whose sub-dicts are sub-modules, indexed as
-``params["q"]["w"]`` by the functional layers below.
+leaves are parameters (frozen for serving, trainable for training) and
+whose sub-dicts are sub-modules, indexed as ``params["q"]["w"]`` by the
+functional layers below.
 
 Layers follow the reference's numerics: every ``linear`` casts ``x`` and
 ``w`` to ``compute_dtype`` (bfloat16) before the product, norms compute in
-float32 and return the input's dtype, RoPE rotates in float32.
+float32 and return the input's dtype, RoPE rotates in float32.  They read
+whatever dtype the parameters have: serving keeps float32 weights and
+casts at every call; training (the reference's ``init_state`` casts every
+leaf to bf16, norm scales and the embedding included) hands them bf16
+leaves, on which every cast is the identity -- the same values the
+reference's training forward reads.
 """
 
 from __future__ import annotations
@@ -93,20 +99,20 @@ def stack_specs(specs: Tree, num: int) -> Tree:
 
 
 class Params(nn.Module):
-    """A tree of parameters as a module: dict leaves become (frozen)
-    ``nn.Parameter``s, sub-dicts sub-modules.  ``p["q"]["w"]`` and
-    ``"b" in p`` read it as the functional layers read the reference's
-    dicts."""
+    """A tree of parameters as a module: dict leaves become
+    ``nn.Parameter``s (frozen unless ``trainable``) sharing the leaves'
+    storage, sub-dicts sub-modules.  ``p["q"]["w"]`` and ``"b" in p`` read
+    it as the functional layers read the reference's dicts."""
 
-    def __init__(self, tree: Tree):
+    def __init__(self, tree: Tree, *, trainable: bool = False):
         super().__init__()
         for name in sorted(tree):
             value = tree[name]
             if isinstance(value, dict):
-                self.add_module(name, Params(value))
+                self.add_module(name, Params(value, trainable=trainable))
             else:
                 self.register_parameter(name, nn.Parameter(torch.as_tensor(value),
-                                                           requires_grad=False))
+                                                           requires_grad=trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -217,3 +223,39 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()
+
+
+def _chunk_nll_sum(hc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor,
+                   compute_dtype) -> torch.Tensor:
+    logits = (hc.to(compute_dtype) @ table.to(compute_dtype).T).to(torch.float32)
+    return token_nll(logits, lc).sum()
+
+
+def seq_chunked_cross_entropy(
+    h: torch.Tensor,         # [B, S, d] final hidden states
+    table: torch.Tensor,     # [V, d] unembedding table
+    labels: torch.Tensor,    # [B, S]
+    *,
+    chunks: int,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Mean CE without holding the whole float32 [B, S, V] logits: the
+    sequence goes through in ``chunks`` slices, each under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
+    slice's logits are made again in the backward and peak logits memory
+    drops by ``chunks``.  When ``chunks`` does not divide S it is the full
+    cross entropy, as in the reference.  The sum over every position is
+    divided by ``B * S``."""
+    B, S, _ = h.shape
+    if S % chunks:
+        logits = h.to(compute_dtype) @ table.to(compute_dtype).T
+        return softmax_cross_entropy(logits, labels)
+    from torch.utils.checkpoint import checkpoint
+
+    Sc = S // chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(chunks):
+        sl = slice(c * Sc, (c + 1) * Sc)
+        total = total + checkpoint(_chunk_nll_sum, h[:, sl], table, labels[:, sl],
+                                   compute_dtype, use_reentrant=False)
+    return total / (B * S)

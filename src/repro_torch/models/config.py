@@ -1,9 +1,13 @@
 """Model configuration: the fields the dense decoder, the MoE decoder, the
-zamba2 hybrid and the RWKV6 families read.
+zamba2 hybrid, the RWKV6 and the encoder families read, and the
+reference's execution switches of training: ``remat`` (each layer's
+activations recomputed in the backward), ``k_block`` (the plain flash
+backward's key block), ``flat_attention`` (the flat-head layout) and
+``loss_seq_chunks`` (the cross entropy streamed over sequence chunks).
 
-The reference's encoder fields (and its ``use_pallas`` switch: here
-attention, the SSD scan and the WKV take their kernels whenever their
-tensors are on the card) come with the family that reads them.
+The reference's ``use_pallas`` switch has no counterpart: attention, the
+SSD scan and the WKV take their kernels whenever their tensors are on the
+card.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from repro_torch.models.rwkv6 import RWKV6Config
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid | rwkv (encoder: ROADMAP section 1, item 1)
+    family: str                 # dense | moe | hybrid | rwkv | encoder
     num_layers: int
     d_model: int
     num_heads: int
@@ -49,6 +53,12 @@ class ModelConfig:
     # rwkv
     rwkv_head_dim: int = 64
     lora_rank: int = 32
+    # execution
+    remat: bool = True
+    k_block: int = 512          # flash kv-block (the plain backward's)
+    # beyond-paper perf flags (the reference's; its baseline keeps all off)
+    flat_attention: bool = False   # flat-head layout (K/V expanded to H)
+    loss_seq_chunks: int = 0       # seq-chunked CE (stream fp32 logits)
     moe_sort_dispatch: bool = False  # argsort capacity positions
 
     @property
@@ -67,6 +77,8 @@ class ModelConfig:
             rope_theta=self.rope_theta,
             causal=self.causal,
             norm_eps=self.norm_eps,
+            k_block=self.k_block,
+            flat=self.flat_attention,
         )
 
     def moe_config(self) -> MoEConfig:

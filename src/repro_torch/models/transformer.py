@@ -1,4 +1,4 @@
-"""The decoder LMs as ``nn.Module``s.
+"""The decoder LMs and the encoder as ``nn.Module``s.
 
 * :class:`DenseLM` (llama / qwen / granite / chameleon backbones):
   embedding, a ``ModuleList`` of pre-norm layers (attention + SwiGLU or GELU
@@ -15,6 +15,14 @@
 * :class:`RWKVLM` (rwkv6): embedding, an input layer norm, a ``ModuleList``
   of RWKV6 layers (layer norm, time mix, residual; layer norm, channel mix,
   residual), an output layer norm and the separate unembedding.
+* :class:`EncoderModel` (hubert): an input projection of precomputed frame
+  embeddings (the waveform frontend is a stub, as in the reference), a
+  convolutional positional embedding (every 16th of its 128 taps, the
+  input padded by 64 before and 63 after, each tap's product and sum
+  rounded to bf16 in the reference's order, then GELU), an input layer
+  norm, a ``ModuleList`` of pre-norm encoder layers (layer norm,
+  non-causal attention without RoPE, residual; layer norm, GELU MLP with
+  bias, residual), an output layer norm and a linear head with bias.
 
 Parameters are float32 and laid out as the reference lays them out, so a
 reference parameter tree -- numpy arrays, layers stacked on the leading
@@ -44,9 +52,20 @@ of the shared block, one state per Mamba2 layer.  RWKV6: ``{"layers":
 in the activations' dtype (bf16), as the reference's does, so a float32
 one is replaced by a bf16 copy at the first pass.
 
-The training losses ``lm_loss`` / ``loss_fn`` take the model and a batch
-of ``tokens [B, S + 1]``.  The encoder family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Training (the dense and encoder families, ``TRAINABLE_FAMILIES``; the
+others refuse ``trainable=True`` until their kernels have a backward):
+built with ``trainable=True`` a model takes the leaves of a
+reference-layout tree as they are -- the training state's bf16
+parameters, no copy and no cast; a layer's parameters are views of the
+stacked leaves -- and every parameter requires grad.  With ``cfg.remat``
+each layer of a pass that builds a graph runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around the
+scanned layer body), so its activations are recomputed in the backward
+and attention's forward kernel runs twice a layer.  ``lm_loss`` takes
+``tokens [B, S + 1]`` and, with ``cfg.loss_seq_chunks``, streams the cross
+entropy over sequence chunks from the final hidden states
+(``_backbone_hidden``); ``encoder_loss`` takes ``frames [B, T, d]``,
+``targets`` and ``mask [B, T]``; ``loss_fn`` picks by family.
 """
 
 from __future__ import annotations
@@ -63,6 +82,7 @@ from repro_torch.models import ffn, mamba2, rwkv6
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     Params,
+    ParamSpec,
     Tree,
     embed,
     embedding_spec,
@@ -74,6 +94,7 @@ from repro_torch.models.common import (
     linear_spec,
     rmsnorm,
     rmsnorm_spec,
+    seq_chunked_cross_entropy,
     set_leaf,
     softmax_cross_entropy,
     stack_specs,
@@ -81,16 +102,25 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 
-NOT_PORTED = {
-    "encoder": "the encoder family (hubert) waits for ROADMAP section 1, item 1",
-}
-
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in MODELS:
-        if cfg.family in NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[cfg.family]}")
         raise ValueError(f"unknown family {cfg.family}")
+
+
+TRAINABLE_FAMILIES = ("dense", "encoder")
+_WAITING = {
+    "moe": "MoE training waits for the capacity dispatch held to the reference under"
+           " gradients (ROADMAP section 1, item 2)",
+    "hybrid": "hybrid training waits for the SSD backward kernel (ROADMAP section 1, item 2)",
+    "rwkv": "RWKV6 training waits for the WKV backward kernel (ROADMAP section 1, item 2)",
+}
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Only the families whose every kernel has a backward train."""
+    if cfg.family not in TRAINABLE_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: {_WAITING.get(cfg.family, cfg.family)}")
 
 
 def _require_class(cfg: ModelConfig, cls: type) -> None:
@@ -143,6 +173,15 @@ def _rwkv_layer_specs(cfg: ModelConfig) -> Tree:
     }
 
 
+def _encoder_layer_specs(cfg: ModelConfig) -> Tree:
+    return {
+        "ln1": layernorm_spec(cfg.d_model),
+        "attn": attn.attention_specs(cfg.attention_config()),
+        "ln2": layernorm_spec(cfg.d_model),
+        "mlp": ffn.gelu_mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
 def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     """(full_rounds, layers_per_round, epilogue_mamba_layers)."""
     period = max(cfg.attn_every, 1)
@@ -152,6 +191,16 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def model_specs(cfg: ModelConfig) -> Tree:
     _require_ported(cfg)
+    if cfg.family == "encoder":
+        # the modality frontend is a stub: inputs are precomputed frame embeddings
+        return {
+            "in_proj": linear_spec(cfg.d_model, cfg.d_model, bias=True),
+            "pos_conv": ParamSpec((128, cfg.d_model), "normal", 0.02),
+            "ln_in": layernorm_spec(cfg.d_model),
+            "layers": stack_specs(_encoder_layer_specs(cfg), cfg.num_layers),
+            "ln_out": layernorm_spec(cfg.d_model),
+            "head": linear_spec(cfg.d_model, cfg.vocab_size, bias=True),
+        }
     if cfg.family == "hybrid":
         full, period, rem = hybrid_layout(cfg)
         layer = _mamba_layer_specs(cfg)
@@ -181,9 +230,10 @@ def model_specs(cfg: ModelConfig) -> Tree:
     return specs
 
 
-def params_to_tensors(specs: Tree, tree: Tree, device) -> Tree:
+def params_to_tensors(specs: Tree, tree: Tree, device, dtype=torch.float32) -> Tree:
     """A parameter tree (numpy arrays or tensors, any float dtype) as
-    float32 tensors on ``device``, checked leaf by leaf against the specs."""
+    tensors on ``device`` of ``dtype`` (None: each leaf's own, with no copy
+    of a tensor already there), checked leaf by leaf against the specs."""
     got = {path for path, _ in iter_leaves(tree)}
     out: Tree = {}
     for path, spec in iter_leaves(specs):
@@ -197,7 +247,7 @@ def params_to_tensors(specs: Tree, tree: Tree, device) -> Tree:
             leaf = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         if tuple(leaf.shape) != spec.shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} != {spec.shape}")
-        set_leaf(out, path, leaf.to(device=device, dtype=torch.float32))
+        set_leaf(out, path, leaf.to(device=device, dtype=dtype))
     extra = got - {path for path, _ in iter_leaves(specs)}
     if extra:
         raise KeyError(f"parameter tree has leaves the model lacks: {sorted(extra)}")
@@ -220,17 +270,12 @@ class DenseLayer(nn.Module):
     or, in the MoE family, + moe(norm2(h)), dropless when a cache is given.
     Returns (h, new cache, the MoE router's aux loss or 0)."""
 
-    def __init__(self, cfg: ModelConfig, params: Tree):
+    def __init__(self, cfg: ModelConfig, params: Tree, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.acfg = cfg.attention_config()
-        self.norm1 = Params(params["norm1"])
-        self.attn = Params(params["attn"])
-        self.norm2 = Params(params["norm2"])
-        if cfg.family == "moe":
-            self.moe = Params(params["moe"])
-        else:
-            self.mlp = Params(params["mlp"])
+        for name in ("norm1", "attn", "norm2", "moe" if cfg.family == "moe" else "mlp"):
+            setattr(self, name, Params(params[name], trainable=trainable))
 
     def forward(self, h, positions, cache=None, *, attn_impl: str = "auto"):
         a_in = rmsnorm(self.norm1, h, eps=self.cfg.norm_eps)
@@ -251,27 +296,58 @@ class DenseLayer(nn.Module):
         return h32.to(h.dtype) + f_out, new_cache, aux
 
 
-def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int):
+def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int,
+                  trainable: bool = False):
     """The model's parameter tree on ``device``: ``params`` checked and
-    converted, or drawn from ``torch.Generator(device)`` seeded with
-    ``seed``; returns (tree, device)."""
+    converted to float32 (``trainable``: kept as they are), or drawn from
+    ``torch.Generator(device)`` seeded with ``seed``; returns (tree,
+    device)."""
     specs = model_specs(cfg)
     dev = resolve_device(device)
     if params is None:
         return init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev), dev
-    return params_to_tensors(specs, params, dev), dev
+    return params_to_tensors(specs, params, dev, None if trainable else torch.float32), dev
 
 
-class _LM(nn.Module):
+def _maybe_remat(fn, enable: bool):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``enable``: its activations are recomputed in the backward."""
+    if not enable:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+class _Model(nn.Module):
+    """What every model shares: whether its parameters train, and whether
+    a pass recomputes its layers' activations."""
+
+    trainable: bool = False
+
+    def _remat(self, stateless: bool) -> bool:
+        """Recompute each layer in the backward: ``cfg.remat``, a trainable
+        model, grad mode on and no caches."""
+        return self.cfg.remat and self.trainable and stateless and torch.is_grad_enabled()
+
+
+class _LM(_Model):
     """What the LMs share: embedding, the norms at the ends of the stack,
     unembedding, and the forward that unembeds every position."""
 
-    def _init_ends(self, cfg: ModelConfig, params: Tree, norms=("final_norm",)) -> None:
+    def _init_ends(self, cfg: ModelConfig, params: Tree, norms=("final_norm",),
+                   trainable: bool = False) -> None:
         self.cfg = cfg
-        self.embed = Params(params["embed"])
+        self.trainable = trainable
+        self.embed = Params(params["embed"], trainable=trainable)
         for name in norms:
-            setattr(self, name, Params(params[name]))
-        self.unembed = None if cfg.tie_embeddings else Params(params["unembed"])
+            setattr(self, name, Params(params[name], trainable=trainable))
+        self.unembed = None if cfg.tie_embeddings else Params(params["unembed"],
+                                                              trainable=trainable)
+
+    @property
+    def unembed_table(self) -> torch.Tensor:
+        return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         table = self.embed if self.cfg.tie_embeddings else self.unembed
@@ -295,16 +371,17 @@ class DenseLM(_LM):
     """A dense decoder LM on ``device`` (the card unless ``"cpu"`` is asked
     for).  ``params`` is a reference-layout tree (numpy arrays or tensors);
     without it the weights are drawn from ``torch.Generator(device)`` seeded
-    with ``seed``, at the reference's scales."""
+    with ``seed``, at the reference's scales.  ``trainable``: see the
+    module's notes."""
 
     def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, trainable: bool = False):
         super().__init__()
         _require_class(cfg, type(self))
-        params, _ = _build_params(cfg, params, device, seed)
-        self._init_ends(cfg, params)
+        params, _ = _build_params(cfg, params, device, seed, trainable)
+        self._init_ends(cfg, params, trainable=trainable)
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, _layer_tree(params["layers"], i))
+            DenseLayer(cfg, _layer_tree(params["layers"], i), trainable=trainable)
             for i in range(cfg.num_layers))
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
@@ -321,12 +398,14 @@ class DenseLM(_LM):
         positions = torch.arange(S, device=tokens.device) + pos0
         length = None
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        remat = self._remat(caches is None)
         for i, layer in enumerate(self.layers):
             cache = None
             if caches is not None:
                 lc = caches["layers"]
                 cache = {"k": lc["k"][i], "v": lc["v"][i], "length": lc["length"]}
-            h, new_cache, layer_aux = layer(h, positions, cache, attn_impl=attn_impl)
+            h, new_cache, layer_aux = _maybe_remat(layer, remat)(h, positions, cache,
+                                                                 attn_impl=attn_impl)
             aux = aux + layer_aux
             if new_cache is not None:
                 length = new_cache["length"]
@@ -413,8 +492,10 @@ class HybridLM(_LM):
         layers = []
         for r in range(full):
             round_params = _layer_tree(params["rounds"], r)
-            layers += [MambaLayer(cfg, _layer_tree(round_params, k)) for k in range(self.period)]
-        layers += [MambaLayer(cfg, _layer_tree(params["epilogue"], k)) for k in range(rem)]
+            layers += [MambaLayer(cfg, _layer_tree(round_params, k))
+                       for k in range(self.period)]
+        layers += [MambaLayer(cfg, _layer_tree(params["epilogue"], k))
+                   for k in range(rem)]
         self.layers = nn.ModuleList(layers)
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto",
@@ -496,7 +577,8 @@ class RWKVLM(_LM):
         params, _ = _build_params(cfg, params, device, seed)
         self._init_ends(cfg, params, norms=("ln_in", "ln_out"))
         self.layers = nn.ModuleList(
-            RWKVLayer(cfg, _layer_tree(params["layers"], i)) for i in range(cfg.num_layers))
+            RWKVLayer(cfg, _layer_tree(params["layers"], i))
+            for i in range(cfg.num_layers))
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, wkv_impl: str = "auto"):
         """Output-normed hidden states [B, S, d] (bf16) and the new caches.
@@ -526,14 +608,88 @@ class RWKVLM(_LM):
         return layernorm(self.ln_out, h, eps=self.cfg.norm_eps), new_caches
 
 
+class EncoderLayer(nn.Module):
+    """Pre-norm encoder layer: h + attn(ln1(h)) (non-causal, no RoPE), then
+    + gelu_mlp(ln2(h)); the norm reads the float32 sum and the residual its
+    bf16 rounding, as in :class:`DenseLayer`."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree, *, trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.acfg = cfg.attention_config()
+        for name in ("ln1", "attn", "ln2", "mlp"):
+            setattr(self, name, Params(params[name], trainable=trainable))
+
+    def forward(self, h, *, attn_impl: str = "auto"):
+        a_in = layernorm(self.ln1, h, eps=self.cfg.norm_eps)
+        a_out, _ = attn.attention_apply(self.attn, a_in, self.acfg, impl=attn_impl)
+        h32 = h.float() + a_out.float()
+        f_in = layernorm(self.ln2, h32, eps=self.cfg.norm_eps).to(h.dtype)
+        return h32.to(h.dtype) + ffn.gelu_mlp_apply(self.mlp, f_in)
+
+
+POS_TAP_STRIDE = 16   # the reference takes every 16th of the positional conv's taps
+
+
+class EncoderModel(_Model):
+    """The hubert encoder on ``device`` (the card unless ``"cpu"`` is asked
+    for): frames ``[B, T, d_model]`` (precomputed embeddings) -> logits
+    ``[B, T, vocab]`` (bf16).  ``params``, ``seed`` and ``trainable`` as
+    for :class:`DenseLM`."""
+
+    def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
+                 seed: int = 0, trainable: bool = False):
+        super().__init__()
+        _require_class(cfg, EncoderModel)
+        params, _ = _build_params(cfg, params, device, seed, trainable)
+        self.cfg = cfg
+        self.trainable = trainable
+        for name in ("in_proj", "ln_in", "ln_out", "head"):
+            setattr(self, name, Params(params[name], trainable=trainable))
+        self.pos_conv = nn.Parameter(params["pos_conv"], requires_grad=trainable)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, _layer_tree(params["layers"], i), trainable=trainable)
+            for i in range(cfg.num_layers))
+
+    def positional(self, h: torch.Tensor) -> torch.Tensor:
+        """The conv positional embedding's output gelu(conv(h)), in h's dtype:
+        taps 0, 16, ..., 112 of the 128, over h padded by (64, 63)."""
+        pos = self.pos_conv.to(h.dtype)                    # [Kw, d]
+        Kw, T = pos.shape[0], h.shape[1]
+        hp = torch.nn.functional.pad(h, (0, 0, Kw // 2, Kw - 1 - Kw // 2))
+        conv = torch.zeros_like(h)
+        for i in range(0, Kw, POS_TAP_STRIDE):
+            conv = conv + hp[:, i:i + T] * pos[i]
+        return ffn.gelu_tanh(conv)
+
+    def forward(self, frames: torch.Tensor, *, attn_impl: str = "auto") -> torch.Tensor:
+        h = linear(self.in_proj, frames)
+        # the input norm reads the float32 sum (see the module's notes)
+        h = layernorm(self.ln_in, h.float() + self.positional(h).float(),
+                      eps=self.cfg.norm_eps).to(h.dtype)
+        remat = self._remat(True)
+        for layer in self.layers:
+            h = _maybe_remat(layer, remat)(h, attn_impl=attn_impl)
+        h = layernorm(self.ln_out, h, eps=self.cfg.norm_eps)
+        return linear(self.head, h)
+
+
 LM = DenseLM | MoELM | HybridLM | RWKVLM
-MODELS = {"dense": DenseLM, "moe": MoELM, "hybrid": HybridLM, "rwkv": RWKVLM}
+Model = LM | EncoderModel
+MODELS = {"dense": DenseLM, "moe": MoELM, "hybrid": HybridLM, "rwkv": RWKVLM,
+          "encoder": EncoderModel}
 
 
-def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0) -> LM:
-    """The model class of ``cfg``'s family, built on ``device``."""
+def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0,
+             trainable: bool = False) -> Model:
+    """The model class of ``cfg``'s family (the encoder's too), built on
+    ``device``; ``trainable`` only for ``TRAINABLE_FAMILIES``."""
     _require_ported(cfg)
-    return MODELS[cfg.family](cfg, params, device=device, seed=seed)
+    kw = {}
+    if trainable:
+        require_trainable(cfg)
+        kw["trainable"] = True
+    return MODELS[cfg.family](cfg, params, device=device, seed=seed, **kw)
 
 
 # ===========================================================================
@@ -546,17 +702,46 @@ def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None):
     return model(tokens, caches=caches, with_aux=True)
 
 
+def _backbone_hidden(model: LM, tokens: torch.Tensor):
+    """Hidden states before the unembedding [B, S, d] and the aux loss
+    (for the streamed loss)."""
+    h, _, aux = model.hidden_aux(tokens)
+    return h, aux
+
+
 def lm_loss(model: LM, batch: dict):
     """Next-token cross entropy of ``batch["tokens"]`` [B, S + 1]: the
-    first S tokens predict the last S; returns (loss, {"ce", "aux"})."""
+    first S tokens predict the last S; returns (loss, {"ce", "aux"}).  With
+    ``cfg.loss_seq_chunks > 1`` the logits are made and dropped chunk by
+    chunk (``seq_chunked_cross_entropy``)."""
     tokens = batch["tokens"]
-    logits, _, aux = forward_lm(model, tokens[:, :-1])
-    ce = softmax_cross_entropy(logits, tokens[:, 1:])
+    chunks = model.cfg.loss_seq_chunks
+    if chunks > 1:
+        h, aux = _backbone_hidden(model, tokens[:, :-1])
+        ce = seq_chunked_cross_entropy(h, model.unembed_table, tokens[:, 1:], chunks=chunks)
+    else:
+        logits, _, aux = forward_lm(model, tokens[:, :-1])
+        ce = softmax_cross_entropy(logits, tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def loss_fn(model: LM, batch: dict):
-    """The family's training loss (the LM families: ``lm_loss``)."""
+def forward_encoder(model: EncoderModel, frames: torch.Tensor) -> torch.Tensor:
+    """hubert: frames [B, T, d_model] (stub frontend) -> logits [B, T, vocab]."""
+    return model(frames)
+
+
+def encoder_loss(model: EncoderModel, batch: dict):
+    """Masked cross entropy of ``batch["targets"]`` [B, T] over the
+    positions ``batch["mask"]`` marks; returns (loss, {"ce", "aux"})."""
+    logits = forward_encoder(model, batch["frames"])
+    ce = softmax_cross_entropy(logits, batch["targets"], mask=batch["mask"])
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=logits.device)}
+
+
+def loss_fn(model: Model, batch: dict):
+    """The family's training loss: ``encoder_loss`` or ``lm_loss``."""
+    if model.cfg.family == "encoder":
+        return encoder_loss(model, batch)
     return lm_loss(model, batch)
 
 
@@ -569,6 +754,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16
     layer's ``init_rwkv_state`` (rwkv), the shifts in ``dtype`` and the WKV
     states in float32."""
     _require_ported(cfg)
+    if cfg.family == "encoder":
+        raise ValueError(f"no decode caches for family {cfg.family}")
     dev = resolve_device(device)
 
     def kv(n: int) -> dict:

@@ -1,0 +1,109 @@
+"""AdamW with float32 master weights and bf16 compute parameters.
+
+The state is the reference's tree, nested dicts mirroring the parameters::
+
+    master -- float32 copy of the parameters (the source of truth)
+    m, v   -- float32 first and second moments
+    step   -- int32 scalar tensor
+
+``adamw_update`` takes the bf16 gradients, clips them to a global norm,
+and returns (new_state, new bf16 parameters, stats), with the reference's
+arithmetic in float32: the bias corrections ``1 - b ** t`` with ``t``
+the new step as float32, weight decay on every leaf.  Unlike the
+reference's pure update, the state's master, m and v tensors are updated
+in place, leaf by leaf (the returned state holds the same tensors), so a
+step needs one leaf's temporaries and not a second copy of the whole
+optimizer state.  The reference's ZeRO sharding metadata has no
+counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.common import Tree, iter_leaves, set_leaf
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def tree_map(fn, tree: Tree) -> Tree:
+    """``fn`` on every leaf of a nested dict, in sorted key order."""
+    out: Tree = {}
+    for path, leaf in iter_leaves(tree):
+        set_leaf(out, path, fn(leaf))
+    return out
+
+
+def leaves(tree: Tree) -> list[Any]:
+    """The leaves of a nested dict in sorted key order (jax's flatten order)."""
+    return [leaf for _, leaf in iter_leaves(tree)]
+
+
+def adamw_init(params: Tree) -> dict:
+    """{master: float32 copies of ``params``, m and v: zeros, step: 0}."""
+    master = tree_map(lambda p: p.to(torch.float32, copy=True), params)
+    zeros = lambda: tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                                   device=p.device), params)
+    step = torch.zeros((), dtype=torch.int32, device=leaves(master)[0].device)
+    return {"master": master, "m": zeros(), "v": zeros(), "step": step}
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
+    """float32 gradients scaled by ``min(1, max_norm / max(norm, 1e-12))``,
+    and the norm."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
+
+
+def adamw_update(
+    state: dict,
+    grads: Tree,
+    cfg: AdamWConfig,
+    *,
+    lr_scale: torch.Tensor | float = 1.0,
+    compute_dtype=torch.bfloat16,
+) -> tuple[dict, Tree, dict]:
+    """Returns (new_state, new_compute_params, {"grad_norm", "lr"}).  The
+    gradients are clipped leaf by leaf as the update reads them, with
+    ``clip_by_global_norm``'s scale, so no clipped copy of them is held."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, cfg.grad_clip)
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=t.device)  # noqa: E731
+    bc1 = 1.0 - f32(cfg.b1) ** t
+    bc2 = 1.0 - f32(cfg.b2) ** t
+    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
+    new_params: Tree = {}
+    for (path, master), m, v, g in zip(iter_leaves(state["master"]), leaves(state["m"]),
+                                       leaves(state["v"]), leaves(grads)):
+        g = g.to(torch.float32) * scale
+        m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
+        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        master.copy_(master - lr * (update + cfg.weight_decay * master))
+        set_leaf(new_params, path, master.to(compute_dtype))
+    new_state = {"master": state["master"], "m": state["m"], "v": state["v"], "step": step}
+    return new_state, new_params, {"grad_norm": norm, "lr": lr}

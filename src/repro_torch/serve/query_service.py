@@ -136,7 +136,11 @@ class QueryTicket:
         outcome: str,
         result: QueryResult | None,
         error: BaseException | None = None,
+        record=None,
     ) -> bool:
+        """Set the outcome once; ``record(ticket)`` (the service's metrics)
+        runs before waiters wake, so no ``result()`` returns ahead of the
+        counters a ``metrics()`` snapshot reads."""
         with self._lock:
             if self._event.is_set():
                 return False
@@ -144,6 +148,8 @@ class QueryTicket:
             self.result = result
             self.error = error
             self.finished_at = time.monotonic()
+            if record is not None:
+                record(self)
             self._event.set()
             return True
 
@@ -361,13 +367,13 @@ class QueryService:
                 # that must stay behind admission control
                 result = qe.run() if sketch_forced else qe._answer_from_sketches()
             except Exception as e:  # noqa: BLE001 -- surface via the ticket
-                ticket._finalize(outcome="failed", result=None, error=e)
-                self._record(ticket, blocks=0)
+                ticket._finalize(outcome="failed", result=None, error=e,
+                                 record=lambda t: self._record(t, blocks=0))
                 return ticket
             if sketch_forced or result.converged:
                 qe.end_span()
-                ticket._finalize(outcome="sketch", result=result)
-                self._record(ticket, blocks=result.executor_stats.blocks_fetched)
+                ticket._finalize(outcome="sketch", result=result, record=lambda t: self._record(
+                    t, blocks=result.executor_stats.blocks_fetched))
                 return ticket
 
         cost = self.ds.executor.prefetch + 1
@@ -378,8 +384,8 @@ class QueryService:
             self._runs[qid] = run
         decision = self._admission.try_admit(run, cost)
         if decision == "reject":
-            ticket._finalize(outcome="rejected", result=None)
-            self._record(ticket, blocks=0)
+            ticket._finalize(outcome="rejected", result=None,
+                             record=lambda t: self._record(t, blocks=0))
             with self._lock:
                 self._runs.pop(qid, None)
             if on_reject == "raise":
@@ -448,9 +454,9 @@ class QueryService:
         if run is None:
             return False
         res = run.last if run.last is not None else self._anytime_empty(run)
-        if not ticket._finalize(outcome="cancelled", result=res):
+        if not ticket._finalize(outcome="cancelled", result=res, record=lambda t: self._record(
+                t, blocks=run.qe.counter.stats().blocks_fetched)):
             return False
-        self._record(ticket, blocks=run.qe.counter.stats().blocks_fetched)
         if self._admission.drop(run):
             # never admitted: nothing holds capacity; tidy up directly
             self._retire(run)
@@ -511,20 +517,18 @@ class QueryService:
         res = run.last
         if res is None and error is None:
             res = self._anytime_empty(run)
-        if run.ticket._finalize(outcome=outcome, result=res, error=error):
-            self._record(
-                run.ticket, blocks=run.qe.counter.stats().blocks_fetched
-            )
+        run.ticket._finalize(outcome=outcome, result=res, error=error, record=lambda t: self._record(
+            t, blocks=run.qe.counter.stats().blocks_fetched))
         self._retire(run)
 
     def _drop(self, run: _Run) -> None:
         """Scheduler drop hook: the service is closing; finalize as
         cancelled (anytime result preserved)."""
-        if run.ticket._finalize(
+        run.ticket._finalize(
             outcome="cancelled",
             result=run.last if run.last is not None else self._anytime_empty(run),
-        ):
-            self._record(run.ticket, blocks=run.qe.counter.stats().blocks_fetched)
+            record=lambda t: self._record(t, blocks=run.qe.counter.stats().blocks_fetched),
+        )
         self._retire(run)
 
     def _retire(self, run: _Run) -> None:
@@ -596,8 +600,8 @@ class QueryService:
                 "serve.deadline", parent=run.qe.ctx, attrs={"qid": ticket.id}
             )
         res = run.last if run.last is not None else self._anytime_empty(run)
-        if ticket._finalize(outcome="deadline", result=res):
-            self._record(ticket, blocks=run.qe.counter.stats().blocks_fetched)
+        ticket._finalize(outcome="deadline", result=res, record=lambda t: self._record(
+            t, blocks=run.qe.counter.stats().blocks_fetched))
         if self._admission.drop(run):
             self._retire(run)  # was still queued: safe to tear down here
         if span is not None:

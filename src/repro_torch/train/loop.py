@@ -1,0 +1,221 @@
+"""Training on one card: the step builder (mixed precision, optional
+microbatch gradient accumulation) and a preemption-safe Trainer.
+
+The state is the reference's tree, ``{"params": bf16 parameters, "opt":
+{"master", "m", "v", "step"}}``, every leaf in the reference's layout
+(layers stacked on a leading axis), so checkpoints cross between the
+packages.  A step builds the model around ``state["params"]`` (a layer's
+parameters are views of the stacked leaves, requiring grad), runs the
+family's loss and its backward, stacks the layers' gradients back into the
+reference's layout (:func:`param_grads`) and applies ``adamw_update``,
+which updates the optimizer state in place.  The reference's ``rules``
+(sharding constraints over a device mesh) have no counterpart on one card.
+
+Families: the dense decoders and the encoder train; every kernel on their
+path has a backward (flash attention's).  MoE, hybrid and RWKV6 training
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+
+The data pipeline is the RSP loader: every batch is a block-level sample
+(Definition 4), and its O(1) sampler state rides along in each checkpoint,
+so a restart reproduces the exact batch sequence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.checkpoint import store as ckpt
+from repro_torch.device import resolve_device
+from repro_torch.models import api, transformer
+from repro_torch.models.common import Tree, init_params, iter_leaves, set_leaf
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import build_lm, require_trainable
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves, tree_map
+from repro_torch.optim.schedule import SCHEDULES
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    total_steps: int = 100
+    warmup_steps: int = 10
+    schedule: str = "cosine"
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    microbatch: int = 0          # 0 = no accumulation; else per-step microbatch count
+    seed: int = 0
+
+
+def _module_leaf(module, path: tuple[str, ...]) -> torch.Tensor:
+    for name in path:
+        module = getattr(module, name)
+    return module
+
+
+def param_grads(model, params: Tree) -> Tree:
+    """The gradients of ``model``'s parameters in the layout of ``params``
+    (the reference's): a stacked leaf's gradient is its layers' gradients
+    stacked; a parameter that took no gradient gets zeros, as jax gives."""
+    def grad(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return p.grad if p.grad is not None else torch.zeros_like(like)
+
+    out: Tree = {}
+    for path, leaf in iter_leaves(params):
+        if path[0] == "layers":
+            g = torch.stack([grad(_module_leaf(layer, path[1:]), leaf[i])
+                             for i, layer in enumerate(model.layers)])
+        else:
+            g = grad(_module_leaf(model, path), leaf)
+        set_leaf(out, path, g)
+    return out
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConfig) -> Callable:
+    """``(state, batch) -> (state, metrics)``, state = {params, opt}; the
+    batch's tensors on the parameters' device.  ``metrics``: loss (averaged
+    over microbatches), ce and aux (the last microbatch's), grad_norm and
+    lr, as 0-d tensors."""
+    require_trainable(cfg)
+    schedule = SCHEDULES[train_cfg.schedule]
+
+    def grads_of(params: Tree, batch: dict):
+        device = leaves(params)[0].device
+        model = build_lm(cfg, params, device=device, trainable=True)
+        loss, metrics = api.make_loss_fn(model)(batch)
+        loss.backward()
+        grads = param_grads(model, params)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def step_fn(state: dict, batch: dict):
+        params = state["params"]
+        n = train_cfg.microbatch
+        if n > 1:
+            # split the global batch into microbatches; accumulate float32
+            loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            for i in range(n):
+                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
+                mb_loss, metrics, mb_grads = grads_of(params, mb)
+                for acc, g in zip(leaves(grads), leaves(mb_grads)):
+                    acc.add_(g.to(torch.float32))
+                loss = loss + mb_loss / n
+                del mb_grads
+            grads = tree_map(lambda g: g / n, grads)
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+        lr_scale = schedule(state["opt"]["step"], warmup_steps=train_cfg.warmup_steps,
+                            total_steps=train_cfg.total_steps)
+        new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg, lr_scale=lr_scale)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **metrics, **stats}
+
+    return step_fn
+
+
+def init_state(cfg: ModelConfig, seed: int = 0, *, params: Tree | None = None, device="cuda",
+               compute_dtype=torch.bfloat16) -> dict:
+    """{params: bf16, opt: adamw_init(master)}: the master weights drawn
+    from ``torch.Generator(device)`` seeded with ``seed`` at the reference's
+    scales, or ``params`` (a reference-layout tree, such as the
+    reference's ``init_params``) as the master."""
+    dev = resolve_device(device)
+    specs = api.model_specs(cfg)
+    if params is None:
+        master = init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev)
+    else:
+        master = transformer.params_to_tensors(specs, params, dev)
+    opt = adamw_init(master)
+    del master
+    return {"params": tree_map(lambda p: p.to(compute_dtype), opt["master"]), "opt": opt}
+
+
+class Trainer:
+    """Checkpoint/restart training loop on ``device``.
+
+    Fault tolerance: SIGTERM/SIGINT set a flag, and the step in flight ends
+    with a final checkpoint; on start, the latest checkpoint (params,
+    optimizer *and loader state*) is restored so a killed run resumes
+    exactly where it stopped.  ``history`` keeps the metrics of every
+    ``log_every``-th step (and the first), as floats, with the step and its
+    seconds.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        opt_cfg: AdamWConfig,
+        train_cfg: TrainConfig,
+        loader,                       # RSPLoader-compatible (next_batch/state_dict)
+        ckpt_dir: str,
+        *,
+        device="cuda",
+        batch_transform: Callable | None = None,
+    ):
+        require_trainable(cfg)
+        self.cfg, self.opt_cfg, self.train_cfg = cfg, opt_cfg, train_cfg
+        self.loader = loader
+        self.ckpt_dir = ckpt_dir
+        self.device = resolve_device(device)
+        self.batch_transform = batch_transform or (lambda b: b)
+        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg)
+        self.checkpointer = ckpt.AsyncCheckpointer(ckpt_dir, keep_last=train_cfg.keep_checkpoints)
+        self.history: list[dict] = []
+        self._preempted = False
+
+    def _install_signal_handlers(self) -> dict:
+        def handler(signum, frame):
+            self._preempted = True
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:
+                pass  # not on the main thread
+        return previous
+
+    def run(self, state: dict | None = None, *, stop_after_steps: int | None = None) -> dict:
+        """``stop_after_steps`` emulates preemption after N steps (the final
+        checkpoint is written exactly as the SIGTERM path would)."""
+        previous = self._install_signal_handlers()
+        try:
+            return self._run(state, stop_after_steps)
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+
+    def _run(self, state: dict | None, stop_after_steps: int | None) -> dict:
+        start_step = 0
+        if state is None:
+            latest = ckpt.latest_step(self.ckpt_dir)
+            if latest is not None:
+                state, extra = ckpt.restore(self.ckpt_dir, latest, device=self.device)
+                self.loader.load_state_dict(extra["loader"])
+                start_step = latest
+            else:
+                state = init_state(self.cfg, self.train_cfg.seed, device=self.device)
+
+        for step in range(start_step, self.train_cfg.total_steps):
+            if stop_after_steps is not None and step - start_step >= stop_after_steps:
+                self._preempted = True
+                self.checkpointer.save(step, state, extra={"loader": self.loader.state_dict()})
+                break
+            batch = self.batch_transform(self.loader.next_batch())
+            t0 = time.time()
+            state, metrics = self.step_fn(state, batch)
+            if (step + 1) % self.train_cfg.log_every == 0 or step == start_step:
+                metrics = {k: float(v) for k, v in metrics.items()}     # waits for the step
+                metrics.update(step=step + 1, sec_per_step=time.time() - t0)
+                self.history.append(metrics)
+            if (step + 1) % self.train_cfg.checkpoint_every == 0 or self._preempted:
+                self.checkpointer.save(step + 1, state,
+                                       extra={"loader": self.loader.state_dict()})
+            if self._preempted:
+                break
+        self.checkpointer.wait()
+        return state

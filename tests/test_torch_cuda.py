@@ -29,19 +29,25 @@ granite-moe smoke config serves on the card through the flash kernel.
 ``chip_smoke.py`` repeats these checks at the main path's full shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import smoke_config
+from repro_torch.configs import SHAPES, smoke_config
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import LAUNCHES as BLOCK
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
 from repro_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_plain,
+    flash_attention_stats,
+    log_sum_exp,
 )
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
@@ -50,8 +56,11 @@ from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain, shuffle_path
 from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
 from repro_torch.models import api
+from repro_torch.models.common import iter_leaves
 from repro_torch.models.transformer import build_lm
+from repro_torch.optim import AdamWConfig
 from repro_torch.serve import Server
+from repro_torch.train import TrainConfig, init_state, make_train_step, param_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -573,6 +582,118 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_cuda(q, k.cpu(), v)
 
 
+BWD_SHAPES = [
+    # B, H, Hkv, S, D
+    (2, 4, 2, 128, 64),      # GQA, whole tiles
+    (1, 14, 2, 200, 64),     # qwen2-0.5b's heads (G = 7), ragged S
+    (1, 8, 8, 97, 112),      # MHA at D = 112 (hubert's padded 80), ragged S
+    (1, 8, 1, 130, 128),     # MQA at D = 128, ragged S
+    (2, 2, 2, 1, 64),        # a single row
+]
+
+
+def _grads_close(got, want, tol=2e-2):
+    """|a - b| <= tol (1 + |b|), the bf16 forward's gate."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        bad = (a.float() - b.float()).abs() > tol * (1 + b.float().abs())
+        assert not bool(bad.any()), f"{name}: {int(bad.sum())} values beyond {tol}"
+
+
+def _bwd_case(B, H, Hkv, S, D, causal, dev, seed=0):
+    q, k, v = _qkv(B, H, Hkv, S, D, torch.bfloat16, dev, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    dout = torch.randn((B, H, S, D), generator=g).bfloat16().to(dev)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_bwd_kernel_matches_plain(dev, shape, causal):
+    q, k, v, dout = _bwd_case(*shape, causal, dev)
+    out32, (m, l) = flash_attention_stats(q, k, v, causal=causal)
+    out = out32.bfloat16()
+    want = flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
+    kernels.reset_launch_counts()
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, log_sum_exp(m, l), causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    _grads_close(got, want)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, log_sum_exp(m, l), causal=causal)
+    for a, b in zip(got, again):          # no atomics: the same bits every call
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_refuses_a_gradient_without_dvec(dev):
+    # the known-wrong control: out zeroed drops Dvec from dS
+    q, k, v, dout = _bwd_case(2, 4, 2, 256, 64, True, dev, seed=3)
+    out32, (m, l) = flash_attention_stats(q, k, v, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, out32.bfloat16(), dout, m, l, causal=True)
+    wrong = flash_attention_bwd_cuda(q, k, v, torch.zeros_like(dout), dout, log_sum_exp(m, l))
+    with pytest.raises(AssertionError):
+        _grads_close(wrong, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 112, 128])
+def test_flash_attention_lse_leaves_the_output_and_matches_the_statistics(dev, D, causal):
+    q, k, v = _qkv(2, 4, 2, 129, D, torch.bfloat16, dev, seed=D)
+    plain = flash_attention_cuda(q, k, v, causal=causal)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    _, (m, l) = flash_attention_stats(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    want = log_sum_exp(m, l)
+    assert bool(((lse - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("D,causal", [(64, True), (80, False), (16, True)])
+def test_flash_attention_gradient_on_the_card_matches_the_plain_function(dev, D, causal):
+    # through ops.flash_attention (FlashAttention): GQA sum, D padded to the
+    # kernel's width with the unpadded scale, padded columns cut off
+    B, H, Hkv, S = 2, 8, 2, 150
+    q, k, v, dout = _bwd_case(B, H, Hkv, S, D, causal, dev, seed=D)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = flash_attention(*got_in, causal=causal)
+    out.backward(dout)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    ref = flash_attention(*want_in, causal=causal, impl="torch")
+    ref.backward(dout)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    _grads_close([t.grad for t in got_in], [t.grad for t in want_in])
+
+
+def test_flash_attention_float32_gradient_on_the_card_raises(dev):
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 2, 1, 64, 64, torch.float32, dev))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="no gradient"):
+        flash_attention_cuda(q, k, v)
+
+
+def test_ssd_and_wkv_kernels_refuse_inputs_that_require_grad(dev):
+    (xbar, dA, Bm, Cm), _ = _ssd_arrays(1, 128, 2, "softplus", 0)
+    xbar = xbar.to(dev).requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev), chunk=128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_cuda(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev))
+    with torch.no_grad():      # serving: no graph wanted, the kernel runs
+        ssd(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev), chunk=128)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    r, k, v = (torch.randn((1, 32, 2, 64), generator=g).to(dev) for _ in range(3))
+    w = torch.rand((1, 32, 2, 64), generator=g).to(dev)
+    u = torch.zeros((2, 64), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wkv6(r, k, v, w, u)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wkv6_cuda(r, k, v, log_decay(w), u)
+
+
 def _ssd_arrays(B, L, H, decay, seed, with_h0=False):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, L, H, 64)).astype(np.float32)
@@ -930,3 +1051,62 @@ def test_torch_backend_on_the_card_equals_the_cpu(dev):
         assert torch.equal(on_card.stacked().cpu(), on_cpu.stacked())
         assert is_partition(on_card.stacked(), arr)
         assert sum(kernels.launch_counts().values()) == 0   # no kernel on this path
+
+
+def _to(tree, dev):
+    out = {}
+    for k, v in tree.items():
+        out[k] = _to(v, dev) if isinstance(v, dict) else v.to(dev)
+    return out
+
+
+def _smoke_batch(cfg, dev, seed=1):
+    if cfg.family == "encoder":
+        cell = dataclasses.replace(SHAPES["train_4k"], seq_len=150, global_batch=2)
+        return api.concrete_inputs(cfg, cell, seed=seed, device=dev)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 151), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def _grads(cfg, state, batch):
+    model = build_lm(cfg, state["params"], device=batch[next(iter(batch))].device,
+                     trainable=True)
+    loss, _ = api.make_loss_fn(model)(batch)
+    loss.backward()
+    return loss.detach(), param_grads(model, state["params"])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hubert-xlarge"])
+def test_smoke_training_gradients_on_the_card_match_the_cpu(dev, arch):
+    # every attention of the step through the kernels (head dim 16 padded to
+    # 64), twice a layer forward (remat) and once backward; the gradients
+    # within the CPU parity tests' tolerances of the plain versions' on the
+    # host (tests/test_torch_train.py)
+    cfg = smoke_config(arch)
+    state = init_state(cfg, seed=0, device="cpu")
+    batch = _smoke_batch(cfg, "cpu")
+    want_loss, want = _grads(cfg, state, batch)
+    kernels.reset_launch_counts()
+    loss, got = _grads(cfg, _to(state, dev), _to(batch, dev))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.num_layers
+    assert counts["flash_attention_bwd"] == cfg.num_layers
+    assert abs(float(loss) - float(want_loss)) < 1e-2
+    for (path, a), (_, b) in zip(iter_leaves(got), iter_leaves(want)):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).norm() / b.norm()) < 3e-2, path
+        assert float((a - b).abs().max() / b.abs().max()) < 5e-2, path
+
+
+def test_smoke_train_steps_on_the_card(dev):
+    cfg = smoke_config("qwen2-0.5b")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2), TrainConfig(total_steps=4, warmup_steps=1))
+    state = init_state(cfg, seed=0, device=dev)
+    losses = []
+    for i in range(4):
+        state, m = step(state, _smoke_batch(cfg, dev, seed=i % 2))
+        losses.append(float(m["loss"]))
+    assert int(state["opt"]["step"]) == 4 and np.isfinite(losses).all()
+    assert losses[-1] < losses[1], losses
+    assert all(p.dtype == torch.bfloat16 and p.is_cuda for _, p in iter_leaves(state["params"]))

@@ -64,7 +64,7 @@ def test_smoke_configs_match_the_reference():
             assert getattr(ours, f.name) == getattr(ref, f.name), (arch, f.name)
     assert set(ARCHS) == {"llama3.2-1b", "qwen2-0.5b", "qwen3-14b", "granite-20b",
                           "chameleon-34b", "zamba2-7b", "rwkv6-1.6b",
-                          "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"}
+                          "granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "hubert-xlarge"}
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "pallas"])
@@ -189,13 +189,9 @@ def test_checkpoint_keys_parse():
 @pytest.mark.parametrize("family", ["moe", "hybrid", "rwkv", "encoder"])
 def test_other_families_name_their_roadmap_item(family):
     cfg = dataclasses.replace(smoke_config("llama3.2-1b"), family=family)
-    if family in ("moe", "hybrid", "rwkv"):
-        # ported: DenseLM points at the family's own class
-        with pytest.raises(ValueError, match={"moe": "MoELM", "hybrid": "HybridLM",
-                                              "rwkv": "RWKVLM"}[family]):
-            DenseLM(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item"):
+    # every family is ported: DenseLM points at the family's own class
+    with pytest.raises(ValueError, match={"moe": "MoELM", "hybrid": "HybridLM", "rwkv": "RWKVLM",
+                                          "encoder": "EncoderModel"}[family]):
         DenseLM(cfg, device="cpu")
 
 

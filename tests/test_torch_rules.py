@@ -271,7 +271,8 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
     ds.loader(64).next_batch()
     DriftMonitor(ds.take([0, 1])[..., :4], device="cpu").score(ds.block(2)[:, :4])
     assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
-                                       "flash_attention": 0, "mamba2_ssd": 0, "rwkv6_wkv": 0}
+                                       "flash_attention": 0, "flash_attention_bwd": 0,
+                                       "mamba2_ssd": 0, "rwkv6_wkv": 0}
 
 
 def test_cuda_build_is_keyed_by_sources(tmp_path):
@@ -281,5 +282,5 @@ def test_cuda_build_is_keyed_by_sources(tmp_path):
     assert len(key) == 16 and key == _cuda.source_hash()
     assert {p.name for p in _cuda._sources()} == {
         "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu",
-        "mamba2_ssd.cu", "rwkv6_wkv.cu"}
+        "flash_attention_bwd.cu", "mamba2_ssd.cu", "rwkv6_wkv.cu"}
     assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
