@@ -11,7 +11,8 @@ encoder, through the flash backward kernel).
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
-Phases, one line each with its seconds:
+Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
+3g, 3b (started), 7, 8, 10, 3b (waited for), 3c-3f, 6, 9, 5:
 
 1. build     -- compile the seven CUDA sources (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
@@ -21,8 +22,8 @@ Phases, one line each with its seconds:
                 and row kernels, the SSD's ssd_state and ssd_scan, the
                 WKV's wkv6_chunks, block_sketch_fused and the main path's
                 plan_sketch_fused), and of the flash backward's
-                fa_bwd_dkdv and fa_bwd_dq at D = 64, 112 and 128, from the
-                ``-Xptxas -v`` log;
+                fa_bwd_dkdv_wgmma and fa_bwd_dq_wgmma at D = 64, 80, 112
+                and 128, from the ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative, histograms
@@ -36,7 +37,8 @@ Phases, one line each with its seconds:
                 (the reference's own tolerances) at llama3.2-1b's prefill
                 shape in the serve path's strided layout, qwen2-0.5b's,
                 qwen3-14b's and granite-20b's heads, a ragged S, a
-                non-causal case and zamba2-7b's shared block (D = 112);
+                non-causal case, zamba2-7b's shared block (D = 112) and
+                hubert-xlarge's encoder (D = 80, full);
                 mamba2_ssd's y and h_final within 2e-4 (1 + |plain|) at
                 zamba2-7b's prefill shape, with weak decay (dA in
                 [-1e-3, 0]: the state crosses all 16 chunks), with
@@ -56,7 +58,7 @@ Phases, one line each with its seconds:
                 the same q, k, v, output and statistics at llama3.2-1b's
                 training shape (q [8, 32, 2048, 64], k/v [8, 8, 2048, 64],
                 causal, the layer's strided views) and hubert-xlarge's
-                ([8, 16, 2048, 80] zero-padded to 112, full), the same bits
+                ([8, 16, 2048, 80], full, at the kernel's own D = 80), the same bits
                 on a second call, the padded columns zero, two known-wrong
                 controls (Dvec dropped; dK and dV in the wrong kv head)
                 refused; the forward with lse equal to the one without and
@@ -107,7 +109,9 @@ Phases, one line each with its seconds:
 3b. ingest   -- the same corpus written to a ``.npy`` file (1.276 GB at
                 full size) and ingested from disk by ``rsp.from_source(path,
                 out=...)`` (the ``np_stream`` host scatter, default chunks,
-                4 workers) in a child process, which reports its seconds,
+                4 workers) in a child process, started here and waited
+                for after phases 7, 8 and 10 (which need no ingested store
+                and are card-bound) have run beside it, which reports its seconds,
                 rows a second and the peak growth of its heap (``VmData``:
                 it must stay under INGEST_HEAP_BYTES, less than the corpus)
                 and of its resident memory (mapped files included); every
@@ -157,7 +161,8 @@ Phases, one line each with its seconds:
                 every submission accounted for), a deadline wave (p95 over
                 up to 100 blocks in 50 ms: every ticket ``deadline`` or
                 ``converged`` with an anytime result) and one profiled wave
-                for the device's idle share; QPS, latency p50 and p99 by
+                of PROFILED_TENANTS tenants (two of each type) for the
+                device's idle share; QPS, latency p50 and p99 by
                 query type, blocks a query and the cache hit rate printed;
 3f. mesh      -- on the same store and ``.npy``: query (b), query (c) and a
                 p95 of column 0 over 20 blocks, (a) by four
@@ -183,7 +188,7 @@ Phases, one line each with its seconds:
                 wait up to the re-deal, from telemetry in the run itself)
                 and the partition's parts are printed; every child has a
                 timeout;
-5. times     -- (run after 9) each kernel's time per call with CUDA events around a run
+5. times     -- (run last) each kernel's time per call with CUDA events around a run
                 of back-to-back calls (the wrapper as the query path calls
                 it -- for the sketches the launchers that return the packed
                 output -- so host work that outlasts the kernel shows) beside its
@@ -200,7 +205,8 @@ Phases, one line each with its seconds:
                 it touches; the three RSP kernels also at the tuner's
                 winning configuration (``tuned_ms``, ``tuned_config``; the
                 default and the winner timed in turns, ABBA, after a
-                discarded warm window of each, each side's best window); the
+                discarded warm window of each, each side's best window);
+                flash at hubert-xlarge's encoder shape (D = 80); the
                 flash backward at both training shapes beside its bound
                 (2.5x the forward's products), its plain version and the
                 backward of ``scaled_dot_product_attention`` on
@@ -221,14 +227,15 @@ Phases, one line each with its seconds:
                 whose tokens must equal the argmax of the three models'
                 log-probabilities averaged outside the server.  Prefill
                 seconds, time to first token, decode tokens/s, peak device
-                memory and the device's idle share of one generate
-                (``torch.profiler``) are printed beside the card; the flash
+                memory and the device's idle share of one profiled
+                generate of PROFILE_NEW new tokens (``torch.profiler``) are
+                printed beside the card; the flash
                 kernel is timed at the prefill shape beside its bound, its
                 plain version and ``scaled_dot_product_attention``;
 7. hybrid    -- zamba2-7b at full width and depth (81 Mamba2 layers, 14
                 invocations of the shared block, d_model 3584, vocab
-                32,000; random weights from the seed), after the llama
-                models are freed: ``Server.generate`` of 8 prompts of 2048
+                32,000; random weights from the seed), beside the ingest
+                child: ``Server.generate`` of 8 prompts of 2048
                 tokens, 32 new tokens, greedy (81 mamba2_ssd and 14 flash
                 launches), checked by teacher forcing through the plain
                 SSD and the plain attention, and layer by layer (each
@@ -277,7 +284,7 @@ Phases, one line each with its seconds:
                 prompts of 1024 tokens, 16 new, with the same check.  Each
                 model's parameters, weight GB, prefill seconds, first
                 token and decode tokens/s printed beside the card;
-10. training -- (after 9) llama3.2-1b as ``launch/train.py --preset full``
+10. training -- (after 8) llama3.2-1b as ``launch/train.py --preset full``
                 builds it (16 layers, d_model 2048, remat) trained by the
                 ``Trainer`` 20 steps of 8 x 2048 tokens of the Zipf token
                 corpus in 16 RSP blocks (AdamW, lr 3e-4, warmup 2): 32
@@ -294,7 +301,10 @@ Phases, one line each with its seconds:
                 logit beyond 8e-2 (1 + |b|)), then 20 training steps on
                 frames that embed RSP-sampled targets (a seeded table plus
                 noise, 30% masked): 96 forward and 48 backward launches a
-                step, the loss falling by 1 nat or more; the restart gate:
+                step, the loss falling by 1 nat or more; one profiled
+                forward and backward of each model, whose device events
+                must hold each of the backward's kernels once a layer; the
+                restart gate:
                 llama3.2-1b at full width and 2 layers, 4 steps unbroken
                 against 2, a checkpoint, a fresh Trainer and 2 more, under
                 ``torch.use_deterministic_algorithms``: master weights,
@@ -681,11 +691,12 @@ def device_events(prof) -> list[tuple[str, float, float]]:
             if evt.device_type() == DeviceType.CUDA]
 
 
-def profiled(fn) -> tuple[float, float | None, dict, int]:
+def profiled(fn, counts: dict | None = None) -> tuple[float, float | None, dict, int]:
     """Run ``fn()`` under ``torch.profiler``: (wall seconds, seconds in the
     union of the device's busy intervals -- kernels, fills and copies -- or
     None when the profiler saw no device event, device seconds by name,
-    number of device events)."""
+    number of device events); ``counts``, when given, takes the number of
+    device events by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -700,6 +711,8 @@ def profiled(fn) -> tuple[float, float | None, dict, int]:
     for name, start, dur in events:
         spans.append((start, start + dur))
         by_name[name] = by_name.get(name, 0.0) + dur / 1e6
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
@@ -1166,6 +1179,7 @@ INGEST_SAMPLE_S = 0.001   # the ingest child reads its memory this often
 INGEST_HEAP_BYTES = 512 << 20
 SERVE_SEED = 11
 SERVE_TYPES = ("sketch", "p95", "b_where_columns", "c_by_label")
+PROFILED_TENANTS = 8          # the profiled wave's tenants, two of each type
 
 
 def _status_bytes(*fields: str) -> list[int]:
@@ -1216,10 +1230,27 @@ def ingest_child(npy: str, out: str, seed: int, device: str) -> dict:
             "peak_rss_growth_bytes": peak[1] - base[1], "sample_s": INGEST_SAMPLE_S}
 
 
-def ingest(args, data, tmp: str, device) -> dict:
-    """Phase 3b: the HIGGS corpus written to a ``.npy`` file and ingested
-    from disk into a stored RSP by the out-of-core scatter (in a child
-    process), checked bit for bit against ``two_stage_partition_np`` of the
+def ingest_start(args, data, tmp: str, device) -> dict:
+    """Phase 3b, first half: the HIGGS corpus written to a ``.npy`` file and
+    the ingest child started on it (a host process); the card-bound phases
+    that need no ingested store run while it works (``ingest``)."""
+    import numpy as np
+
+    npy, out = str(Path(tmp) / "corpus.npy"), str(Path(tmp) / "ingested.rsp")
+    t0 = time.perf_counter()
+    np.save(npy, data)
+    phase("ingest write", t0, f"{Path(npy).stat().st_size / 1e9:.3f} GB .npy")
+    logs = [open(Path(tmp) / name, "w+") for name in ("ingest.out", "ingest.err")]
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ingest-child", npy, out,
+         str(device), "--seed", str(args.seed)], stdout=logs[0], stderr=logs[1], text=True)
+    return {"proc": proc, "logs": logs, "out": out, "t0": time.perf_counter()}
+
+
+def ingest(args, data, child: dict, device) -> dict:
+    """Phase 3b: the ingest child started by ``ingest_start`` (the corpus
+    ingested from disk into a stored RSP by the out-of-core scatter) waited
+    for, checked bit for bit against ``two_stage_partition_np`` of the
     same array on the host, its folded sketches against the in-memory np
     backend's summaries (the reference's tolerances, ``tests/test_ingest.py``),
     and query (b) on the reopened store against the same query on the np
@@ -1231,20 +1262,21 @@ def ingest(args, data, tmp: str, device) -> dict:
     from repro_torch.core.partition import two_stage_partition_np
     from repro_torch.rsp.summaries import summarize_blocks
 
-    npy, out = str(Path(tmp) / "corpus.npy"), str(Path(tmp) / "ingested.rsp")
+    out, proc = child["out"], child["proc"]
     t0 = time.perf_counter()
-    np.save(npy, data)
-    phase("ingest write", t0, f"{Path(npy).stat().st_size / 1e9:.3f} GB .npy")
-
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--ingest-child", npy, out,
-         str(device), "--seed", str(args.seed)],
-        capture_output=True, text=True, timeout=900,
-    )
-    check(res.returncode == 0, f"ingest child failed: {res.stderr[-2000:]}")
-    got = json.loads(res.stdout.strip().splitlines()[-1])
-    phase("ingest", t0, json.dumps(got))
+    try:
+        rc = proc.wait(timeout=max(1.0, 900 - (t0 - child["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    stdout, stderr = (f.seek(0) or f.read() for f in child["logs"])
+    for f in child["logs"]:
+        f.close()
+    check(rc == 0, f"ingest child failed (exit {rc}): {stderr[-2000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    got["waited_s"] = time.perf_counter() - t0
+    phase("ingest", child["t0"], json.dumps(got))
     check(got["backend"] == "np_stream", f"from_source chose {got['backend']!r}")
     check(got["peak_heap_growth_bytes"] < INGEST_HEAP_BYTES,
           f"the ingest's heap grew by {got['peak_heap_growth_bytes']} bytes, more than"
@@ -1849,13 +1881,16 @@ def serving(store: str, device) -> dict:
                 "overrun_ms": [max(0.0, (t.finished_at - t.deadline) * 1e3) for t in dl]}
     phase("serve deadlines", t0, json.dumps(deadline))
 
+    # the device's idle share of a wave: the first PROFILED_TENANTS tenants,
+    # every type alike (a whole wave's profile took 34 s of the smoke)
     t0 = time.perf_counter()
-    p_wall, busy, by_name, _ = profiled(lambda: serve_wave(ds, specs))
+    p_wall, busy, by_name, _ = profiled(lambda: serve_wave(ds, specs[:PROFILED_TENANTS]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     share = {"wall_s": p_wall, "busy_s": busy,
              "idle_share": None if busy is None else 1 - busy / p_wall,
              "top": [(name[:60], sec) for name, sec in top]}
-    phase("serve profile", t0, f"one profiled wave: {json.dumps(share)}")
+    phase("serve profile", t0, f"one profiled wave of {PROFILED_TENANTS} tenants:"
+          f" {json.dumps(share)}")
     ds.close()
     return {"wave": wave, "saturation": {"rejected": ms.rejected, "completed": ms.completed},
             "deadline": deadline, "device_share": share}
@@ -2469,6 +2504,7 @@ FLASH_CASES = {
     "ragged S": (2, 32, 8, 1000, 64, True, True),
     "non-causal": (4, 32, 8, 512, 128, False, False),
     "zamba2-7b shared block": (8, 32, 32, 2048, 112, True, True),
+    "hubert-xlarge encoder": (8, 16, 16, 2048, 80, False, True),
 }
 # a smoke config's attention (head dim 16), run through impl="auto": B, H, Hkv, S, D
 FLASH_SMOKE = (2, 4, 2, 300, 16)
@@ -2750,14 +2786,21 @@ def _zero_output(q, k, v, causal):
 CONTROLS = {"non-causal": _non_causal, "zero output": _zero_output}
 
 
+# new tokens of the profiled generate: the device events a decode step is a
+# per-step count, and parsing a long generate's trace took most of a
+# profile phase (granite-moe's: 45.6 s around a 64-token generate)
+PROFILE_NEW = 8
+
+
 def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_gb: float,
                   gpu: str, forward: bool = False) -> dict:
-    """After a timed ``Server.generate`` (its ``stats`` and peak memory):
-    one profiled generate of ``prompts`` (the device's busy time and idle
-    share, its largest device items), one profiled prefill from fresh
-    float32 caches (where its time goes on the device) and, with
-    ``forward``, one profiled stateless forward of the prompts.  Prints the
-    serving lines beside the card and returns the numbers."""
+    """After a timed ``Server.generate`` of ``new`` tokens (its ``stats``
+    and peak memory): one profiled generate of ``prompts`` and at most
+    PROFILE_NEW new tokens (the device's busy time and idle share, its
+    largest device items), one profiled prefill from fresh float32 caches
+    (where its time goes on the device) and, with ``forward``, one profiled
+    stateless forward of the prompts.  Prints the serving lines beside the
+    card and returns the numbers."""
     import torch
 
     from repro_torch.models import api
@@ -2765,9 +2808,10 @@ def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_
 
     cfg = model.cfg
     B, P = prompts.shape
+    pnew = min(new, PROFILE_NEW)
     t0 = time.perf_counter()
     wall, busy, by_name, gen_events = profiled(
-        lambda: server.generate(prompts, max_new_tokens=new))
+        lambda: server.generate(prompts, max_new_tokens=pnew))
     idle = None if busy is None else 1 - busy / wall
     seq = torch.from_numpy(prompts).to(device=server.device, dtype=torch.int64)
     caches = init_caches(cfg, B, P + new, torch.float32, server.device)
@@ -2778,7 +2822,7 @@ def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_
             passes["forward"] = profiled(lambda: api.make_forward_fn(model)({"tokens": seq}))
     del caches, seq
     pf_events = passes["prefill"][3]
-    step_events = (gen_events - pf_events) / (new - 1)
+    step_events = (gen_events - pf_events) / (pnew - 1)
 
     def top(by: dict, n: int) -> list:
         return [(name[:60], sec) for name, sec in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
@@ -2792,9 +2836,10 @@ def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_
         **{f"{name}_profile": {"wall_s": p[0], "device_busy_s": p[1], "top": top(p[2], 8)}
            for name, p in passes.items()},
         "device_events": {"generate": gen_events, "prefill": pf_events,
-                          "per_decode_step": step_events},
+                          "per_decode_step": step_events}, "profiled_new_tokens": pnew,
     }
-    phase(f"{tag} profile", t0, f"one profiled Server.generate: wall {wall:.3f} s, device busy"
+    phase(f"{tag} profile", t0, f"one profiled Server.generate of {pnew} new tokens: wall"
+          f" {wall:.3f} s, device busy"
           f" {busy} s; " + "; ".join(
               f"one profiled {name}: wall {serve[f'{name}_profile']['wall_s']:.3f} s, device"
               f" busy {serve[f'{name}_profile']['device_busy_s']} s, top"
@@ -2807,7 +2852,8 @@ def serve_profile(tag: str, model, server, prompts, new: int, stats: dict, peak_
                  f" in {stats['decode_s']:.4f} s)",
                  f"peak device memory {peak_gb:.3f} GB",
                  f"device idle share {'not measured' if idle is None else f'{idle:.4f}'}"
-                 f" (busy {busy} s of {wall:.3f} s); top {json.dumps(serve['top'])}"):
+                 f" (busy {busy} s of {wall:.3f} s, one generate of {pnew} new tokens); top"
+                 f" {json.dumps(serve['top'])}"):
         print(f"serve {cfg.name} {B} x {P} + {new}: {line} [{gpu}]", flush=True)
     return serve
 
@@ -3229,8 +3275,8 @@ def ssd_times(args, device) -> dict:
 
 
 def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
-    """The flash kernel at a serve path's prefill shape (llama3.2-1b's, or
-    zamba2-7b's shared block), bf16, causal, in the serve path's layout,
+    """The flash kernel at a path's shape (llama3.2-1b's or zamba2-7b's
+    shared block's prefill, hubert-xlarge's encoder), bf16, in the layer's layout,
     beside its bound, its plain version and one
     ``scaled_dot_product_attention`` call on head-expanded K/V."""
     import torch
@@ -3256,8 +3302,8 @@ def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
                                "fa_wgmma_bf16"),
         "bound_ms": b, "bound_by": by, "flops": flops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": flops / BF16_OPS_PER_S * 1e3,
-        "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16, causal,"
-                 " strided views of [B, S, heads, D]",
+        "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {S}, {D}] bf16,"
+                 f" {'causal' if causal else 'full'}, strided views of [B, S, heads, D]",
     }
     del q, k, v, qc, ke, ve
     torch.cuda.empty_cache()
@@ -4182,9 +4228,10 @@ BWD_CASES = {
 
 def bwd_inputs(case: str, device, seed: int):
     """q, k, v, dout at a training shape as the attention layer hands them
-    to the kernel: views of [B, S, heads, D] (llama), or zero-padded to the
-    kernel's head dim (hubert's 80 to 112, dout's padded columns zero as
-    autograd gives them); the scale is the unpadded D's."""
+    to the kernel: views of [B, S, heads, D], zero-padded to the kernel's
+    head dim where it has no instance at D (none since the kernels take
+    hubert's 80; dout's padded columns zero as autograd gives them); the
+    scale is the unpadded D's."""
     import torch
     import torch.nn.functional as F
 
@@ -4220,6 +4267,7 @@ def flash_bwd_parity(args, device) -> float:
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
         flash_attention_stats, log_sum_exp)
+    from repro_torch.kernels.flash_attention.ops import padded_head_dim
 
     worst = 0.0
     for i, case in enumerate(BWD_CASES):
@@ -4268,9 +4316,10 @@ def flash_bwd_parity(args, device) -> float:
         del q, k, v, dout, out, lse, got, o, o_lse, lse_k, m, l
         torch.cuda.empty_cache()
 
-    # through FlashAttention at hubert's D = 80: padding, scale and the cut
-    # of the padded gradient columns, against the plain Function
+    # through FlashAttention at hubert's D = 80, which both kernels take as it
+    # is (no padding), against the plain Function
     B, H, Hkv, S, D, causal = BWD_CASES["hubert-xlarge train"]
+    check(padded_head_dim(D) == D, f"the kernels pad hubert's D = {D} to {padded_head_dim(D)}")
     g = torch.Generator(device=device).manual_seed(args.seed + 70)
     q, k, v, dout = (torch.randn((B, h, S, D), generator=g, device=device).bfloat16()
                      for h in (H, Hkv, Hkv, H))
@@ -4287,7 +4336,7 @@ def flash_bwd_parity(args, device) -> float:
     bad = sum(_beyond(a, b, BWD_TOL) for a, b in zip(grads["auto"], grads["torch"]))
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*grads.values()))
     check(bad == 0, f"FlashAttention at D = 80: {bad} gradient values beyond {BWD_TOL}")
-    print(f"  FlashAttention at D = 80 (padded to 112): max |kernel - plain| {err:.3g}",
+    print(f"  FlashAttention at D = 80 (the kernels' own width): max |kernel - plain| {err:.3g}",
           flush=True)
     del q, k, v, dout, grads
     torch.cuda.empty_cache()
@@ -4472,6 +4521,43 @@ def step_grads(cfg, state, batch, device):
         time.perf_counter() - t0
 
 
+def profiled_step(tag: str, cfg, state, batch, device) -> dict:
+    """One forward and backward of ``cfg`` (no optimizer) under the
+    profiler, after PROFILER_WARMUP fills (the profiler misses a session's
+    first device events): the device's busy and idle share, the top device
+    items and the device events of each of the backward's kernels, which
+    must be one a layer."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
+
+    scratch = torch.empty(1, dtype=torch.int16, device=device)
+
+    def run():
+        for _ in range(PROFILER_WARMUP):
+            scratch.fill_(0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        step_grads(cfg, state, batch, device)
+
+    counts = {}
+    wall, busy, by_name, n_events = profiled(run, counts)
+    seen = {k: sum(n for name, n in counts.items() if k in name) for k in BWD_KERNELS}
+    prof = {
+        "wall_s": wall, "device_busy_s": busy, "device_events": n_events,
+        "idle_share": None if busy is None else 1 - busy / wall,
+        "bwd_kernel_events": seen,
+        "bwd_kernel_s": {k: sum(sec for name, sec in by_name.items() if k in name)
+                         for k in BWD_KERNELS},
+        "top": [(name[:60], sec) for name, sec in sorted(by_name.items(),
+                                                         key=lambda kv: -kv[1])[:10]]}
+    check(all(n == cfg.num_layers for n in seen.values()),
+          f"{tag}: a profiled step's backward kernels ran {seen} times, not {cfg.num_layers}"
+          f" each")
+    torch.cuda.empty_cache()
+    return prof
+
+
 def restart_gate(args, device, tmp: str) -> dict:
     """RESTART_STEPS steps unbroken, and RESTART_AT steps, a checkpoint, a
     fresh Trainer and the rest: the resumed master weights, moments and
@@ -4598,13 +4684,7 @@ def training(args, device, gpu: str) -> dict:
         del ref_grads
         # where a step's device time goes: one profiled grouped forward and
         # backward (the optimizer's update is not in it)
-        wall, busy, by_name, n_events = profiled(lambda: step_grads(cfg, state, batch, device))
-        steps["grouped"]["profile"] = {
-            "wall_s": wall, "device_busy_s": busy, "device_events": n_events,
-            "idle_share": None if busy is None else 1 - busy / wall,
-            "top": [(name[:60], sec) for name, sec in sorted(by_name.items(),
-                                                             key=lambda kv: -kv[1])[:10]]}
-        torch.cuda.empty_cache()
+        steps["grouped"]["profile"] = profiled_step("llama", cfg, state, batch, device)
         d = abs(steps["flat + seq-chunked"]["loss"] - steps["grouped"]["loss"])
         drop = steps["grouped"]["peak_gb"] - steps["flat + seq-chunked"]["peak_gb"]
         phase("train flat step", t0, f"{json.dumps(steps)}; |loss difference| {d:.3g}"
@@ -4673,6 +4753,10 @@ def training(args, device, gpu: str) -> dict:
         state, out["hubert"] = trained("hubert", cfg, state, loader, frames_of, device, gpu,
                                        tmp, args.seed)
         out["hubert"]["forward"] = enc_fwd
+        out["hubert"]["profile"] = profiled_step("hubert", cfg, state,
+                                                 frames_of(loader.next_batch()), device)
+        print(f"train hubert ({cfg.name}): one profiled forward and backward:"
+              f" {json.dumps(out['hubert']['profile'])} [{gpu}]", flush=True)
         loader.close()
         del state, table
         torch.cuda.empty_cache()
@@ -4685,8 +4769,7 @@ def training(args, device, gpu: str) -> dict:
 
 # the kernels redesigned for Hopper, by their names in the build log
 REDESIGNED = {
-    "fa_wgmma_bf16<64>": "fa_wgmma_bf16ILi64E", "fa_wgmma_bf16<112>": "fa_wgmma_bf16ILi112E",
-    "fa_wgmma_bf16<128>": "fa_wgmma_bf16ILi128E",
+    **{f"fa_wgmma_bf16<{d}>": f"fa_wgmma_bf16ILi{d}E" for d in (64, 80, 112, 128)},
     # the shuffle's default CTA sizes (the tuner's other sizes are built too)
     "rsp_shuffle_staged<u32, 1024>": "rsp_shuffle_stagedIjLi1024EE",
     "rsp_shuffle_staged<u16, 1024>": "rsp_shuffle_stagedItLi1024EE",
@@ -4696,10 +4779,9 @@ REDESIGNED = {
     "block_sketch_fused<512>": "block_sketch_fusedILi512E",
     "plan_sketch_fused<512, G 1>": "plan_sketch_fusedILi512ELi1E",
     "plan_sketch_fused<512, G 2>": "plan_sketch_fusedILi512ELi2E",
-    # the flash backward (mma.sync, not yet redesigned): llama's D = 64,
-    # hubert's padded 112, and 128
-    **{f"fa_bwd_{part}<{d}>": f"fa_bwd_{part}ILi{d}E" for part in ("dkdv", "dq")
-       for d in (64, 112, 128)},
+    # the flash backward (wgmma + TMA): llama's D = 64, hubert's 80, 112, 128
+    **{f"fa_bwd_{part}_wgmma<{d}>": f"fa_bwd_{part}_wgmmaILi{d}E" for part in ("dkdv", "dq")
+       for d in (64, 80, 112, 128)},
 }
 
 
@@ -4845,8 +4927,20 @@ def main() -> int:
         path["e2e"]["torch_backend"] = torch_backend(args, data, device,
                                                      path["e2e"]["partition_s"])
         tmp = tempfile.mkdtemp(prefix="rsp_ingest_")
+        child = None
         try:
-            ing = ingest(args, data, tmp, device)
+            child = ingest_start(args, data, tmp, device)
+            # the card-bound phases that need no ingested store run while the
+            # ingest child, a host process, works
+            torch.cuda.empty_cache()
+            hy = hybrid_serving(args, device, gpu)
+            t0 = time.perf_counter()
+            rw = rwkv_serving(args, device, gpu)
+            phase("rwkv", t0)
+            t0 = time.perf_counter()
+            tr = training(args, device, gpu)
+            phase("training", t0)
+            ing = ingest(args, data, child, device)
             inputs = learning_inputs(data, args.records // BLOCKS)
             del data
             ds = ing.pop("dataset")
@@ -4860,21 +4954,17 @@ def main() -> int:
             msh = mesh(args, tmp, device)
             measured = no_new_tuning(measured, "the mesh phase (its children report theirs)")
         finally:
+            if child is not None and child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
         path["e2e"].update(ingest=ing["ingest"], estimator=est, learning=learn, serve=srv,
                            mesh=msh, autotune=tuned)
         lm = lm_serving(args, device, gpu)
-        hy = hybrid_serving(args, device, gpu)
-        t0 = time.perf_counter()
-        rw = rwkv_serving(args, device, gpu)
-        phase("rwkv", t0)
         t0 = time.perf_counter()
         mo = moe_serving(args, device, gpu)
         phase("moe", t0)
-        t0 = time.perf_counter()
-        tr = training(args, device, gpu)
-        phase("training", t0)
 
         t0 = time.perf_counter()
         tm = times(args, device)
@@ -4886,11 +4976,14 @@ def main() -> int:
     tm["flash_attention_d112"] = flash_times(args, device, "zamba2-7b shared block")
     print(f"flash_attention times at zamba2-7b's shared block (D = 112):"
           f" {json.dumps(tm['flash_attention_d112'])} [{gpu}]", flush=True)
+    tm["flash_attention_d80"] = flash_times(args, device, "hubert-xlarge encoder")
+    print(f"flash_attention times at hubert-xlarge's encoder (D = 80):"
+          f" {json.dumps(tm['flash_attention_d80'])} [{gpu}]", flush=True)
     tm["flash_attention_bwd"] = flash_bwd_times(args, device, "llama3.2-1b train")
     print(f"flash_attention_bwd times: {json.dumps(tm['flash_attention_bwd'])} [{gpu}]", flush=True)
-    tm["flash_attention_bwd_d112"] = flash_bwd_times(args, device, "hubert-xlarge train")
-    print(f"flash_attention_bwd times at hubert-xlarge's shape (D = 80 padded to 112):"
-          f" {json.dumps(tm['flash_attention_bwd_d112'])} [{gpu}]", flush=True)
+    tm["flash_attention_bwd_d80"] = flash_bwd_times(args, device, "hubert-xlarge train")
+    print(f"flash_attention_bwd times at hubert-xlarge's shape (D = 80):"
+          f" {json.dumps(tm['flash_attention_bwd_d80'])} [{gpu}]", flush=True)
     tm["mamba2_ssd"] = ssd_times(args, device)
     print(f"mamba2_ssd times: {json.dumps(tm['mamba2_ssd'])} [{gpu}]", flush=True)
     tm["rwkv6_wkv"] = wkv_times(args, device)
@@ -4987,9 +5080,10 @@ def main() -> int:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"kernels": record["kernels"], "plan_sketch_where": tm["plan_sketch_where"],
              "flash_attention_d112": tm["flash_attention_d112"],
+             "flash_attention_d80": tm["flash_attention_d80"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
              "rwkv": rw, "moe": mo, "training": tr,
-             "flash_attention_bwd_d112": tm["flash_attention_bwd_d112"], "gpu": gpu},
+             "flash_attention_bwd_d80": tm["flash_attention_bwd_d80"], "gpu": gpu},
             indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

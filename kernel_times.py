@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Time the flash_attention, rsp_shuffle, mamba2_ssd, rwkv6_wkv,
-block_sketch and plan_sketch kernels of one checkout, or of two checkouts in
-turns on the same card.
+"""Time the flash_attention (forward and backward), rsp_shuffle,
+mamba2_ssd, rwkv6_wkv, block_sketch and plan_sketch kernels of one checkout,
+or of two checkouts in turns on the same card.
 
     python3 kernel_times.py                  # this checkout
     python3 kernel_times.py --against DIR    # DIR, this, this, DIR
+    python3 kernel_times.py --only flash_bwd --against DIR   # some groups only
 
 DIR is another checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into an ignored directory); each run is a
 process of its own that imports the port from that checkout's ``src/``
 and builds its kernels into that checkout's ``build/``.  A run times, with
-``chip_smoke.py``'s helpers, flash attention in bf16 at llama3.2-1b's and
-zamba2-7b's prefill shapes (causal, the serve path's strided layout) and
+``chip_smoke.py``'s helpers, flash attention in bf16 through
+``flash_attention`` at llama3.2-1b's and zamba2-7b's prefill shapes
+(causal) and hubert-xlarge's encoder (D = 80, full), in the layer's
+strided layout (a checkout without a D = 80 kernel pads it), the
+flash backward at ``chip_smoke.py``'s ``BWD_CASES`` (llama3.2-1b's and
+hubert-xlarge's training shapes, made by ``bwd_inputs``: each checkout
+pads hubert's D = 80 to its own kernel's width), and
 the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100,
 the SSD scan at zamba2-7b's prefill shape (xbar [8, 2048, 112, 64]) and the
 WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32, and the sketches at the
@@ -25,7 +31,8 @@ checkout names them in its ``KERNELS``, one from before that has the
 kernels of the old names) from ``torch.profiler``, and ``others`` the
 other device events a call brings (memsets, casts) that ``device_ms``
 leaves out; beside one ``scaled_dot_product_attention`` (K/V
-head-expanded) or ``index_select`` call on the same inputs (no PyTorch
+head-expanded; for the backward, its backward at the unpadded D) or
+``index_select`` call on the same inputs (no PyTorch
 call computes the SSD, the WKV or the sketches) and, for the sketches, the
 bound.  Each run prints one JSON line; with --against, the last line holds
 each checkout's medians and their ratio.  Needs one CUDA card.
@@ -43,32 +50,51 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REPS = 20
 SHUFFLE_REPS = 5
+GROUPS = ("flash", "flash_bwd", "shuffle", "ssd", "wkv", "sketch")
+KEYS = ("flash_llama", "flash_zamba2", "flash_hubert", "flash_bwd_llama", "flash_bwd_hubert", "shuffle", "ssd",
+        "wkv", "block_sketch", "plan_c", "plan_b")
 
 
-def one(src: Path, seed: int) -> dict:
-    """Time the kernels of the port under ``src`` (this process only)."""
+def one(src: Path, seed: int, groups=GROUPS) -> dict:
+    """Time the kernels of ``groups`` of the port under ``src`` (this
+    process only)."""
     sys.path.insert(0, str(src))
     sys.path.insert(1, str(ROOT))
     import torch
-    import torch.nn.functional as F
 
     import chip_smoke as cs
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rsp_shuffle import (
-        flat_gather_index, partition_permutations, rsp_shuffle_cuda)
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is available")
     device = torch.device("cuda", 0)
     out = {"src": str(src), "gpu": cs.nvidia_smi()}
+    timers = {"flash": flash_times, "flash_bwd": flash_bwd_times, "shuffle": shuffle_times,
+              "ssd": ssd_times, "wkv": wkv_times, "sketch": sketch_times}
+    for group in groups:
+        timers[group](out, cs, device, seed)
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_times(out: dict, cs, device, seed: int) -> None:
+    """The forward at llama3.2-1b's and zamba2-7b's prefill shapes and
+    hubert-xlarge's encoder (D = 80, full; a checkout whose kernel has no
+    D = 80 pads it as its ``impl="auto"`` does) beside
+    ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
     for case, key in (("llama3.2-1b prefill", "flash_llama"),
-                      ("zamba2-7b shared block", "flash_zamba2")):
+                      ("zamba2-7b shared block", "flash_zamba2"),
+                      ("hubert-xlarge encoder", "flash_hubert")):
         B, H, Hkv, S, D, causal, strided = cs.FLASH_CASES[case]
         q, k, v = cs.flash_inputs(B, H, Hkv, S, D, torch.bfloat16, device, seed, strided)
         ke = k.repeat_interleave(H // Hkv, dim=1).contiguous()
         ve = v.repeat_interleave(H // Hkv, dim=1).contiguous()
         qc = q.contiguous()
-        run = lambda i: flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        run = lambda i: flash_attention(q, k, v, causal=causal)  # noqa: E731
         out[key] = {
             "ms": cs.time_cuda(run, reps=REPS),
             "device_ms": cs.device_ms(run, REPS, "fa_")["ms"],
@@ -78,6 +104,47 @@ def one(src: Path, seed: int) -> dict:
         }
         del q, k, v, ke, ve, qc
         torch.cuda.empty_cache()
+
+
+def flash_bwd_times(out: dict, cs, device, seed: int) -> None:
+    """The backward at each training shape of ``chip_smoke.BWD_CASES``,
+    beside the backward of one ``scaled_dot_product_attention`` call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for case, key in (("llama3.2-1b train", "flash_bwd_llama"),
+                      ("hubert-xlarge train", "flash_bwd_hubert")):
+        q, k, v, dout, causal, scale = cs.bwd_inputs(case, device, seed)
+        out32, (m, l) = fa.flash_attention_stats(q, k, v, causal=causal, scale=scale)
+        o, lse = out32.bfloat16(), fa.log_sum_exp(m, l)
+        del out32, m, l
+        run = lambda i: fa.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, o, dout, lse, causal=causal, scale=scale)
+        H, Hkv, D = q.shape[1], k.shape[1], cs.BWD_CASES[case][4]
+        qr = q[..., :D].contiguous().requires_grad_()
+        ke = k[..., :D].repeat_interleave(H // Hkv, dim=1).contiguous().requires_grad_()
+        ve = v[..., :D].repeat_interleave(H // Hkv, dim=1).contiguous().requires_grad_()
+        lib_dout = dout[..., :D].contiguous()
+        lib_out = F.scaled_dot_product_attention(qr, ke, ve, is_causal=causal, scale=scale)
+        out[key] = {
+            "ms": cs.time_cuda(run, reps=REPS),
+            "device_ms": cs.device_ms(run, REPS, *fa.BWD_KERNELS)["ms"],
+            "library_ms": cs.time_cuda(lambda i: torch.autograd.grad(
+                lib_out, (qr, ke, ve), lib_dout, retain_graph=True), reps=REPS),
+            "head_dim": q.shape[-1],
+        }
+        del q, k, v, dout, o, lse, qr, ke, ve, lib_dout, lib_out
+        torch.cuda.empty_cache()
+
+
+def shuffle_times(out: dict, cs, device, seed: int) -> None:
+    """The shuffle at the HIGGS partition's shape beside ``index_select``."""
+    import torch
+
+    from repro_torch.kernels.rsp_shuffle import (
+        flat_gather_index, partition_permutations, rsp_shuffle_cuda)
 
     P = K = cs.BLOCKS
     R, F_ = 110_000, 29
@@ -96,7 +163,10 @@ def one(src: Path, seed: int) -> dict:
     del x, tp, ip, flat, xf
     torch.cuda.empty_cache()
 
-    from repro_torch.kernels import mamba2_ssd, rwkv6_wkv
+
+def ssd_times(out: dict, cs, device, seed: int) -> None:
+    """The SSD at zamba2-7b's prefill shape."""
+    from repro_torch.kernels import mamba2_ssd
 
     B, L, H, decay, _ = cs.SSD_CASES["zamba2-7b prefill"]
     arrays, _ = cs.ssd_inputs(B, L, H, decay, device, seed)
@@ -106,7 +176,12 @@ def one(src: Path, seed: int) -> dict:
         "device_ms": cs.device_ms(run, REPS, *getattr(mamba2_ssd, "KERNELS", ("ssd_fwd",)))["ms"],
         "library_ms": None,
     }
-    del arrays
+
+
+def wkv_times(out: dict, cs, device, seed: int) -> None:
+    """The WKV at rwkv6-1.6b's prefill shape."""
+    from repro_torch.kernels import rwkv6_wkv
+
     B, T, H, decay, _ = cs.WKV_CASES["rwkv6-1.6b prefill"]
     (r, k, v, w, u), _ = cs.wkv_inputs(B, T, H, decay, device, seed)
     logw = rwkv6_wkv.log_decay(w)
@@ -116,10 +191,6 @@ def one(src: Path, seed: int) -> dict:
         "device_ms": cs.device_ms(run, REPS, *getattr(rwkv6_wkv, "KERNELS", ("wkv6_fwd",)))["ms"],
         "library_ms": None,
     }
-    del r, k, v, w, u, logw
-    torch.cuda.empty_cache()
-    sketch_times(out, cs, device, seed)
-    return out
 
 
 def sketch_times(out: dict, cs, device, seed: int) -> None:
@@ -171,11 +242,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, default=None,
                     help="another checkout, timed before and after this one")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated groups to time, of {','.join(GROUPS)}")
     ap.add_argument("--src", type=Path, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    groups = tuple(args.only.split(","))
+    if not set(groups) <= set(GROUPS):
+        print(f"kernel_times: --only takes groups of {GROUPS}", file=sys.stderr)
+        return 2
     if args.src is not None:
-        print(json.dumps(one(args.src, args.seed)), flush=True)
+        print(json.dumps(one(args.src, args.seed, groups)), flush=True)
         return 0
     order = [ROOT]
     if args.against is not None:
@@ -187,7 +264,7 @@ def main() -> int:
     runs = []
     for tree in order:
         res = subprocess.run([sys.executable, __file__, "--src", str(tree / "src"),
-                              "--seed", str(args.seed)],
+                              "--seed", str(args.seed), "--only", args.only],
                              stdout=subprocess.PIPE, text=True)
         if res.returncode != 0:
             print(f"kernel_times: the run of {tree} failed", file=sys.stderr)
@@ -197,8 +274,7 @@ def main() -> int:
         runs.append((tree, json.loads(line)))
     if args.against is not None:
         summary = {}
-        for key in ("flash_llama", "flash_zamba2", "shuffle", "ssd", "wkv", "block_sketch",
-                    "plan_c", "plan_b"):
+        for key in (k for k in KEYS if all(k in r for _, r in runs)):
             for metric in ("ms", "device_ms", "library_ms", "others_per_call"):
                 # device_ms is None where the profiler missed a launch
                 mine = [r[key].get(metric) for t, r in runs

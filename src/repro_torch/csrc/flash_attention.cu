@@ -11,9 +11,9 @@
 // here each CTA owns one (b, h, query tile) and walks the kv tiles in a
 // loop, with the running state in registers.
 //
-// Head dims 64, 112 (zamba2-7b's shared block) and 128.  The reference's
-// wrapper pads D up to a multiple of 128 for the MXU; no input is padded or
-// copied here.
+// Head dims 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared block) and 128.
+// The reference's wrapper pads D up to a multiple of 128 for the MXU; no
+// input is padded or copied here.
 //
 // Bound on the H100 at the serve path's prefill shape (B 8, H 32, Hkv 8,
 // S 2048, D 64, causal, bf16): operations.  The causal pairs need
@@ -39,9 +39,11 @@
 //    library; the launcher takes its entry point once with
 //    cudaGetDriverEntryPoint(ByVersion), so the library links no -lcuda.
 //  * S = Q K^T: wgmma.mma_async m64n128k16, both operands K-major in
-//    shared memory, float32 accumulators.  D = 112 loads two 64-wide boxes
-//    and TMA zero-fills columns 112-127; only 7 k-steps are issued, so the
-//    all-zero 8th costs nothing (no 32-byte swizzle needed).
+//    shared memory, float32 accumulators.  D = 80 and 112 load two 64-wide
+//    boxes and TMA zero-fills the second past column D; only D / 16 k-steps
+//    are issued (5 and 7), so the all-zero rest costs nothing (no 32-byte
+//    swizzle needed).  The wgmma helpers, descriptors, barriers and tensor
+//    maps are in flash_common.cuh, shared with the backward.
 //  * Softmax online in registers, in float32: mask, running max in log2
 //    units, P = 2^(s scale log2(e) - m) as one FMA and one ex2.approx.ftz
 //    (a row masked so far takes no offset, so its P is 0).  Only tiles
@@ -49,8 +51,9 @@
 //    tiles above the diagonal are never loaded; the heaviest query tiles
 //    of each head launch first.  kv columns at or past S score -1e30 (exp
 //    gives 0, never NaN), query rows past S are not stored.
-//  * O += P V: wgmma m64nDk16 with A from registers: the S accumulators,
-//    packed into bf16 pairs, are already in wgmma's A-register layout.
+//  * O += P V: wgmma m64nDk16 (n64, n80, n112, n128) with A from
+//    registers: the S accumulators, packed into bf16 pairs, are already in
+//    wgmma's A-register layout.
 //    The reference keeps P in float32; a bf16 P (2^-9 relative on each
 //    weight) moved zamba2-7b's logits by up to 0.1 over its 95 blocks, so P
 //    enters as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi), two
@@ -69,15 +72,11 @@
 // 256 threads, four per query row, compute scores and the accumulator with
 // FMAs from shared memory (rows padded by one word so no load conflicts).
 // No serving path runs it.
-#include <cuda.h>  // CUtensorMap and its enums; the entry point is taken at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace fa;
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma and TMA
@@ -89,8 +88,6 @@ constexpr int kTileQ = kWgRows * kConsumers;  // query rows of a CTA
 constexpr int kTileK = 128;                   // kv rows of a stage
 constexpr int kStages = 2;
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kAtom = 64;       // bf16 columns in one 128-byte swizzled row
-constexpr int kRowBytes = 128;  // bytes of a swizzled row
 
 struct TmaArgs {
   void* o;
@@ -112,208 +109,6 @@ struct Smem {
   // barriers: q full, then k full, v full, k empty, v empty per stage
   static constexpr int kBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;  // + alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait for the phase of parity `parity` to complete; a phase that never
-// completes (a fault in the pipeline) traps after ~10 s instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// a box of the 4-D map at (c0, c1, c2, c3), into shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep registers that an asynchronous wgmma reads or writes in place until
-// after its wait (the compiler sees no use of them in between)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d[64 x 128] += A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 128] = A[64 x 16] B[128 x 16]^T: the first k-step, which writes d
-// without reading it (so the previous tile's values need not stay live)
-__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 112] += A[64 x 16] B[16 x 112], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
-// 2^x on the MUFU unit; subnormal results flush to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // mask (kMask) and take the row maxima of an S tile, unscaled: accumulator
 // 4n + i holds row r0 (i < 2) or r0 + 8, column 8n + 2t + (i & 1)
@@ -653,56 +448,14 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Args a) {
 // host: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 4-D map (D, S, heads, B) of a bf16 tensor given by its element strides
-// over (batch, head, row), boxes of 64 columns x `rows` rows, 128-byte
-// swizzle, zeros outside
-bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
-                long long sb, long long sh, long long ss, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const long long elems[3] = {ss, sh, sb};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    // a dim of extent 1 is never stepped; TMA still wants a multiple of 16 bytes
-    const cuuint64_t packed = i == 0 ? (cuuint64_t)((D * 2 + 15) / 16 * 16)
-                                     : strides[i - 1] * dims[i];
-    strides[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)elems[i] * 2;
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)kAtom, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t run_wgmma(const Args& a, int B, int H, int Hkv, cudaStream_t st) {
+  // the shared-memory size first: a runtime call makes the device's context
+  // current on this thread, which the driver's tensor-map encoding needs
+  const int smem = Smem<D>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(fa_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
   if (!encode_map(&tq, a.q, D, a.S, H, B, a.qb, a.qh, a.qs, kTileQ) ||
@@ -711,10 +464,6 @@ cudaError_t run_wgmma(const Args& a, int B, int H, int Hkv, cudaStream_t st) {
     return cudaErrorInvalidValue;
   }
   const TmaArgs ta{a.o, a.ob, a.oh, a.os, a.lse, a.S, a.group, a.causal, a.scale};
-  const int smem = Smem<D>::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(fa_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.S + kTileQ - 1) / kTileQ), (unsigned)H, (unsigned)B);
   fa_wgmma_bf16<D><<<grid, kThreads, smem, st>>>(tq, tk, tv, ta);
   return cudaGetLastError();
@@ -736,13 +485,17 @@ extern "C" {
 
 // Dynamic shared memory of the bf16 kernel at head dim D (bytes), or -1.
 int flash_attention_smem_bytes(int D) {
-  return D == 64 ? Smem<64>::kBytes : D == 112 ? Smem<112>::kBytes : D == 128 ? Smem<128>::kBytes : -1;
+  return D == 64    ? Smem<64>::kBytes
+         : D == 80  ? Smem<80>::kBytes
+         : D == 112 ? Smem<112>::kBytes
+         : D == 128 ? Smem<128>::kBytes
+                    : -1;
 }
 
 // q [B, H, S, D], k / v [B, Hkv, S, D], o [B, H, S, D], each given by its
 // element strides over (batch, head, row) with the head dim contiguous;
 // dtype 0 = float32, 1 = bfloat16 (all four alike; bf16 rows 16-byte
-// aligned, as TMA wants); D in {64, 112, 128}; H % Hkv == 0.  lse, when not
+// aligned, as TMA wants); D in {64, 80, 112, 128}; H % Hkv == 0.  lse, when not
 // null, is a contiguous float32 [B, H, S] that takes each row's
 // log-sum-exp.  Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -752,7 +505,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            long long vb, long long vh, long long vs, long long ob, long long oh,
                            long long os, int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535 ||
-      (D != 64 && D != 112 && D != 128) || (dtype != 0 && dtype != 1)) {
+      (D != 64 && D != 80 && D != 112 && D != 128) || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (S <= 0) return (int)cudaSuccess;
@@ -761,6 +514,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return (int)(D == 64    ? run_wgmma<64>(a, B, H, Hkv, st)
+                 : D == 80  ? run_wgmma<80>(a, B, H, Hkv, st)
                  : D == 112 ? run_wgmma<112>(a, B, H, Hkv, st)
                             : run_wgmma<128>(a, B, H, Hkv, st));
   }
@@ -769,6 +523,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
       (size_t)(kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1)) *
       sizeof(float);
   return (int)(D == 64    ? run(fa_fwd_f32<64>, 256, smem, grid, a, st)
+               : D == 80  ? run(fa_fwd_f32<80>, 256, smem, grid, a, st)
                : D == 112 ? run(fa_fwd_f32<112>, 256, smem, grid, a, st)
                           : run(fa_fwd_f32<128>, 256, smem, grid, a, st));
 }

@@ -7,7 +7,8 @@ running sum and accumulator are float32; the output has q's dtype.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (the
   port of the Pallas ``flash_attention_pallas``) and counts the launch in
   :data:`LAUNCHES`.  It takes CUDA tensors of bfloat16 (tensor cores) or
-  float32 (FMAs), D of 64, 112 (zamba2-7b's shared block) or 128, any S,
+  float32 (FMAs), D of 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared
+  block) or 128, any S,
   and strided views whose head dim is contiguous, so the grouped layout
   needs no copy.  The output is laid
   out ``[B, S, H, D]`` in memory (returned as its ``[B, H, S, D]`` view),
@@ -18,8 +19,10 @@ running sum and accumulator are float32; the output has q's dtype.
   ``ops.flash_attention`` differentiates through ``ops.FlashAttention``.
 * :func:`flash_attention_bwd_cuda` launches ``csrc/flash_attention_bwd.cu``
   (the port of the reference's blockwise custom-VJP backward,
-  ``_flash_flat_cvjp_bwd``; three device kernels, :data:`BWD_KERNELS`) on
-  bf16 tensors and counts the call in :data:`BWD_LAUNCHES`.  It returns
+  ``_flash_flat_cvjp_bwd``; two device kernels, :data:`BWD_KERNELS`: dQ,
+  which also writes the rows' statistics, then dK/dV, on ``wgmma`` + TMA) on
+  bf16 tensors at the forward's head dims and counts the call in
+  :data:`BWD_LAUNCHES`.  It returns
   (dq, dk, dv) in bf16, dk and dv summed over each kv head's query heads
   in a fixed order (no atomics: the same bits every run), laid out
   ``[B, S, heads, D]`` in memory as the forward's output.
@@ -44,9 +47,12 @@ from repro_torch.kernels.flash_attention.ref import (
 LAUNCHES = _cuda.LaunchCounter("flash_attention")
 BWD_LAUNCHES = _cuda.LaunchCounter("flash_attention_bwd")
 # the device kernels of one backward call (template instances carry <D>)
-BWD_KERNELS = ("fa_bwd_dot", "fa_bwd_dkdv", "fa_bwd_dq")
+BWD_KERNELS = ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
 
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 80, 112, 128)
+# the backward's statistics scratch covers S rounded up to this many rows
+# (kPadRows in csrc/flash_attention_bwd.cu)
+BWD_PAD_ROWS = 384
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GRAD_ROADMAP = ("a float32 flash backward kernel waits (ROADMAP section 1, item 2); train in"
                 " bfloat16, as the reference does")
@@ -150,17 +156,22 @@ def flash_attention_bwd_cuda(
     if lse.shape != (B, H, S):
         raise ValueError(f"lse must be [{B}, {H}, {S}], got {tuple(lse.shape)}")
     _check_sizes(B, H, S, D)
+    if causal and S > 65535 * 128:
+        raise ValueError("the causal backward takes S <= 65535 * 128 (one grid index a 128-row"
+                         " kv tile)")
     if scale is None:
         scale = 1.0 / D**0.5
     dq = _heads_last(B, S, H, D, q)
     dk = _heads_last(B, S, Hkv, D, q)
     dv = _heads_last(B, S, Hkv, D, q)
-    dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # each row's lse (log2 units) and Dvec, which the dQ kernel writes
+    Sp = -(-S // BWD_PAD_ROWS) * BWD_PAD_ROWS
+    stats = torch.empty((B, H, 2, Sp), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
                                          for s in t.stride()[:3]))
     code = _cuda.library().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, Hkv, S, D, strides, int(causal), float(scale), _cuda.stream_handle(q.device),
     )
     _cuda.check(code, "flash_attention backward kernels")

@@ -8,7 +8,7 @@ ragged edge.
 
 * ``impl="torch"`` -- the plain version (any device).
 * ``impl="cuda"``  -- the CUDA kernel (CUDA tensors only; a CPU tensor
-  raises), at the head dims it takes (64, 112, 128).
+  raises), at the head dims it takes (64, 80, 112, 128).
 * ``impl="auto"``  -- the kernel for a CUDA tensor, the plain version
   otherwise.  A head dim the kernel does not take is zero-padded up to the
   next one it does, as the reference's wrapper pads D (``repro/kernels/

@@ -40,6 +40,7 @@ from repro_torch.configs import SHAPES, smoke_config
 from repro_torch.kernels.block_sketch import block_sketch
 from repro_torch.kernels.block_sketch.kernel import LAUNCHES as BLOCK
 from repro_torch.kernels.block_sketch.kernel import block_sketch_cuda, block_sketch_plain
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd_cuda,
@@ -509,6 +510,8 @@ FLASH_SHAPES = [
     (2, 2, 2, 1, 64),        # a single row
     (1, 8, 8, 1000, 64),     # MHA, ragged S over many tiles
     (1, 32, 32, 200, 112),   # zamba2-7b's shared block, D = 112, ragged S
+    (1, 16, 16, 150, 80),    # hubert-xlarge's heads, D = 80, ragged S
+    (2, 8, 2, 129, 80),      # GQA at D = 80, one row past a tile
 ]
 
 
@@ -532,7 +535,7 @@ def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("D", [64, 80, 112, 128])
 @pytest.mark.parametrize("S", [127, 128, 129])
 def test_flash_attention_kernel_at_the_tile_edges(dev, S, D, causal):
     # one 128-row query tile and kv tile, one row short of it, one row over
@@ -586,9 +589,18 @@ BWD_SHAPES = [
     # B, H, Hkv, S, D
     (2, 4, 2, 128, 64),      # GQA, whole tiles
     (1, 14, 2, 200, 64),     # qwen2-0.5b's heads (G = 7), ragged S
-    (1, 8, 8, 97, 112),      # MHA at D = 112 (hubert's padded 80), ragged S
+    (1, 8, 8, 97, 112),      # MHA at D = 112, ragged S
     (1, 8, 1, 130, 128),     # MQA at D = 128, ragged S
     (2, 2, 2, 1, 64),        # a single row
+    (1, 16, 16, 150, 80),    # MHA at D = 80, as hubert-xlarge has it, ragged S
+    (2, 8, 2, 200, 80),      # GQA at D = 80
+    # ragged S around the tiles: 64-row query steps of the dK/dV kernel,
+    # 128-row CTAs, 128 (D <= 80) or 64 kv rows a dQ step
+    (1, 4, 2, 63, 64),
+    (1, 4, 2, 65, 80),
+    (1, 4, 1, 129, 128),
+    (1, 4, 4, 257, 112),
+    (1, 7, 1, 257, 80),      # a group of 7 over three 128-row kv tiles
 ]
 
 
@@ -624,6 +636,22 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, shape, causal):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 80])
+def test_flash_attention_bwd_gives_the_same_bits_over_many_kv_tiles(dev, D):
+    # causal at S = 1000: the last dQ CTA walks 8 (D = 80) or 16 (D = 64)
+    # kv tiles and the first dK/dV CTA 16 query steps of each of 2 heads,
+    # every sum in a fixed order
+    q, k, v, dout = _bwd_case(1, 4, 2, 1000, D, True, dev, seed=D + 5)
+    out32, (m, l) = flash_attention_stats(q, k, v, causal=True)
+    out, lse = out32.bfloat16(), log_sum_exp(m, l)
+    first = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=True)
+    for _ in range(3):
+        again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    _grads_close(first, flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=True))
+
+
 def test_flash_attention_bwd_refuses_a_gradient_without_dvec(dev):
     # the known-wrong control: out zeroed drops Dvec from dS
     q, k, v, dout = _bwd_case(2, 4, 2, 256, 64, True, dev, seed=3)
@@ -635,7 +663,7 @@ def test_flash_attention_bwd_refuses_a_gradient_without_dvec(dev):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("D", [64, 80, 112, 128])
 def test_flash_attention_lse_leaves_the_output_and_matches_the_statistics(dev, D, causal):
     q, k, v = _qkv(2, 4, 2, 129, D, torch.bfloat16, dev, seed=D)
     plain = flash_attention_cuda(q, k, v, causal=causal)
@@ -647,19 +675,28 @@ def test_flash_attention_lse_leaves_the_output_and_matches_the_statistics(dev, D
     assert bool(((lse - want).abs() <= 1e-5 * (1 + want.abs())).all())
 
 
-@pytest.mark.parametrize("D,causal", [(64, True), (80, False), (16, True)])
-def test_flash_attention_gradient_on_the_card_matches_the_plain_function(dev, D, causal):
-    # through ops.flash_attention (FlashAttention): GQA sum, D padded to the
-    # kernel's width with the unpadded scale, padded columns cut off
+@pytest.mark.parametrize("D,causal", [(64, True), (80, False), (80, True), (16, True)])
+def test_flash_attention_gradient_on_the_card_matches_the_plain_function(dev, D, causal,
+                                                                        monkeypatch):
+    # through ops.flash_attention (FlashAttention): GQA sum; D = 80 runs at
+    # the kernels' own width, D = 16 is padded to 64 with the unpadded
+    # scale and the padded columns cut off
     B, H, Hkv, S = 2, 8, 2, 150
     q, k, v, dout = _bwd_case(B, H, Hkv, S, D, causal, dev, seed=D)
     got_in = [t.clone().requires_grad_() for t in (q, k, v)]
     want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    widths = []
+    for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+        def seen(*args, _fn=getattr(fa_ops, name), **kw):
+            widths.append(args[0].shape[-1])
+            return _fn(*args, **kw)
+        monkeypatch.setattr(fa_ops, name, seen)
     kernels.reset_launch_counts()
     out = flash_attention(*got_in, causal=causal)
     out.backward(dout)
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    assert widths == [fa_ops.padded_head_dim(D)] * 2 == [64 if D == 16 else D] * 2
     ref = flash_attention(*want_in, causal=causal, impl="torch")
     ref.backward(dout)
     assert out.grad_fn is not None

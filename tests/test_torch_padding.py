@@ -3,7 +3,7 @@ card's kernels, checked on the CPU with the plain versions in the kernels'
 place.
 
 On a CUDA tensor ``auto`` zero-pads flash's head dim D up to the next width
-the kernel takes (64, 112, 128), the SSD's P and N up to 64, and the WKV's
+the kernel takes (64, 80, 112, 128), the SSD's P and N up to 64, and the WKV's
 C up to 64, runs the kernel and cuts the result back.  Here each public
 padding helper (``ops.run_padded``) is handed the plain version instead of
 the kernel, on seeded numpy inputs: the result must equal the unpadded
@@ -46,7 +46,8 @@ class Capture:
         return self.out
 
 
-@pytest.mark.parametrize("D,Dp", [(16, 64), (80, 112), (120, 128), (64, 64)])
+@pytest.mark.parametrize("D,Dp", [(16, 64), (80, 80), (120, 128), (64, 64), (72, 80),
+                                  (96, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_padding_is_exact(D, Dp, causal):
     assert fa_ops.padded_head_dim(D) == Dp
