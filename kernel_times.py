@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the flash_attention (forward and backward), rsp_shuffle,
-mamba2_ssd, rwkv6_wkv, block_sketch and plan_sketch kernels of one checkout,
-or of two checkouts in turns on the same card.
+mamba2_ssd and rwkv6_wkv (forward and backward), block_sketch and
+plan_sketch kernels of one checkout, or of two checkouts in turns on the
+same card.
 
     python3 kernel_times.py                  # this checkout
     python3 kernel_times.py --against DIR    # DIR, this, this, DIR
@@ -20,7 +21,10 @@ hubert-xlarge's training shapes, made by ``bwd_inputs``: each checkout
 pads hubert's D = 80 to its own kernel's width), and
 the shuffle at the HIGGS partition's [100, 110000, 29] float32, tile 1100,
 the SSD scan at zamba2-7b's prefill shape (xbar [8, 2048, 112, 64]) and the
-WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32, and the sketches at the
+WKV at rwkv6-1.6b's ([8, 2048, 32, 64]), float32, their backward kernels at
+the same shapes as ``chip_smoke.py``'s training cases build their inputs
+(``ssd_bwd_inputs``, ``wkv_bwd_inputs``; a checkout without them times
+none), and the sketches at the
 query path's shapes: block_sketch on a [110000, 29] float32 block with 128
 bins (query (a)), plan_sketch with query (c)'s plan (group_by c28, G 2) and
 query (b)'s (c0 > 0.5, columns 0 and 28), bins 0, over 8 rotating blocks
@@ -50,9 +54,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REPS = 20
 SHUFFLE_REPS = 5
-GROUPS = ("flash", "flash_bwd", "shuffle", "ssd", "wkv", "sketch")
+GROUPS = ("flash", "flash_bwd", "shuffle", "ssd", "wkv", "ssd_bwd", "wkv_bwd", "sketch")
 KEYS = ("flash_llama", "flash_zamba2", "flash_hubert", "flash_bwd_llama", "flash_bwd_hubert", "shuffle", "ssd",
-        "wkv", "block_sketch", "plan_c", "plan_b")
+        "wkv", "ssd_bwd", "wkv_bwd", "block_sketch", "plan_c", "plan_b")
 
 
 def one(src: Path, seed: int, groups=GROUPS) -> dict:
@@ -69,7 +73,8 @@ def one(src: Path, seed: int, groups=GROUPS) -> dict:
     device = torch.device("cuda", 0)
     out = {"src": str(src), "gpu": cs.nvidia_smi()}
     timers = {"flash": flash_times, "flash_bwd": flash_bwd_times, "shuffle": shuffle_times,
-              "ssd": ssd_times, "wkv": wkv_times, "sketch": sketch_times}
+              "ssd": ssd_times, "wkv": wkv_times, "ssd_bwd": ssd_bwd_times,
+              "wkv_bwd": wkv_bwd_times, "sketch": sketch_times}
     for group in groups:
         timers[group](out, cs, device, seed)
         torch.cuda.empty_cache()
@@ -189,6 +194,38 @@ def wkv_times(out: dict, cs, device, seed: int) -> None:
     out["wkv"] = {
         "ms": cs.time_cuda(run, reps=REPS),
         "device_ms": cs.device_ms(run, REPS, *getattr(rwkv6_wkv, "KERNELS", ("wkv6_fwd",)))["ms"],
+        "library_ms": None,
+    }
+
+
+def ssd_bwd_times(out: dict, cs, device, seed: int) -> None:
+    """The SSD's backward kernels at zamba2-7b's training shape."""
+    from repro_torch.kernels import mamba2_ssd
+
+    if not hasattr(mamba2_ssd, "ssd_bwd_cuda"):
+        return
+    B, L, H, decay = cs.SSD_BWD_CASES["zamba2-7b train"]
+    args = cs.ssd_bwd_inputs(B, L, H, decay, device, seed)
+    run = lambda i: mamba2_ssd.ssd_bwd_cuda(*args)  # noqa: E731
+    out["ssd_bwd"] = {
+        "ms": cs.time_cuda(run, reps=REPS),
+        "device_ms": cs.device_ms(run, REPS, *mamba2_ssd.BWD_KERNELS)["ms"],
+        "library_ms": None,
+    }
+
+
+def wkv_bwd_times(out: dict, cs, device, seed: int) -> None:
+    """The WKV's backward kernel at rwkv6-1.6b's training shape."""
+    from repro_torch.kernels import rwkv6_wkv
+
+    if not hasattr(rwkv6_wkv, "wkv6_bwd_cuda"):
+        return
+    B, T, H, decay = cs.WKV_BWD_CASES["rwkv6-1.6b train"]
+    args = cs.wkv_bwd_inputs(B, T, H, decay, device, seed)
+    run = lambda i: rwkv6_wkv.wkv6_bwd_cuda(*args)  # noqa: E731
+    out["wkv_bwd"] = {
+        "ms": cs.time_cuda(run, reps=REPS),
+        "device_ms": cs.device_ms(run, REPS, *rwkv6_wkv.BWD_KERNELS)["ms"],
         "library_ms": None,
     }
 

@@ -116,6 +116,7 @@ struct Args {
   const float* h0;  // may be null: start from zeros
   float* y;
   float* h;
+  float* hs;        // may be null: the state at every chunk's start [B, T / Q, H, C, V]
   int T, H;
 };
 
@@ -327,6 +328,17 @@ __device__ __forceinline__ void consume(const Args& a, float* sm, int warp, int 
   }
 
   for (int c = 0; c < nc; ++c) {
+    if (a.hs) {  // the chunk's start state, for the backward
+      float* hp = a.hs + (((long long)b * nc + c) * H + h) * C * V;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int c0 = 8 * m + 2 * t;
+        hp[c0 * V + v0 + g] = st[m][0];
+        hp[(c0 + 1) * V + v0 + g] = st[m][1];
+        hp[c0 * V + v0 + g + 8] = st[m][2];
+        hp[(c0 + 1) * V + v0 + g + 8] = st[m][3];
+      }
+    }
     const int ps = c % kSlots;
     bar_sync(kBarFull + ps, kThreads);
     const float* sl = sm + kSlot0 + ps * kSlot;
@@ -463,13 +475,14 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunks(Args a) {
 extern "C" {
 
 // r, k, v, logw [B, T, H, 64], u [H, 64], h0 [B, H, 64, 64] or null,
-// y [B, T, H, 64], h [B, H, 64, 64]; all contiguous float32, T a multiple
-// of 16.  h0 and h may be the same buffer (each thread reads its entries of
-// h0 before the loop and writes the same entries of h after it).  Returns
+// y [B, T, H, 64], h [B, H, 64, 64], hs [B, T / 16, H, 64, 64] or null (the
+// chunk-start states); all contiguous float32, T a multiple of 16.  h0 and
+// h may be the same buffer (each thread reads its entries of h0 before the
+// loop and writes the same entries of h after it).  Returns
 // cudaGetLastError() after the launch.
 int rwkv6_wkv_launch(const float* r, const float* k, const float* v, const float* logw,
-                     const float* u, const float* h0, float* y, float* h, int B, int T, int H,
-                     void* stream) {
+                     const float* u, const float* h0, float* y, float* h, float* hs, int B,
+                     int T, int H, void* stream) {
   if (B <= 0 || H <= 0 || T < 0 || T % Q != 0 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -478,7 +491,7 @@ int rwkv6_wkv_launch(const float* r, const float* k, const float* v, const float
   cudaError_t err =
       cudaFuncSetAttribute(wkv6_chunks, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const Args a{r, k, v, logw, u, h0, y, h, T, H};
+  const Args a{r, k, v, logw, u, h0, y, h, hs, T, H};
   wkv6_chunks<<<dim3((unsigned)H, (unsigned)B), kThreads, smem,
                 reinterpret_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

@@ -66,7 +66,9 @@ _SIGNATURES = {
     ),
     "flash_attention_bwd_smem_bytes": (_I, [_I, _I]),
     "mamba2_ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "rwkv6_wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "mamba2_ssd_bwd_launch": (_I, [*([_P] * 12), _I, _I, _I, _P]),
+    "rwkv6_wkv_launch": (_I, [*([_P] * 9), _I, _I, _I, _P]),
+    "rwkv6_wkv_bwd_launch": (_I, [*([_P] * 13), _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -233,16 +235,21 @@ def require_same_device(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, but the block is on {device}")
 
 
-def refuse_grad(what: str, why: str, **tensors: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` when grad mode is on and a named tensor
-    requires grad: a kernel without a backward would hand back an output
-    with no ``grad_fn``, and every gradient upstream of it would silently
-    be dropped."""
+def refuse_graph(what: str, instead: str, **tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` when grad mode is on and a named tensor requires
+    grad: a raw launcher hands back outputs with no ``grad_fn``, and every
+    gradient upstream of it would silently be dropped; ``instead`` names
+    the function that carries the gradient."""
     if torch.is_grad_enabled():
         wanted = [name for name, t in tensors.items() if t is not None and t.requires_grad]
         if wanted:
-            raise NotImplementedError(f"{what} has no backward kernel yet ({', '.join(wanted)}"
-                                      f" require grad): {why}")
+            raise ValueError(f"{what} returns no gradient ({', '.join(wanted)} require grad):"
+                             f" differentiate through {instead}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype | None = None) -> None:

@@ -6,9 +6,14 @@
   ``[B, L, H]``, B and C ``[B, L, 64]`` with L a multiple of the kernel's
   chunk, :data:`CHUNK` = 128 (``ops.ssd`` pads), and an optional initial
   state h0 ``[B, H, 64, 64]``; it returns (y ``[B, L, H, 64]``, h_final
-  ``[B, H, 64, 64]``), both float32.
+  ``[B, H, 64, 64]``), both float32, and with ``states=True`` also the
+  states at the chunks' starts that the backward reads.
 * :func:`ssd_plain` is the same function in plain PyTorch (``ref.py``'s
   chunked form), on any device.
+* :func:`ssd_bwd_cuda` launches its backward (``csrc/mamba2_ssd_bwd.cu``,
+  no Pallas counterpart: the reference differentiates its jnp scan) and
+  counts the call in :data:`BWD_LAUNCHES`; :func:`ssd_bwd_plain`
+  (``ref.py``'s ``ssd_chunked_bwd``) is its plain version.
 
 A call is two launches (``KERNELS``): ``ssd_state`` walks each (batch row,
 head)'s chunks and writes the state at every chunk's start into a scratch
@@ -16,6 +21,16 @@ head)'s chunks and writes the state at every chunk's start into a scratch
 (batch row, chunk, tile of ``Ht`` heads)'s y in parallel.
 :func:`head_tile` picks ``Ht`` so that the scan's CTAs fill the card's SMs
 in as few waves as the work allows.
+
+The backward is two launches too (``BWD_KERNELS``): ``ssd_bwd_state`` walks
+each (batch row, head)'s chunks in reverse and writes the state's gradient
+at every chunk's end; ``ssd_bwd_chunk`` computes every (batch row, chunk,
+head)'s gradients in parallel, dB and dC as per-head partials that one sum
+over the heads adds afterwards, in one order every call.
+
+The launchers return tensors without a graph: under grad mode, inputs that
+require grad raise ``ValueError``; ``ops.ssd`` (the ``SSDScan`` function)
+carries the gradient.
 """
 
 from __future__ import annotations
@@ -26,11 +41,12 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked as ssd_plain
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_bwd as ssd_bwd_plain
 
 LAUNCHES = _cuda.LaunchCounter("mamba2_ssd")
-GRAD_ROADMAP = ("hybrid and RWKV6 training wait for the SSD and WKV backward kernels"
-                " (ROADMAP section 1, item 2)")
+BWD_LAUNCHES = _cuda.LaunchCounter("mamba2_ssd_bwd")
 KERNELS = ("ssd_state", "ssd_scan")   # the device kernels one call launches
+BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk")
 
 CHUNK = 128        # the kernel's chunk length Q
 HEAD_DIM = 64      # P
@@ -80,26 +96,15 @@ def ssd_cuda(
     Cm: torch.Tensor,
     *,
     h0: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on CUDA tensors.  Under grad mode, inputs
-    that require grad raise ``NotImplementedError`` (:data:`GRAD_ROADMAP`)."""
+    states: bool = False,
+):
+    """Launch the CUDA kernel on CUDA tensors: (y, h_final), and with
+    ``states`` the chunk-start states ``[B, L / 128, H, 64, 64]``."""
     check_shapes(xbar, dA, Bm, Cm, h0)
-    _cuda.refuse_grad("ssd_cuda", GRAD_ROADMAP, xbar=xbar, dA=dA, B=Bm, C=Cm, h0=h0)
-    named = {"xbar": xbar, "dA": dA, "B": Bm, "C": Cm}
-    if h0 is not None:
-        named["h0"] = h0
-    _cuda.require_same_device(xbar.device, **named)
-    for name, t in named.items():
-        _cuda.require_cuda(t, name, torch.float32)
+    named = _check_operands(xbar, xbar=xbar, dA=dA, B=Bm, C=Cm, h0=h0)
+    _cuda.refuse_graph("ssd_cuda", "ops.ssd (the SSDScan function)", **named)
     B, L, H, P = xbar.shape
     N = Bm.shape[-1]
-    if P != HEAD_DIM or N != STATE_DIM:
-        raise ValueError(f"the kernel takes head dim {HEAD_DIM} and state dim {STATE_DIM},"
-                         f" got {P} and {N}")
-    if L <= 0 or L % CHUNK:
-        raise ValueError(f"L = {L} must be a positive multiple of the kernel's chunk {CHUNK}")
-    if B > 65535 or L // CHUNK > 65535:
-        raise ValueError("the kernel takes B <= 65535 and L <= 128 * 65535")
     y = torch.empty_like(xbar)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=xbar.device)
     hs = torch.empty((B, L // CHUNK, H, P, N), dtype=torch.float32, device=xbar.device)
@@ -108,13 +113,71 @@ def ssd_cuda(
     lib = _cuda.library()
     code = lib.mamba2_ssd_launch(
         xbar.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(), hs.data_ptr(),
+        _cuda.ptr(h0), y.data_ptr(), h.data_ptr(), hs.data_ptr(),
         B, L, H, ht, _cuda.stream_handle(xbar.device),
     )
     _cuda.check(code, "mamba2_ssd kernel")
     LAUNCHES.add()
-    return y, h
+    return (y, h, hs) if states else (y, h)
 
 
-__all__ = ["CHUNK", "GRAD_ROADMAP", "HEAD_DIM", "KERNELS", "LAUNCHES", "STATE_DIM",
-           "check_shapes", "head_tile", "ssd_cuda", "ssd_plain"]
+def _check_operands(xbar: torch.Tensor, /, **tensors: torch.Tensor | None) -> dict:
+    """The given tensors, each a contiguous float32 CUDA tensor on xbar's
+    device; raise unless P = N = 64 and L is a positive multiple of 128."""
+    named = {name: t for name, t in tensors.items() if t is not None}
+    _cuda.require_same_device(xbar.device, **named)
+    for name, t in named.items():
+        _cuda.require_cuda(t, name, torch.float32)
+    B, L, H, P = xbar.shape
+    N = named["B"].shape[-1]
+    if P != HEAD_DIM or N != STATE_DIM:
+        raise ValueError(f"the kernel takes head dim {HEAD_DIM} and state dim {STATE_DIM},"
+                         f" got {P} and {N}")
+    if L <= 0 or L % CHUNK:
+        raise ValueError(f"L = {L} must be a positive multiple of the kernel's chunk {CHUNK}")
+    if B > 65535 or L // CHUNK > 65535:
+        raise ValueError("the kernel takes B <= 65535 and L <= 128 * 65535")
+    return named
+
+
+def ssd_bwd_cuda(
+    xbar: torch.Tensor,
+    dA: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    hs: torch.Tensor,
+    dy: torch.Tensor,
+    *,
+    dh_final: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernels on CUDA tensors: (dxbar ``[B, L, H,
+    64]``, ddA ``[B, L, H]``, dB, dC ``[B, L, 64]``), float32; ``hs`` the
+    forward's chunk-start states, ``dh_final`` the final state's gradient
+    (None: zero)."""
+    check_shapes(xbar, dA, Bm, Cm, dh_final)
+    B, L, H, P = xbar.shape
+    N = Bm.shape[-1]
+    if tuple(dy.shape) != tuple(xbar.shape):
+        raise ValueError(f"dy must be {tuple(xbar.shape)}, got {tuple(dy.shape)}")
+    if tuple(hs.shape) != (B, L // CHUNK, H, P, N):
+        raise ValueError(f"hs must be [{B}, {L // CHUNK}, {H}, {P}, {N}], got {tuple(hs.shape)}")
+    _check_operands(xbar, xbar=xbar, dA=dA, B=Bm, C=Cm, hs=hs, dy=dy, dh_final=dh_final)
+    dev = xbar.device
+    dhs = torch.empty_like(hs)           # the state's gradient at every chunk's end
+    dx = torch.empty_like(xbar)
+    ddA = torch.empty_like(dA)
+    dB_part = torch.empty((B, L, H, N), dtype=torch.float32, device=dev)
+    dC_part = torch.empty((B, L, H, N), dtype=torch.float32, device=dev)
+    code = _cuda.library().mamba2_ssd_bwd_launch(
+        xbar.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), hs.data_ptr(),
+        dy.data_ptr(), _cuda.ptr(dh_final), dhs.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
+        dB_part.data_ptr(), dC_part.data_ptr(), B, L, H, _cuda.stream_handle(dev),
+    )
+    _cuda.check(code, "mamba2_ssd backward kernels")
+    BWD_LAUNCHES.add()
+    return dx, ddA, dB_part.sum(2), dC_part.sum(2)
+
+
+__all__ = ["BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES",
+           "STATE_DIM", "check_shapes", "head_tile", "ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda",
+           "ssd_plain"]

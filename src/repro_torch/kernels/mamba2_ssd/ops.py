@@ -26,6 +26,14 @@
 Unlike the reference's Pallas path, which drops ``h0``
 (``repro/models/mamba2.py:206``), both impls start from ``h0`` when it is
 given: the reference's default (jnp) path.
+
+When grad mode is on and xbar, dA, B or C requires grad, the call goes
+through :class:`SSDScan`, a ``torch.autograd.Function``: on the card the
+forward kernels with their chunk-start states and the two backward
+kernels, on the host the plain chunked form and its plain backward.
+Padding happens outside the Function, so autograd cuts the padded steps'
+and widths' gradients off.  An ``h0`` that requires grad raises
+``NotImplementedError``: no path of the reference differentiates a state.
 """
 
 from __future__ import annotations
@@ -33,7 +41,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba2_ssd.kernel import CHUNK, HEAD_DIM, STATE_DIM, ssd_cuda, ssd_plain
+from repro_torch.kernels.mamba2_ssd.kernel import (
+    CHUNK,
+    HEAD_DIM,
+    STATE_DIM,
+    ssd_bwd_cuda,
+    ssd_bwd_plain,
+    ssd_cuda,
+    ssd_plain,
+)
 
 IMPLS = ("auto", "torch", "cuda")
 
@@ -57,11 +73,55 @@ def ssd(
     h0: torch.Tensor | None = None,
     impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    if resolve_impl(impl, xbar) == "torch":
-        return ssd_plain(xbar, dA, Bm, Cm, chunk=chunk, h0=h0)
+    resolved = resolve_impl(impl, xbar)
     if impl == "cuda" and chunk != CHUNK:
         raise ValueError(f"the kernel runs at chunk {CHUNK}, not {chunk}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xbar, dA, Bm, Cm, h0)
+                                       if t is not None):
+        if h0 is not None and h0.requires_grad:
+            raise NotImplementedError("the SSD's gradient by its initial state h0: no path of"
+                                      " the reference differentiates a state")
+
+        def run(xbar, dA, Bm, Cm, *, h0=None):
+            return SSDScan.apply(xbar, dA, Bm, Cm, h0, chunk if resolved == "torch" else CHUNK,
+                                 resolved)
+
+        if resolved == "torch":
+            return run(xbar, dA, Bm, Cm, h0=h0)
+        return run_padded(run, xbar, dA, Bm, Cm, h0=h0, widths=impl == "auto")
+    if resolved == "torch":
+        return ssd_plain(xbar, dA, Bm, Cm, chunk=chunk, h0=h0)
     return run_padded(ssd_cuda, xbar, dA, Bm, Cm, h0=h0, widths=impl == "auto")
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its gradient: ``apply(xbar, dA, Bm, Cm, h0, chunk,
+    impl)``, ``impl`` "cuda" (the kernels, on the padded float32 operands,
+    at their chunk of 128) or "torch" (the plain chunked form at ``chunk``
+    and its plain backward).  The forward saves its inputs and the
+    chunk-start states; the backward returns (dxbar, ddA, dB, dC)."""
+
+    @staticmethod
+    def forward(ctx, xbar, dA, Bm, Cm, h0, chunk: int, impl: str):
+        ctx.set_materialize_grads(False)
+        if impl == "cuda":
+            y, h, hs = ssd_cuda(xbar, dA, Bm, Cm, h0=h0, states=True)
+        else:
+            y, h, hs = ssd_plain(xbar, dA, Bm, Cm, chunk=chunk, h0=h0, states=True)
+        ctx.save_for_backward(xbar, dA, Bm, Cm, hs)
+        ctx.chunk, ctx.impl = chunk, impl
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xbar, dA, Bm, Cm, hs = ctx.saved_tensors
+        dy = torch.zeros_like(xbar) if dy is None else dy.to(torch.float32).contiguous()
+        dh = None if dh is None else dh.to(torch.float32).contiguous()
+        if ctx.impl == "cuda":
+            grads = ssd_bwd_cuda(xbar, dA, Bm, Cm, hs, dy, dh_final=dh)
+        else:
+            grads = ssd_bwd_plain(xbar, dA, Bm, Cm, hs, dy, chunk=ctx.chunk, dh_final=dh)
+        return (*grads, None, None, None)
 
 
 def run_padded(run, xbar, dA, Bm, Cm, *, h0=None, widths: bool = True):

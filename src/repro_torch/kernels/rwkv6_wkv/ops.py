@@ -26,6 +26,17 @@ the state as it is), y cut back to T.
 Unlike the reference's Pallas path, which runs only without a state
 (``repro/models/rwkv6.py:144``), both impls start from ``h0`` when it is
 given: ``wkv6_scan(..., h0=h0)``'s function.
+
+When grad mode is on and r, k, v, w or u requires grad, the call goes
+through :class:`WKV6`, a ``torch.autograd.Function``: on the card the
+forward kernel with its chunk-start states and the backward kernel, on the
+host the plain chunked form and its plain backward.  Padding happens
+outside the Function, so autograd cuts the padded steps' and channels'
+gradients off.  The gradient reaches w through the clamp before the log:
+``1 / w`` above 1e-38, 0 below it, where the reference's decay
+``exp(-exp(.))`` has underflowed and its gradient is 0 too.  An ``h0`` that
+requires grad raises ``NotImplementedError``: no path of the reference
+differentiates a state.
 """
 
 from __future__ import annotations
@@ -33,7 +44,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_wkv.kernel import CHUNK, HEAD_DIM, wkv6_cuda, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv.kernel import (
+    CHUNK,
+    HEAD_DIM,
+    wkv6_bwd_cuda,
+    wkv6_bwd_plain,
+    wkv6_cuda,
+    wkv6_plain,
+)
 
 IMPLS = ("auto", "torch", "cuda")
 LOG_DECAY_FLOOR = 1e-38   # the reference's clamp before the log
@@ -64,9 +82,52 @@ def wkv6(
     impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     logw = log_decay(w)
-    if resolve_impl(impl, r) == "torch":
+    resolved = resolve_impl(impl, r)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, logw, u, h0)
+                                       if t is not None):
+        if h0 is not None and h0.requires_grad:
+            raise NotImplementedError("the WKV's gradient by its initial state h0: no path of"
+                                      " the reference differentiates a state")
+
+        def run(r, k, v, logw, u, *, h0=None):
+            return WKV6.apply(r, k, v, logw, u, h0, resolved)
+
+        if resolved == "torch":
+            return run(r, k, v, logw, u, h0=h0)
+        return run_padded(run, r, k, v, logw, u, h0=h0, widths=impl == "auto")
+    if resolved == "torch":
         return wkv6_plain(r, k, v, logw, u, h0=h0, chunk=CHUNK)
     return run_padded(wkv6_cuda, r, k, v, logw, u, h0=h0, widths=impl == "auto")
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV with its gradient: ``apply(r, k, v, logw, u, h0, impl)``,
+    ``impl`` "cuda" (the kernels, on the padded float32 operands) or
+    "torch" (the plain chunked form at ``Q = min(16, T)`` and its plain
+    backward).  The forward saves its inputs and the chunk-start states;
+    the backward returns (dr, dk, dv, dlogw, du)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, h0, impl: str):
+        ctx.set_materialize_grads(False)
+        if impl == "cuda":
+            y, h, hs = wkv6_cuda(r, k, v, logw, u, h0=h0, states=True)
+        else:
+            y, h, hs = wkv6_plain(r, k, v, logw, u, h0=h0, chunk=CHUNK, states=True)
+        ctx.save_for_backward(r, k, v, logw, u, hs)
+        ctx.impl = impl
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        r, k, v, logw, u, hs = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.to(torch.float32).contiguous()
+        dh = None if dh is None else dh.to(torch.float32).contiguous()
+        if ctx.impl == "cuda":
+            grads = wkv6_bwd_cuda(r, k, v, logw, u, hs, dy, dh_final=dh)
+        else:
+            grads = wkv6_bwd_plain(r, k, v, logw, u, hs, dy, dh_final=dh, chunk=CHUNK)
+        return (*grads, None, None)
 
 
 def run_padded(run, r, k, v, logw, u, *, h0=None, widths: bool = True):

@@ -4,8 +4,11 @@ Runs on the card unless ``--device cpu`` is asked for (reduced presets for
 a local check).  Data always flows through the RSP loader: the corpus is
 partitioned once (Algorithm 1, ``two_stage_partition_np``), batches are
 block-level samples, and the O(1) sampler state rides in each checkpoint,
-so a restart resumes exactly.  The reference's ``--distributed``
-(``jax.distributed`` on a TPU fleet) has no counterpart: one card.
+so a restart resumes exactly.  Every LM family trains (dense, MoE with
+``--moe-groups`` dispatch groups, the zamba2 hybrid, RWKV6); the encoder
+is refused, as the reference refuses it.  The reference's
+``--distributed`` (``jax.distributed`` on a TPU fleet) has no
+counterpart: one card.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --device cpu \\
         --steps 50 --ckpt-dir /tmp/ckpt
@@ -40,6 +43,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--moe-groups", type=int, default=1,
+                    help="the MoE layers' dispatch groups (the capacity is per group)")
     ap.add_argument("--ckpt-dir", default="rsp_train_ckpt")
     ap.add_argument("--blocks", type=int, default=32)
     ap.add_argument("--sequences", type=int, default=1024,
@@ -65,7 +70,7 @@ def main(argv=None) -> None:
     tc = TrainConfig(
         total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
         checkpoint_every=max(args.steps // 4, 1), log_every=max(args.steps // 10, 1),
-        microbatch=args.microbatch, seed=0,
+        microbatch=args.microbatch, moe_groups=args.moe_groups, seed=0,
     )
     trainer = Trainer(
         cfg, AdamWConfig(lr=args.lr), tc, loader, args.ckpt_dir, device=device,

@@ -87,11 +87,12 @@ def concrete_inputs(cfg: ModelConfig, cell: ShapeCell, seed: int = 0, *,
     return out
 
 
-def make_loss_fn(model: Model):
+def make_loss_fn(model: Model, moe_groups: int = 1):
     """The training loss: ``batch = {"tokens": [B, S + 1]}`` (the
-    encoder's: ``{"frames", "targets", "mask"}``) -> (loss, {"ce", "aux"})."""
+    encoder's: ``{"frames", "targets", "mask"}``) -> (loss, {"ce", "aux"});
+    an MoE model dispatches its tokens in ``moe_groups`` groups."""
     def f(batch):
-        return transformer.loss_fn(model, batch)
+        return transformer.loss_fn(model, batch, moe_groups=moe_groups)
 
     return f
 

@@ -52,20 +52,24 @@ of the shared block, one state per Mamba2 layer.  RWKV6: ``{"layers":
 in the activations' dtype (bf16), as the reference's does, so a float32
 one is replaced by a bf16 copy at the first pass.
 
-Training (the dense and encoder families, ``TRAINABLE_FAMILIES``; the
-others refuse ``trainable=True`` until their kernels have a backward):
-built with ``trainable=True`` a model takes the leaves of a
-reference-layout tree as they are -- the training state's bf16
-parameters, no copy and no cast; a layer's parameters are views of the
-stacked leaves -- and every parameter requires grad.  With ``cfg.remat``
-each layer of a pass that builds a graph runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around the
-scanned layer body), so its activations are recomputed in the backward
-and attention's forward kernel runs twice a layer.  ``lm_loss`` takes
-``tokens [B, S + 1]`` and, with ``cfg.loss_seq_chunks``, streams the cross
-entropy over sequence chunks from the final hidden states
-(``_backbone_hidden``); ``encoder_loss`` takes ``frames [B, T, d]``,
-``targets`` and ``mask [B, T]``; ``loss_fn`` picks by family.
+Training (every family; each kernel on the path has a backward: flash
+attention's, the SSD's and the WKV's): built with
+``trainable=True`` a model takes the leaves of a reference-layout tree as
+they are -- the training state's bf16 parameters, no copy and no cast; a
+layer's parameters are views of the stacked leaves -- and every parameter
+requires grad.  zamba2's shared block is one set of parameters called
+before every round, so its gradient sums over the calls.  With
+``cfg.remat`` each layer of a pass that builds a graph (and each call of
+the shared block) runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` around the scanned layer or round body), so its
+activations are recomputed in the backward and its forward kernels run
+twice.  ``stacks`` names each stacked leaf's layer modules, in the
+layout, for ``train.param_grads``.  ``lm_loss`` takes ``tokens [B, S +
+1]`` (and ``moe_groups``, the MoE layers' dispatch groups) and, with
+``cfg.loss_seq_chunks``, streams the cross entropy over sequence chunks
+from the final hidden states (``_backbone_hidden``); ``encoder_loss`` takes
+``frames [B, T, d]``, ``targets`` and ``mask [B, T]``; ``loss_fn`` picks by
+family.
 """
 
 from __future__ import annotations
@@ -106,21 +110,6 @@ from repro_torch.models.config import ModelConfig
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in MODELS:
         raise ValueError(f"unknown family {cfg.family}")
-
-
-TRAINABLE_FAMILIES = ("dense", "encoder")
-_WAITING = {
-    "moe": "MoE training waits for the capacity dispatch held to the reference under"
-           " gradients (ROADMAP section 1, item 2)",
-    "hybrid": "hybrid training waits for the SSD backward kernel (ROADMAP section 1, item 2)",
-    "rwkv": "RWKV6 training waits for the WKV backward kernel (ROADMAP section 1, item 2)",
-}
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    """Only the families whose every kernel has a backward train."""
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: {_WAITING.get(cfg.family, cfg.family)}")
 
 
 def _require_class(cfg: ModelConfig, cls: type) -> None:
@@ -277,7 +266,7 @@ class DenseLayer(nn.Module):
         for name in ("norm1", "attn", "norm2", "moe" if cfg.family == "moe" else "mlp"):
             setattr(self, name, Params(params[name], trainable=trainable))
 
-    def forward(self, h, positions, cache=None, *, attn_impl: str = "auto"):
+    def forward(self, h, positions, cache=None, *, attn_impl: str = "auto", moe_groups: int = 1):
         a_in = rmsnorm(self.norm1, h, eps=self.cfg.norm_eps)
         a_out, new_cache = attn.attention_apply(
             self.attn, a_in, self.acfg, positions=positions, cache=cache, impl=attn_impl)
@@ -288,7 +277,7 @@ class DenseLayer(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.cfg.family == "moe":
             f_out, aux = moe_lib.moe_apply(self.moe, f_in, self.cfg.moe_config(),
-                                           dropless=cache is not None)
+                                           moe_groups=moe_groups, dropless=cache is not None)
         elif self.cfg.mlp_type == "gelu":
             f_out = ffn.gelu_mlp_apply(self.mlp, f_in)
         else:
@@ -330,6 +319,11 @@ class _Model(nn.Module):
         model, grad mode on and no caches."""
         return self.cfg.remat and self.trainable and stateless and torch.is_grad_enabled()
 
+    def stacks(self) -> dict:
+        """Each stacked leaf's layer modules, in the layout of its leading
+        axes (a list, or for the hybrid's rounds a list of lists)."""
+        return {"layers": list(self.layers)}
+
 
 class _LM(_Model):
     """What the LMs share: embedding, the norms at the ends of the stack,
@@ -353,16 +347,19 @@ class _LM(_Model):
         table = self.embed if self.cfg.tie_embeddings else self.unembed
         return unembed_logits(table, h)
 
-    def forward(self, tokens: torch.Tensor, *, caches: Any = None, with_aux: bool = False):
+    def forward(self, tokens: torch.Tensor, *, caches: Any = None, with_aux: bool = False,
+                moe_groups: int = 1):
         """Every position's logits and the new caches (and, ``with_aux``,
-        the pass's auxiliary loss)."""
-        h, new_caches, aux = self.hidden_aux(tokens, caches=caches)
+        the pass's auxiliary loss; an MoE layer dispatches in
+        ``moe_groups``)."""
+        h, new_caches, aux = self.hidden_aux(tokens, caches=caches, moe_groups=moe_groups)
         logits = self.logits(h)
         return (logits, new_caches, aux) if with_aux else (logits, new_caches)
 
-    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, **impls):
+    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, moe_groups: int = 1,
+                   **impls):
         """``hidden``'s (h, new caches) and the pass's auxiliary loss (0
-        outside the MoE family)."""
+        outside the MoE family, whose layers dispatch in ``moe_groups``)."""
         h, new_caches = self.hidden(tokens, caches=caches, **impls)
         return h, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
 
@@ -389,9 +386,10 @@ class DenseLM(_LM):
         h, new_caches, _ = self.hidden_aux(tokens, caches=caches, attn_impl=attn_impl)
         return h, new_caches
 
-    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto"):
+    def hidden_aux(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto",
+                   moe_groups: int = 1):
         """``hidden``'s (h, new caches) and the aux loss summed over the
-        layers."""
+        layers; an MoE layer dispatches its tokens in ``moe_groups``."""
         h = embed(self.embed, tokens)
         S = tokens.shape[1]
         pos0 = caches["pos"] if caches is not None else 0
@@ -404,8 +402,8 @@ class DenseLM(_LM):
             if caches is not None:
                 lc = caches["layers"]
                 cache = {"k": lc["k"][i], "v": lc["v"][i], "length": lc["length"]}
-            h, new_cache, layer_aux = _maybe_remat(layer, remat)(h, positions, cache,
-                                                                 attn_impl=attn_impl)
+            h, new_cache, layer_aux = _maybe_remat(layer, remat)(
+                h, positions, cache, attn_impl=attn_impl, moe_groups=moe_groups)
             aux = aux + layer_aux
             if new_cache is not None:
                 length = new_cache["length"]
@@ -430,12 +428,12 @@ class SharedBlock(nn.Module):
     an input projection, then a pre-norm attention and SwiGLU layer; its
     output is added to the hidden stream."""
 
-    def __init__(self, cfg: ModelConfig, params: Tree):
+    def __init__(self, cfg: ModelConfig, params: Tree, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.acfg = cfg.attention_config()
         for name in ("in_proj", "norm1", "attn", "norm2", "mlp"):
-            setattr(self, name, Params(params[name]))
+            setattr(self, name, Params(params[name], trainable=trainable))
 
     def attend(self, h, x_emb, positions, cache=None, *, attn_impl: str = "auto"):
         """The block's input projection ``z`` and its attention output."""
@@ -456,12 +454,12 @@ class SharedBlock(nn.Module):
 class MambaLayer(nn.Module):
     """Pre-norm Mamba2 layer: h + mamba2(norm(h))."""
 
-    def __init__(self, cfg: ModelConfig, params: Tree):
+    def __init__(self, cfg: ModelConfig, params: Tree, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.mcfg = cfg.mamba_config()
-        self.norm = Params(params["norm"])
-        self.mamba = Params(params["mamba"])
+        self.norm = Params(params["norm"], trainable=trainable)
+        self.mamba = Params(params["mamba"], trainable=trainable)
 
     def mix(self, h, state=None, *, ssd_impl: str = "auto"):
         """The mixer's output mamba2(norm(h)) and its new state."""
@@ -482,21 +480,29 @@ class HybridLM(_LM):
     in its fan-in, as the reference counts them)."""
 
     def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, trainable: bool = False):
         super().__init__()
         _require_class(cfg, HybridLM)
-        params, _ = _build_params(cfg, params, device, seed)
-        self._init_ends(cfg, params)
-        full, self.period, rem = hybrid_layout(cfg)
-        self.shared = SharedBlock(cfg, params["shared"])
+        params, _ = _build_params(cfg, params, device, seed, trainable)
+        self._init_ends(cfg, params, trainable=trainable)
+        self.full, self.period, rem = hybrid_layout(cfg)
+        self.shared = SharedBlock(cfg, params["shared"], trainable=trainable)
         layers = []
-        for r in range(full):
+        for r in range(self.full):
             round_params = _layer_tree(params["rounds"], r)
-            layers += [MambaLayer(cfg, _layer_tree(round_params, k))
+            layers += [MambaLayer(cfg, _layer_tree(round_params, k), trainable=trainable)
                        for k in range(self.period)]
-        layers += [MambaLayer(cfg, _layer_tree(params["epilogue"], k))
+        layers += [MambaLayer(cfg, _layer_tree(params["epilogue"], k), trainable=trainable)
                    for k in range(rem)]
         self.layers = nn.ModuleList(layers)
+
+    def stacks(self) -> dict:
+        n = self.full * self.period
+        out = {"rounds": [list(self.layers[r * self.period:(r + 1) * self.period])
+                          for r in range(self.full)]}
+        if len(self.layers) > n:
+            out["epilogue"] = list(self.layers[n:])
+        return out
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, attn_impl: str = "auto",
                ssd_impl: str = "auto"):
@@ -509,6 +515,7 @@ class HybridLM(_LM):
         pos0 = caches["pos"] if caches is not None else 0
         positions = torch.arange(S, device=tokens.device) + pos0
         length = None
+        remat = self._remat(caches is None)
         for i, layer in enumerate(self.layers):
             if i % self.period == 0:
                 cache = None
@@ -516,14 +523,15 @@ class HybridLM(_LM):
                     ac = caches["layers"]["attn"]
                     k = i // self.period
                     cache = {"k": ac["k"][k], "v": ac["v"][k], "length": ac["length"]}
-                h, new_cache = self.shared(h, x_emb, positions, cache, attn_impl=attn_impl)
+                h, new_cache = _maybe_remat(self.shared, remat)(h, x_emb, positions, cache,
+                                                                attn_impl=attn_impl)
                 if new_cache is not None:
                     length = new_cache["length"]
             state = None
             if caches is not None:
                 mc = caches["layers"]["mamba"]
                 state = {"conv": mc["conv"][i], "ssm": mc["ssm"][i]}
-            h, new_state = layer(h, state, ssd_impl=ssd_impl)
+            h, new_state = _maybe_remat(layer, remat)(h, state, ssd_impl=ssd_impl)
             if new_state is not None:
                 state["conv"].copy_(new_state["conv"])
                 state["ssm"].copy_(new_state["ssm"])
@@ -538,12 +546,12 @@ class HybridLM(_LM):
 class RWKVLayer(nn.Module):
     """RWKV6 layer: h + time_mix(ln1(h)), then + channel_mix(ln2(h))."""
 
-    def __init__(self, cfg: ModelConfig, params: Tree):
+    def __init__(self, cfg: ModelConfig, params: Tree, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.rcfg = cfg.rwkv_config()
         for name in ("ln1", "time", "ln2", "channel"):
-            setattr(self, name, Params(params[name]))
+            setattr(self, name, Params(params[name], trainable=trainable))
 
     def time_mix(self, h, state=None, *, wkv_impl: str = "auto"):
         """The time mix's output, its new state and the WKV's (y, h_final)."""
@@ -571,13 +579,13 @@ class RWKVLM(_LM):
     reference's scales."""
 
     def __init__(self, cfg: ModelConfig, params: Tree | None = None, *, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, trainable: bool = False):
         super().__init__()
         _require_class(cfg, RWKVLM)
-        params, _ = _build_params(cfg, params, device, seed)
-        self._init_ends(cfg, params, norms=("ln_in", "ln_out"))
+        params, _ = _build_params(cfg, params, device, seed, trainable)
+        self._init_ends(cfg, params, norms=("ln_in", "ln_out"), trainable=trainable)
         self.layers = nn.ModuleList(
-            RWKVLayer(cfg, _layer_tree(params["layers"], i))
+            RWKVLayer(cfg, _layer_tree(params["layers"], i), trainable=trainable)
             for i in range(cfg.num_layers))
 
     def hidden(self, tokens: torch.Tensor, *, caches: Any = None, wkv_impl: str = "auto"):
@@ -593,11 +601,12 @@ class RWKVLM(_LM):
             if channel.dtype != h.dtype:     # the reference's cast (see the module's notes)
                 channel = channel.to(h.dtype)
             layers = {"time": dict(lc["time"]), "channel": {"shift": channel}}
+        remat = self._remat(caches is None)
         for i, layer in enumerate(self.layers):
             state = None
             if layers is not None:
                 state = {part: {name: t[i] for name, t in ts.items()} for part, ts in layers.items()}
-            h, new_state = layer(h, state, wkv_impl=wkv_impl)
+            h, new_state = _maybe_remat(layer, remat)(h, state, wkv_impl=wkv_impl)
             if new_state is not None:
                 for part, ts in new_state.items():
                     for name, t in ts.items():
@@ -683,44 +692,41 @@ MODELS = {"dense": DenseLM, "moe": MoELM, "hybrid": HybridLM, "rwkv": RWKVLM,
 def build_lm(cfg: ModelConfig, params: Tree | None = None, *, device="cuda", seed: int = 0,
              trainable: bool = False) -> Model:
     """The model class of ``cfg``'s family (the encoder's too), built on
-    ``device``; ``trainable`` only for ``TRAINABLE_FAMILIES``."""
+    ``device``; ``trainable``: see the module's notes."""
     _require_ported(cfg)
-    kw = {}
-    if trainable:
-        require_trainable(cfg)
-        kw["trainable"] = True
-    return MODELS[cfg.family](cfg, params, device=device, seed=seed, **kw)
+    return MODELS[cfg.family](cfg, params, device=device, seed=seed, trainable=trainable)
 
 
 # ===========================================================================
 # Top-level forward / decode (the reference's function names)
 # ===========================================================================
 
-def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None):
+def forward_lm(model: LM, tokens: torch.Tensor, *, caches: Any = None, moe_groups: int = 1):
     """Returns (logits [B, S, vocab] bf16, new_caches, aux loss): the MoE
     router's aux summed over the layers, 0 for the other families."""
-    return model(tokens, caches=caches, with_aux=True)
+    return model(tokens, caches=caches, with_aux=True, moe_groups=moe_groups)
 
 
-def _backbone_hidden(model: LM, tokens: torch.Tensor):
+def _backbone_hidden(model: LM, tokens: torch.Tensor, *, moe_groups: int = 1):
     """Hidden states before the unembedding [B, S, d] and the aux loss
     (for the streamed loss)."""
-    h, _, aux = model.hidden_aux(tokens)
+    h, _, aux = model.hidden_aux(tokens, moe_groups=moe_groups)
     return h, aux
 
 
-def lm_loss(model: LM, batch: dict):
+def lm_loss(model: LM, batch: dict, *, moe_groups: int = 1):
     """Next-token cross entropy of ``batch["tokens"]`` [B, S + 1]: the
-    first S tokens predict the last S; returns (loss, {"ce", "aux"}).  With
+    first S tokens predict the last S; returns (loss, {"ce", "aux"}), the
+    loss ``ce + aux`` as the reference adds them.  With
     ``cfg.loss_seq_chunks > 1`` the logits are made and dropped chunk by
     chunk (``seq_chunked_cross_entropy``)."""
     tokens = batch["tokens"]
     chunks = model.cfg.loss_seq_chunks
     if chunks > 1:
-        h, aux = _backbone_hidden(model, tokens[:, :-1])
+        h, aux = _backbone_hidden(model, tokens[:, :-1], moe_groups=moe_groups)
         ce = seq_chunked_cross_entropy(h, model.unembed_table, tokens[:, 1:], chunks=chunks)
     else:
-        logits, _, aux = forward_lm(model, tokens[:, :-1])
+        logits, _, aux = forward_lm(model, tokens[:, :-1], moe_groups=moe_groups)
         ce = softmax_cross_entropy(logits, tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -738,11 +744,11 @@ def encoder_loss(model: EncoderModel, batch: dict):
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=logits.device)}
 
 
-def loss_fn(model: Model, batch: dict):
+def loss_fn(model: Model, batch: dict, *, moe_groups: int = 1):
     """The family's training loss: ``encoder_loss`` or ``lm_loss``."""
     if model.cfg.family == "encoder":
         return encoder_loss(model, batch)
-    return lm_loss(model, batch)
+    return lm_loss(model, batch, moe_groups=moe_groups)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

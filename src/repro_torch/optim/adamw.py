@@ -13,8 +13,12 @@ the new step as float32, weight decay on every leaf.  Unlike the
 reference's pure update, the state's master, m and v tensors are updated
 in place, leaf by leaf (the returned state holds the same tensors), so a
 step needs one leaf's temporaries and not a second copy of the whole
-optimizer state.  The reference's ZeRO sharding metadata has no
-counterpart on one card.
+optimizer state; a leaf of more than :data:`SLICE_ELEMS` entries (an MoE
+model's stacked experts: 4 GB of float32 in granite-moe-3b-a800m) is
+updated in slices along its leading axis, so its temporaries stay a
+slice's.  The update is elementwise, so slicing changes no bit; the
+squared norm of such a leaf sums its slices' sums.  The reference's ZeRO
+sharding metadata has no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from typing import Any
 import torch
 
 from repro_torch.models.common import Tree, iter_leaves, set_leaf
+
+
+SLICE_ELEMS = 1 << 26   # a leaf past this many entries is updated a slice at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +66,24 @@ def adamw_init(params: Tree) -> dict:
     return {"master": master, "m": zeros(), "v": zeros(), "step": step}
 
 
+def _slices(t: torch.Tensor):
+    """Index slices covering ``t`` along its leading axis, each of at most
+    SLICE_ELEMS entries (one row at least); the whole tensor when it is no
+    larger."""
+    if t.ndim == 0 or t.numel() <= SLICE_ELEMS:
+        return [...]
+    rows = max(1, SLICE_ELEMS // (t.numel() // t.shape[0]))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    parts = [torch.sum(torch.square(g[sl].to(torch.float32))) for sl in _slices(g)]
+    return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    return torch.sqrt(torch.sum(torch.stack([_square_sum(g) for g in leaves(tree)])))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -97,13 +118,16 @@ def adamw_update(
     bc2 = 1.0 - f32(cfg.b2) ** t
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
     new_params: Tree = {}
-    for (path, master), m, v, g in zip(iter_leaves(state["master"]), leaves(state["m"]),
-                                       leaves(state["v"]), leaves(grads)):
-        g = g.to(torch.float32) * scale
-        m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        master.copy_(master - lr * (update + cfg.weight_decay * master))
-        set_leaf(new_params, path, master.to(compute_dtype))
+    for (path, master_leaf), m_leaf, v_leaf, g_leaf in zip(
+            iter_leaves(state["master"]), leaves(state["m"]), leaves(state["v"]), leaves(grads)):
+        for sl in _slices(master_leaf):
+            master, m, v = master_leaf[sl], m_leaf[sl], v_leaf[sl]
+            g = g_leaf[sl].to(torch.float32) * scale
+            m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
+            v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
+            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            master.copy_(master - lr * (update + cfg.weight_decay * master))
+            del g, update
+        set_leaf(new_params, path, master_leaf.to(compute_dtype))
     new_state = {"master": state["master"], "m": state["m"], "v": state["v"], "step": step}
     return new_state, new_params, {"grad_norm": norm, "lr": lr}

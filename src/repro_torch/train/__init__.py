@@ -1,4 +1,3 @@
-from repro_torch.models.transformer import TRAINABLE_FAMILIES
 from repro_torch.train.loop import (
     TrainConfig,
     Trainer,

@@ -11,9 +11,10 @@ reference's layout (:func:`param_grads`) and applies ``adamw_update``,
 which updates the optimizer state in place.  The reference's ``rules``
 (sharding constraints over a device mesh) have no counterpart on one card.
 
-Families: the dense decoders and the encoder train; every kernel on their
-path has a backward (flash attention's).  MoE, hybrid and RWKV6 training
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+Families: all five train -- the dense decoders, the MoE decoders (their
+capacity dispatch in ``moe_groups`` groups, the router's aux loss added to
+the cross entropy), the zamba2 hybrid, RWKV6 and the encoder; every kernel
+on their paths has a backward (flash attention's, the SSD's, the WKV's).
 
 The data pipeline is the RSP loader: every batch is a block-level sample
 (Definition 4), and its O(1) sampler state rides along in each checkpoint,
@@ -34,7 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api, transformer
 from repro_torch.models.common import Tree, init_params, iter_leaves, set_leaf
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import build_lm, require_trainable
+from repro_torch.models.transformer import build_lm
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves, tree_map
 from repro_torch.optim.schedule import SCHEDULES
 
@@ -48,6 +49,7 @@ class TrainConfig:
     keep_checkpoints: int = 3
     log_every: int = 10
     microbatch: int = 0          # 0 = no accumulation; else per-step microbatch count
+    moe_groups: int = 1          # the MoE layers' dispatch groups
     seed: int = 0
 
 
@@ -60,15 +62,28 @@ def _module_leaf(module, path: tuple[str, ...]) -> torch.Tensor:
 def param_grads(model, params: Tree) -> Tree:
     """The gradients of ``model``'s parameters in the layout of ``params``
     (the reference's): a stacked leaf's gradient is its layers' gradients
-    stacked; a parameter that took no gradient gets zeros, as jax gives."""
+    stacked (``model.stacks()``: the hybrid's rounds on two axes); a
+    parameter that took no gradient gets zeros, as jax gives.  A parameter
+    used more than once (zamba2's shared block) holds the sum of its
+    calls' gradients.  Each parameter's ``.grad`` is released as it is
+    read, so the stacked copies and the layers' gradients are never all
+    held at once."""
     def grad(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        return p.grad if p.grad is not None else torch.zeros_like(like)
+        g, p.grad = p.grad, None
+        return g if g is not None else torch.zeros_like(like)
 
+    def stacked(layers, path, leaf):
+        if not isinstance(layers, list):
+            return grad(_module_leaf(layers, path), leaf)
+        if not layers:       # a stack of no layers (a hybrid cut below one round)
+            return torch.zeros_like(leaf)
+        return torch.stack([stacked(sub, path, leaf[i]) for i, sub in enumerate(layers)])
+
+    stacks = model.stacks()
     out: Tree = {}
     for path, leaf in iter_leaves(params):
-        if path[0] == "layers":
-            g = torch.stack([grad(_module_leaf(layer, path[1:]), leaf[i])
-                             for i, layer in enumerate(model.layers)])
+        if path[0] in stacks:
+            g = stacked(stacks[path[0]], path[1:], leaf)
         else:
             g = grad(_module_leaf(model, path), leaf)
         set_leaf(out, path, g)
@@ -80,13 +95,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
     batch's tensors on the parameters' device.  ``metrics``: loss (averaged
     over microbatches), ce and aux (the last microbatch's), grad_norm and
     lr, as 0-d tensors."""
-    require_trainable(cfg)
     schedule = SCHEDULES[train_cfg.schedule]
 
     def grads_of(params: Tree, batch: dict):
         device = leaves(params)[0].device
         model = build_lm(cfg, params, device=device, trainable=True)
-        loss, metrics = api.make_loss_fn(model)(batch)
+        loss, metrics = api.make_loss_fn(model, moe_groups=train_cfg.moe_groups)(batch)
         loss.backward()
         grads = param_grads(model, params)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -156,7 +170,6 @@ class Trainer:
         device="cuda",
         batch_transform: Callable | None = None,
     ):
-        require_trainable(cfg)
         self.cfg, self.opt_cfg, self.train_cfg = cfg, opt_cfg, train_cfg
         self.loader = loader
         self.ckpt_dir = ckpt_dir

@@ -15,7 +15,12 @@ the sketch kernels' repeated calls, and their scalar-load path against the
 16-byte one, bit for bit (their fold order is fixed);
 flash attention within 2e-5 in float32 and 2e-2 in bfloat16, and the SSD
 scan and the WKV within 2e-4, the reference's own tolerances for its Pallas
-kernels (``tests/test_kernels.py``).
+kernels (``tests/test_kernels.py``).  The SSD and WKV backward kernels:
+each gradient of one position (dxbar; dr, dk, dv) within 2e-4 (1 + |b|),
+as the forwards; a gradient that sums over the sequence or the heads
+(ddA, dB, dC; dlogw, du) within 1e-4 relative L2, since a sum of many
+terms in another order moves its small entries by more than 2e-4 of
+themselves; both give the same bits every call (no atomics).
 The drift monitor, the loader and the similarity functions on the card
 against the same calls on the CPU: monitor reports and MMD^2 within 1e-5
 (1 + |b|), loader batches, KS and label frequencies exactly.  A four-host
@@ -50,15 +55,23 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_stats,
     log_sum_exp,
 )
-from repro_torch.kernels.mamba2_ssd import ssd, ssd_cuda, ssd_plain
+from repro_torch.kernels.mamba2_ssd import ssd, ssd_bwd_cuda, ssd_bwd_plain, ssd_cuda, ssd_plain
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, plan_sketch
 from repro_torch.kernels.plan.kernel import LAUNCHES as PLAN
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda, plan_sketch_plain
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda, rsp_shuffle_plain, shuffle_path
-from repro_torch.kernels.rwkv6_wkv import log_decay, wkv6, wkv6_cuda, wkv6_plain, wkv6_scan
+from repro_torch.kernels.rwkv6_wkv import (
+    log_decay,
+    wkv6,
+    wkv6_bwd_cuda,
+    wkv6_bwd_plain,
+    wkv6_cuda,
+    wkv6_plain,
+    wkv6_scan,
+)
 from repro_torch.models import api
 from repro_torch.models.common import iter_leaves
-from repro_torch.models.transformer import build_lm
+from repro_torch.models.transformer import build_lm, hybrid_layout
 from repro_torch.optim import AdamWConfig
 from repro_torch.serve import Server
 from repro_torch.train import TrainConfig, init_state, make_train_step, param_grads
@@ -713,22 +726,42 @@ def test_flash_attention_float32_gradient_on_the_card_raises(dev):
 
 
 def test_ssd_and_wkv_kernels_refuse_inputs_that_require_grad(dev):
-    (xbar, dA, Bm, Cm), _ = _ssd_arrays(1, 128, 2, "softplus", 0)
+    # the raw launchers return no graph; ops.ssd and ops.wkv6 carry the
+    # gradient; a state that requires grad is refused by both
+    (xbar, dA, Bm, Cm), h0 = _ssd_arrays(1, 128, 2, "softplus", 0, with_h0=True)
     xbar = xbar.to(dev).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev), chunk=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_cuda(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev))
+    dA, Bm, Cm, h0 = dA.to(dev), Bm.to(dev), Cm.to(dev), h0.to(dev)
+    with pytest.raises(ValueError, match="no gradient"):
+        ssd_cuda(xbar, dA, Bm, Cm)
+    y, _ = ssd(xbar, dA, Bm, Cm, chunk=128)
+    assert y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="initial state"):
+        ssd(xbar, dA, Bm, Cm, chunk=128, h0=h0.requires_grad_())
     with torch.no_grad():      # serving: no graph wanted, the kernel runs
-        ssd(xbar, dA.to(dev), Bm.to(dev), Cm.to(dev), chunk=128)
-    g = torch.Generator(device="cpu").manual_seed(0)
-    r, k, v = (torch.randn((1, 32, 2, 64), generator=g).to(dev) for _ in range(3))
-    w = torch.rand((1, 32, 2, 64), generator=g).to(dev)
-    u = torch.zeros((2, 64), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wkv6(r, k, v, w, u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd(xbar, dA, Bm, Cm, chunk=128)
+    arrays, h0 = _wkv_arrays(1, 32, 2, "model", 0, with_h0=True)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    u.requires_grad_()
+    with pytest.raises(ValueError, match="no gradient"):
         wkv6_cuda(r, k, v, log_decay(w), u)
+    y, _ = wkv6(r, k, v, w, u)
+    assert y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="initial state"):
+        wkv6(r, k, v, w, u, h0=h0.to(dev).requires_grad_())
+
+
+# the gradients of one position held elementwise, the summed ones in L2
+BWD_TOL = 2e-4
+BWD_SUM_REL_L2 = 1e-4
+
+
+def _bwd_close(got, want, summed):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), i
+        if i in summed:
+            assert float((a - b).norm() / b.norm()) < BWD_SUM_REL_L2, i
+        else:
+            torch.testing.assert_close(a, b, rtol=BWD_TOL, atol=BWD_TOL)
 
 
 def _ssd_arrays(B, L, H, decay, seed, with_h0=False):
@@ -770,6 +803,36 @@ def test_ssd_kernel_matches_plain(dev, name):
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def _ssd_bwd_inputs(name, dev, final):
+    B, L, H, decay, with_h0 = SSD_CASES[name]
+    arrays, h0 = _ssd_arrays(B, L, H, decay, seed=L + H, with_h0=with_h0)
+    arrays = [a.to(dev) for a in arrays]
+    h0 = None if h0 is None else h0.to(dev)
+    y, h, hs = ssd_cuda(*arrays, h0=h0, states=True)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    dy = torch.randn(y.shape, generator=g).to(dev)
+    if decay == "weak":
+        # dy / sqrt(L) keeps the nearly undecayed state's gradient O(1), as
+        # the forward's case scales xbar
+        dy *= L ** -0.5
+    kw = {"dh_final": torch.randn(h.shape, generator=g).to(dev)} if final else {}
+    return (*arrays, hs, dy), kw
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["dh 0", "dh"])
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+def test_ssd_bwd_kernel_matches_plain(dev, name, final):
+    args, kw = _ssd_bwd_inputs(name, dev, final)
+    kernels.reset_launch_counts()
+    got = ssd_bwd_cuda(*args, **kw)
+    want = ssd_bwd_plain(*args, chunk=128, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mamba2_ssd_bwd"] == 1
+    _bwd_close(got, want, summed={1, 2, 3})
+    again = ssd_bwd_cuda(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_ssd_auto_impl_pads_a_ragged_length_and_counts(dev):
@@ -846,6 +909,86 @@ def test_wkv_kernel_matches_plain(dev, name):
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def _wkv_bwd_inputs(name, dev, final):
+    B, T, H, decay, with_h0 = WKV_CASES[name]
+    arrays, h0 = _wkv_arrays(B, T, H, decay, seed=T + H, with_h0=with_h0)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    h0 = None if h0 is None else h0.to(dev)
+    logw = log_decay(w)
+    y, h, hs = wkv6_cuda(r, k, v, logw, u, h0=h0, states=True)
+    g = torch.Generator(device="cpu").manual_seed(T)
+    dy = torch.randn(y.shape, generator=g).to(dev)
+    if decay == "weak":
+        dy *= T ** -0.5      # as the forward's case scales k (see the SSD's)
+    kw = {"dh_final": torch.randn(h.shape, generator=g).to(dev)} if final else {}
+    return (r, k, v, logw, u, hs, dy), kw
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["dh 0", "dh"])
+@pytest.mark.parametrize("name", sorted(WKV_CASES))
+def test_wkv_bwd_kernel_matches_plain(dev, name, final):
+    args, kw = _wkv_bwd_inputs(name, dev, final)
+    kernels.reset_launch_counts()
+    got = wkv6_bwd_cuda(*args, **kw)
+    want = wkv6_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rwkv6_wkv_bwd"] == 1
+    _bwd_close(got, want, summed={3, 4})
+    again = wkv6_bwd_cuda(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wkv_states_are_the_plain_chunk_starts(dev):
+    arrays, h0 = _wkv_arrays(2, 64, 3, "model", seed=2, with_h0=True)
+    r, k, v, w, u = (a.to(dev) for a in arrays)
+    logw = log_decay(w)
+    got = wkv6_cuda(r, k, v, logw, u, h0=h0.to(dev), states=True)[2]
+    want = wkv6_plain(r, k, v, logw, u, h0=h0.to(dev), states=True)[2]
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("T,C", [(37, 64), (300, 16)])
+def test_wkv_gradient_on_the_card_matches_the_plain_function(dev, T, C):
+    # ops.wkv6 under grad: padded length and width, the clamp, both kernels
+    arrays, _ = _wkv_arrays(2, T, 3, "underflow" if C == 16 else "model", seed=T)
+    arrays = [a[..., :C].contiguous().to(dev) for a in arrays]
+    got_in = [a.clone().requires_grad_() for a in arrays]
+    want_in = [a.clone().requires_grad_() for a in arrays]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    dy = torch.randn((2, T, 3, C), generator=g).to(dev)
+    kernels.reset_launch_counts()
+    y, _ = wkv6(*got_in)
+    (y * dy).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["rwkv6_wkv"] == 1 and counts["rwkv6_wkv_bwd"] == 1
+    y_want, _ = wkv6(*want_in, impl="torch")
+    (y_want * dy).sum().backward()
+    for i, (a, b) in enumerate(zip(got_in, want_in)):
+        rel = float((a.grad - b.grad).norm() / b.grad.norm())
+        assert rel < BWD_SUM_REL_L2 * 10, (i, rel)
+
+
+@pytest.mark.parametrize("L,P", [(300, 64), (200, 16)])
+def test_ssd_gradient_on_the_card_matches_the_plain_function(dev, L, P):
+    arrays, _ = _ssd_arrays(2, L, 3, "softplus", seed=L)
+    x, dA, Bm, Cm = (a.to(dev) for a in arrays)
+    arrays = [x[..., :P].contiguous(), dA, Bm[..., :P].contiguous(), Cm[..., :P].contiguous()]
+    got_in = [a.clone().requires_grad_() for a in arrays]
+    want_in = [a.clone().requires_grad_() for a in arrays]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    dy = torch.randn((2, L, 3, P), generator=g).to(dev)
+    kernels.reset_launch_counts()
+    y, _ = ssd(*got_in, chunk=128)
+    (y * dy).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts["mamba2_ssd"] == 1 and counts["mamba2_ssd_bwd"] == 1
+    y_want, _ = ssd(*want_in, chunk=128, impl="torch")
+    (y_want * dy).sum().backward()
+    for i, (a, b) in enumerate(zip(got_in, want_in)):
+        rel = float((a.grad - b.grad).norm() / b.grad.norm())
+        assert rel < BWD_SUM_REL_L2 * 10, (i, rel)
 
 
 def test_wkv_auto_impl_pads_a_ragged_length_from_h0_and_counts(dev):
@@ -1136,8 +1279,67 @@ def test_smoke_training_gradients_on_the_card_match_the_cpu(dev, arch):
         assert float((a - b).abs().max() / b.abs().max()) < 5e-2, path
 
 
-def test_smoke_train_steps_on_the_card(dev):
-    cfg = smoke_config("qwen2-0.5b")
+# the fewest layers holding every kernel of a family (zamba2: one Mamba2
+# layer after one shared-block call), as chip_smoke.py's phase 10b cuts them
+FAMILY_CUT = {"granite-moe-3b-a800m": 2, "zamba2-7b": 1, "rwkv6-1.6b": 2}
+PLAIN = {"moe": {"attn_impl": "torch"}, "hybrid": {"attn_impl": "torch", "ssd_impl": "torch"},
+         "rwkv": {"wkv_impl": "torch"}}
+
+
+def _family_launches(cfg) -> dict:
+    """Each kernel's launches in one training step: the forward twice a
+    layer (remat), the backward once; zamba2's attention once a
+    shared-block call."""
+    L = cfg.num_layers
+    if cfg.family == "rwkv":
+        return {"rwkv6_wkv": 2 * L, "rwkv6_wkv_bwd": L}
+    if cfg.family == "hybrid":
+        full, _, rem = hybrid_layout(cfg)
+        inv = full + (1 if rem else 0)
+        return {"mamba2_ssd": 2 * L, "mamba2_ssd_bwd": L, "flash_attention": 2 * inv,
+                "flash_attention_bwd": inv}
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_CUT))
+def test_family_gradients_with_the_kernels_match_the_plain_versions(dev, arch):
+    # a smoke config cut to FAMILY_CUT layers on the card: one step's loss
+    # and gradients with every kernel (the widths padded to the kernels')
+    # against the same step with the plain versions, within the CPU parity
+    # tests' tolerances (tests/test_torch_train.py); the kernels launched as
+    # a training step launches them; a leaf with no gradient in the plain
+    # step (rwkv6's lora_a: lora_b starts at zero) has none with the kernels
+    from repro_torch.models.common import softmax_cross_entropy
+
+    cfg = dataclasses.replace(smoke_config(arch), num_layers=FAMILY_CUT[arch])
+    state = init_state(cfg, seed=0, device=dev)
+    tokens = _smoke_batch(cfg, dev)["tokens"]
+    losses, grads = [], []
+    for impls in ({}, PLAIN[cfg.family]):
+        kernels.reset_launch_counts()
+        model = build_lm(cfg, state["params"], device=dev, trainable=True)
+        h, _, aux = model.hidden_aux(tokens[:, :-1], **impls)
+        loss = softmax_cross_entropy(model.logits(h), tokens[:, 1:]) + aux
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        assert counts == (_family_launches(cfg) if not impls else {}), counts
+        losses.append(float(loss.detach()))
+        grads.append(param_grads(model, state["params"]))
+    assert abs(losses[0] - losses[1]) < 1e-2
+    for (path, a), (_, b) in zip(iter_leaves(grads[0]), iter_leaves(grads[1])):
+        a, b = a.float(), b.float()
+        if not b.any():
+            assert not a.any(), path
+            continue
+        assert float((a - b).norm() / b.norm()) < 3e-2, path
+        assert float((a - b).abs().max() / b.abs().max()) < 5e-2, path
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-moe-3b-a800m", "zamba2-7b",
+                                  "rwkv6-1.6b"])
+def test_smoke_train_steps_on_the_card(dev, arch):
+    cfg = smoke_config(arch)
     step = make_train_step(cfg, AdamWConfig(lr=1e-2), TrainConfig(total_steps=4, warmup_steps=1))
     state = init_state(cfg, seed=0, device=dev)
     losses = []

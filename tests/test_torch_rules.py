@@ -28,7 +28,9 @@ from repro_torch.models.transformer import DenseLM, HybridLM, RWKVLM, init_cache
 from repro_torch.kernels.plan import PlanArrays, QueryPlan, compile_plan, plan_sketch
 from repro_torch.kernels.plan.kernel import plan_sketch_cuda
 from repro_torch.kernels.rsp_shuffle import rsp_shuffle_cuda
+from repro_torch.optim import AdamWConfig
 from repro_torch.serve import EnsembleServer, Server
+from repro_torch.train import TrainConfig, init_state, make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -270,9 +272,14 @@ def test_launch_counters_stay_zero_on_cpu_runs(tmp_path):
     ds.similarity(1)
     ds.loader(64).next_batch()
     DriftMonitor(ds.take([0, 1])[..., :4], device="cpu").score(ds.block(2)[:, :4])
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):     # a training step through the scans' backwards
+        tcfg = smoke_config(arch)
+        make_train_step(tcfg, AdamWConfig(), TrainConfig(total_steps=1))(
+            init_state(tcfg, device="cpu"), {"tokens": torch.zeros((2, 9), dtype=torch.int32)})
     assert kernels.launch_counts() == {"rsp_shuffle": 0, "block_sketch": 0, "plan_sketch": 0,
                                        "flash_attention": 0, "flash_attention_bwd": 0,
-                                       "mamba2_ssd": 0, "rwkv6_wkv": 0}
+                                       "mamba2_ssd": 0, "mamba2_ssd_bwd": 0, "rwkv6_wkv": 0,
+                                       "rwkv6_wkv_bwd": 0}
 
 
 def test_cuda_build_is_keyed_by_sources(tmp_path):
@@ -282,5 +289,6 @@ def test_cuda_build_is_keyed_by_sources(tmp_path):
     assert len(key) == 16 and key == _cuda.source_hash()
     assert {p.name for p in _cuda._sources()} == {
         "rsp_shuffle.cu", "block_sketch.cu", "plan_sketch.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "mamba2_ssd.cu", "rwkv6_wkv.cu"}
+        "flash_attention_bwd.cu", "mamba2_ssd.cu", "mamba2_ssd_bwd.cu", "rwkv6_wkv.cu",
+        "rwkv6_wkv_bwd.cu"}
     assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
