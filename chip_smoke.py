@@ -24,8 +24,8 @@ Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
                 plan_sketch_fused), and of the flash backward's
                 fa_bwd_dkdv_wgmma and fa_bwd_dq_wgmma at D = 64, 80, 112
                 and 128 and the scans' backward kernels (ssd_bwd_state,
-                ssd_bwd_chunk, wkv6_bwd_chunks), from the ``-Xptxas -v``
-                log;
+                ssd_bwd_tile, wkv6_bwd_state, wkv6_bwd_chunk), from the
+                ``-Xptxas -v`` log;
 2. parity    -- each kernel against its plain PyTorch version on the card, at
                 the paths' shapes: rsp_shuffle bit for bit, block_sketch
                 and plan_sketch stats within 1e-5 relative, histograms
@@ -4060,6 +4060,12 @@ def worst_abs(parity: dict) -> float:
     return max(g["max_abs_err"] for case in parity.values() for g in case.values())
 
 
+def worst_rel_l2(parity: dict, names) -> float:
+    """The largest relative L2 distance of the named (summed) gradients
+    over the cases."""
+    return max(case[n]["rel_l2"] for case in parity.values() for n in names)
+
+
 def ssd_bwd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
     """(operations, bytes) of one SSD backward, counted from its algebra:
     per batch row and chunk C B^T's causal half (B and C are shared by the
@@ -4096,15 +4102,28 @@ def wkv_bwd_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
 def ssd_bwd_times(args, device) -> dict:
     """The SSD backward kernels at zamba2-7b's training shape beside their
     bound and their plain version.  No single PyTorch call computes the
-    scan's gradient."""
+    scan's gradient.  ``bound_ms`` is the function's own (its operations at
+    the float32 FMA rate against its bytes); ``x3_bound_ms`` is the bound
+    of the same operations as six bf16 products each at the dense bf16 rate
+    (``csrc/mma_x3.cuh``), against the bytes with G_end written and read
+    back."""
     import torch
 
-    from repro_torch.kernels.mamba2_ssd import BWD_KERNELS, ssd_bwd_cuda, ssd_bwd_plain
+    from repro_torch.kernels.mamba2_ssd import (
+        BWD_KERNELS,
+        bwd_head_tile,
+        ssd_bwd_cuda,
+        ssd_bwd_plain,
+    )
 
     B, L, H, decay = SSD_BWD_CASES["zamba2-7b train"]
     args_ = ssd_bwd_inputs(B, L, H, decay, device, args.seed)
     ops, nbytes = ssd_bwd_work(B, L, H)
     b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    nc = L // 128
+    state_bytes = 2 * 4 * B * nc * H * 64 * 64
+    b3, by3 = bound_ms(nbytes + state_bytes, 6 * ops, BF16_OPS_PER_S)
+    ht = bwd_head_tile(B * nc, H, torch.cuda.get_device_properties(device).multi_processor_count)
     run = lambda i: ssd_bwd_cuda(*args_)  # noqa: E731
     out = {
         "ms": time_cuda(run, reps=REPS),
@@ -4114,9 +4133,10 @@ def ssd_bwd_times(args, device) -> dict:
         "kernels_per_call": len(BWD_KERNELS),
         "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+        "x3_bound_ms": b3, "x3_bound_by": by3, "state_bytes": state_bytes, "head_tile": ht,
         "shape": f"xbar, dy [{B}, {L}, {H}, 64], dA [{B}, {L}, {H}], B/C [{B}, {L}, 64] f32,"
-                 f" chunk 128; ssd_bwd_state {B * H} CTAs, ssd_bwd_chunk"
-                 f" {B * (L // 128) * H} CTAs",
+                 f" chunk 128; ssd_bwd_state {B * H} CTAs, ssd_bwd_tile"
+                 f" {B * nc * H // ht} CTAs of {ht} heads",
     }
     del args_
     torch.cuda.empty_cache()
@@ -4124,17 +4144,34 @@ def ssd_bwd_times(args, device) -> dict:
 
 
 def wkv_bwd_times(args, device) -> dict:
-    """The WKV backward kernel at rwkv6-1.6b's training shape beside its
-    bound and its plain version.  No single PyTorch call computes the
-    recurrence's gradient."""
+    """The WKV backward kernels at rwkv6-1.6b's training shape beside their
+    bound and their plain version.  No single PyTorch call computes the
+    recurrence's gradient.  ``bound_ms`` is the function's own (every
+    operation at the FMA rate); ``x3_bound_ms`` is the bound of the
+    kernels' arithmetic, their products on the tensor cores (the state's
+    gradient update, S dy, G v, G^T kdec and vd) as six bf16 products each
+    at the dense bf16 rate and the rest at the FMA rate, against the bytes
+    with G_end written and read back."""
     import torch
 
-    from repro_torch.kernels.rwkv6_wkv import BWD_KERNELS, wkv6_bwd_cuda, wkv6_bwd_plain
+    from repro_torch.kernels.rwkv6_wkv import (
+        BWD_GROUP,
+        BWD_KERNELS,
+        bwd_groups,
+        wkv6_bwd_cuda,
+        wkv6_bwd_plain,
+    )
 
     B, T, H, decay = WKV_BWD_CASES["rwkv6-1.6b train"]
     args_ = wkv_bwd_inputs(B, T, H, decay, device, args.seed)
     ops, nbytes = wkv_bwd_work(B, T, H)
     b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    Q, C = 16, 64
+    chunks = B * H * (T // Q)
+    mma_ops = chunks * (8 * Q * C * C + 2 * Q * Q * C)    # the same in wkv_bwd_work
+    ops3_ms = (6 * mma_ops / BF16_OPS_PER_S + (ops - mma_ops) / FP32_OPS_PER_S) * 1e3
+    state_bytes = 2 * 4 * chunks * C * C
+    bytes3_ms = (nbytes + state_bytes) / HBM_BYTES_PER_S * 1e3
     run = lambda i: wkv6_bwd_cuda(*args_)  # noqa: E731
     out = {
         "ms": time_cuda(run, reps=REPS),
@@ -4144,8 +4181,12 @@ def wkv_bwd_times(args, device) -> dict:
         "kernels_per_call": len(BWD_KERNELS),
         "bound_ms": b, "bound_by": by, "flops": ops, "bytes": nbytes,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
-        "shape": f"r/k/v/logw/dy [{B}, {T}, {H}, 64] f32, u [{H}, 64], chunk 16, {B * H}"
-                 f" CTAs",
+        "x3_bound_ms": max(bytes3_ms, ops3_ms),
+        "x3_bound_by": "bytes" if bytes3_ms >= ops3_ms else "operations",
+        "state_bytes": state_bytes,
+        "shape": f"r/k/v/logw/dy [{B}, {T}, {H}, 64] f32, u [{H}, 64], chunk 16;"
+                 f" wkv6_bwd_state {B * H} CTAs, wkv6_bwd_chunk {B * H * bwd_groups(T)} CTAs"
+                 f" of {BWD_GROUP} chunks",
     }
     del args_
     torch.cuda.empty_cache()
@@ -5269,16 +5310,23 @@ REDESIGNED = {
     **{f"fa_bwd_{part}_wgmma<{d}>": f"fa_bwd_{part}_wgmmaILi{d}E" for part in ("dkdv", "dq")
        for d in (64, 80, 112, 128)},
 }
-# the scans' backward kernels (CUDA cores, float32), reported beside them
-SCAN_BWD_KERNELS = {"ssd_bwd_state": "ssd_bwd_state", "ssd_bwd_chunk": "ssd_bwd_chunk",
-                    "wkv6_bwd_chunks": "wkv6_bwd_chunks"}
+# the scans' backward kernels (on the tensor cores), reported beside them, and
+# the library function (and its kernel argument) that gives each one's
+# dynamic shared memory
+SCAN_BWD_KERNELS = {"ssd_bwd_state": "ssd_bwd_state", "ssd_bwd_tile": "ssd_bwd_tile",
+                    "wkv6_bwd_state": "wkv6_bwd_state", "wkv6_bwd_chunk": "wkv6_bwd_chunk"}
+SCAN_BWD_SMEM = {"ssd_bwd_state": ("mamba2_ssd_bwd_smem_bytes", 0),
+                 "ssd_bwd_tile": ("mamba2_ssd_bwd_smem_bytes", 1),
+                 "wkv6_bwd_state": ("rwkv6_wkv_bwd_smem_bytes", 0),
+                 "wkv6_bwd_chunk": ("rwkv6_wkv_bwd_smem_bytes", 1)}
 
 
 def ptxas_report(log: str, kernels: dict) -> dict:
     """Registers, spills and static shared memory of each named kernel,
     from the ``-Xptxas -v`` lines of the build log, with the dynamic shared
     memory its launcher asks for (flash: ``flash_attention_smem_bytes``;
-    the staged shuffle: ``staged_smem_bytes`` of the HIGGS tile)."""
+    the staged shuffle: ``staged_smem_bytes`` of the HIGGS tile; the scans'
+    backwards: ``SCAN_BWD_SMEM``)."""
     import re
 
     from repro_torch.kernels import _cuda
@@ -5310,6 +5358,9 @@ def ptxas_report(log: str, kernels: dict) -> dict:
                 d, 0 if "dkdv" in name else 1)
         elif name == "rsp_shuffle_staged<u32, 1024>":
             info["dynamic_smem_higgs_tile"] = staged_smem_bytes(1100, 29 * 4)
+        elif name in SCAN_BWD_SMEM:
+            fn, which = SCAN_BWD_SMEM[name]
+            info["dynamic_smem"] = getattr(_cuda.library(), fn)(which)
         out[name] = info
     return out
 
@@ -5404,11 +5455,15 @@ def main() -> int:
     t0 = time.perf_counter()
     scan_bwd = {"mamba2_ssd_bwd": ssd_bwd_parity(args, device)}
     errs["mamba2_ssd_bwd"] = worst_abs(scan_bwd["mamba2_ssd_bwd"])
-    phase("ssd bwd parity", t0, f"max |kernel - plain| {errs['mamba2_ssd_bwd']:.3g}")
+    phase("ssd bwd parity", t0, f"max |kernel - plain| {errs['mamba2_ssd_bwd']:.3g}, worst"
+          f" relative L2 of a summed gradient"
+          f" {worst_rel_l2(scan_bwd['mamba2_ssd_bwd'], ('ddA', 'dB', 'dC')):.3g}")
     t0 = time.perf_counter()
     scan_bwd["rwkv6_wkv_bwd"] = wkv_bwd_parity(args, device)
     errs["rwkv6_wkv_bwd"] = worst_abs(scan_bwd["rwkv6_wkv_bwd"])
-    phase("wkv bwd parity", t0, f"max |kernel - plain| {errs['rwkv6_wkv_bwd']:.3g}")
+    phase("wkv bwd parity", t0, f"max |kernel - plain| {errs['rwkv6_wkv_bwd']:.3g}, worst"
+          f" relative L2 of a summed gradient"
+          f" {worst_rel_l2(scan_bwd['rwkv6_wkv_bwd'], ('dlogw', 'du')):.3g}")
 
     tune_dir = tempfile.mkdtemp(prefix="rsp_autotune_")
     try:

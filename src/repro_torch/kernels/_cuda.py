@@ -66,9 +66,11 @@ _SIGNATURES = {
     ),
     "flash_attention_bwd_smem_bytes": (_I, [_I, _I]),
     "mamba2_ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "mamba2_ssd_bwd_launch": (_I, [*([_P] * 12), _I, _I, _I, _P]),
+    "mamba2_ssd_bwd_launch": (_I, [*([_P] * 12), _I, _I, _I, _I, _P]),
+    "mamba2_ssd_bwd_smem_bytes": (_I, [_I]),
     "rwkv6_wkv_launch": (_I, [*([_P] * 9), _I, _I, _I, _P]),
-    "rwkv6_wkv_bwd_launch": (_I, [*([_P] * 13), _I, _I, _I, _P]),
+    "rwkv6_wkv_bwd_launch": (_I, [*([_P] * 14), _I, _I, _I, _I, _P]),
+    "rwkv6_wkv_bwd_smem_bytes": (_I, [_I]),
 }
 
 _LOCK = threading.Lock()

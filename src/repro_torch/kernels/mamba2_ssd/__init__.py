@@ -11,6 +11,7 @@ from repro_torch.kernels.mamba2_ssd.kernel import (
     CHUNK,
     KERNELS,
     LAUNCHES,
+    bwd_head_tile,
     head_tile,
     ssd_bwd_cuda,
     ssd_bwd_plain,
@@ -28,6 +29,7 @@ __all__ = [
     "KERNELS",
     "LAUNCHES",
     "SSDScan",
+    "bwd_head_tile",
     "head_tile",
     "ssd",
     "ssd_bwd_cuda",

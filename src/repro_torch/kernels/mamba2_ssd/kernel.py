@@ -24,9 +24,12 @@ in as few waves as the work allows.
 
 The backward is two launches too (``BWD_KERNELS``): ``ssd_bwd_state`` walks
 each (batch row, head)'s chunks in reverse and writes the state's gradient
-at every chunk's end; ``ssd_bwd_chunk`` computes every (batch row, chunk,
-head)'s gradients in parallel, dB and dC as per-head partials that one sum
-over the heads adds afterwards, in one order every call.
+at every chunk's end; ``ssd_bwd_tile`` computes every (batch row, chunk,
+tile of ``Ht`` heads)'s gradients in parallel on the tensor cores, C B^T
+once a tile, and dB and dC as each tile's sum over its heads, which one
+sum over the tiles adds afterwards, in one order every call.
+:func:`bwd_head_tile` picks that ``Ht`` as :func:`head_tile` picks the
+forward's.
 
 The launchers return tensors without a graph: under grad mode, inputs that
 require grad raise ``ValueError``; ``ops.ssd`` (the ``SSDScan`` function)
@@ -46,7 +49,7 @@ from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_bwd as ssd_bwd_plain
 LAUNCHES = _cuda.LaunchCounter("mamba2_ssd")
 BWD_LAUNCHES = _cuda.LaunchCounter("mamba2_ssd_bwd")
 KERNELS = ("ssd_state", "ssd_scan")   # the device kernels one call launches
-BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_chunk")
+BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_tile")
 
 CHUNK = 128        # the kernel's chunk length Q
 HEAD_DIM = 64      # P
@@ -54,23 +57,34 @@ STATE_DIM = 64     # N
 # the share of a head's work that C B^T adds, once per scan CTA: a warp's
 # nine tiles of C B^T take 216 MMAs against 408 for a head's two products
 _CB_SHARE = 0.5
+# the same for the backward's tile: a warp's share of C B^T and of the two
+# products of the heads' summed E takes 108 six-MMA products against 168
+# for a head's five
+_BWD_TILE_SHARE = 108 / 168
 
 
-def head_tile(batch: int, heads: int, sms: int) -> int:
+def head_tile(batch: int, heads: int, sms: int, share: float = _CB_SHARE) -> int:
     """The divisor ``Ht`` of ``heads`` whose grid of ``batch * heads / Ht``
     CTAs (one resident CTA an SM: the scan's shared memory is 211 KB)
-    takes the fewest head-chunks of time: waves * (Ht + C B^T's share).
-    The scan's grid has a CTA per batch row and chunk: ``batch`` is
-    B * L / 128."""
+    takes the fewest head-chunks of time: waves * (Ht + ``share``, the
+    work a CTA does once, in heads; C B^T's by default).  The scan's grid
+    has a CTA per batch row and chunk: ``batch`` is B * L / 128."""
     best, cost = 1, math.inf
     for ht in range(1, heads + 1):
         if heads % ht:
             continue
         waves = math.ceil(batch * (heads // ht) / sms)
-        c = waves * (ht + _CB_SHARE)
+        c = waves * (ht + share)
         if c < cost:
             best, cost = ht, c
     return best
+
+
+def bwd_head_tile(batch: int, heads: int, sms: int) -> int:
+    """``head_tile`` for the backward's ``ssd_bwd_tile`` (one resident CTA
+    an SM too: 222 KB), whose once-a-CTA work is C B^T and the intra-chunk
+    products of dB and dC."""
+    return head_tile(batch, heads, sms, _BWD_TILE_SHARE)
 
 
 def check_shapes(xbar, dA, Bm, Cm, h0=None) -> None:
@@ -163,15 +177,18 @@ def ssd_bwd_cuda(
         raise ValueError(f"hs must be [{B}, {L // CHUNK}, {H}, {P}, {N}], got {tuple(hs.shape)}")
     _check_operands(xbar, xbar=xbar, dA=dA, B=Bm, C=Cm, hs=hs, dy=dy, dh_final=dh_final)
     dev = xbar.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ht = bwd_head_tile(B * (L // CHUNK), H, sms)
     dhs = torch.empty_like(hs)           # the state's gradient at every chunk's end
     dx = torch.empty_like(xbar)
     ddA = torch.empty_like(dA)
-    dB_part = torch.empty((B, L, H, N), dtype=torch.float32, device=dev)
-    dC_part = torch.empty((B, L, H, N), dtype=torch.float32, device=dev)
+    # each tile's sums of dB and dC over its heads
+    dB_part = torch.empty((B, L, H // ht, N), dtype=torch.float32, device=dev)
+    dC_part = torch.empty((B, L, H // ht, N), dtype=torch.float32, device=dev)
     code = _cuda.library().mamba2_ssd_bwd_launch(
         xbar.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), hs.data_ptr(),
         dy.data_ptr(), _cuda.ptr(dh_final), dhs.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
-        dB_part.data_ptr(), dC_part.data_ptr(), B, L, H, _cuda.stream_handle(dev),
+        dB_part.data_ptr(), dC_part.data_ptr(), B, L, H, ht, _cuda.stream_handle(dev),
     )
     _cuda.check(code, "mamba2_ssd backward kernels")
     BWD_LAUNCHES.add()
@@ -179,5 +196,5 @@ def ssd_bwd_cuda(
 
 
 __all__ = ["BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES",
-           "STATE_DIM", "check_shapes", "head_tile", "ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda",
+           "STATE_DIM", "bwd_head_tile", "check_shapes", "head_tile", "ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda",
            "ssd_plain"]

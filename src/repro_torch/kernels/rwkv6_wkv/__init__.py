@@ -7,11 +7,13 @@ grad through ``WKV6``, whose backward is ``csrc/rwkv6_wkv_bwd.cu``.
 """
 
 from repro_torch.kernels.rwkv6_wkv.kernel import (
+    BWD_GROUP,
     BWD_KERNELS,
     BWD_LAUNCHES,
     CHUNK,
     KERNELS,
     LAUNCHES,
+    bwd_groups,
     wkv6_bwd_cuda,
     wkv6_bwd_plain,
     wkv6_cuda,
@@ -21,6 +23,7 @@ from repro_torch.kernels.rwkv6_wkv.ops import IMPLS, WKV6, log_decay, wkv6
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked, wkv6_chunked_bwd, wkv6_scan
 
 __all__ = [
+    "BWD_GROUP",
     "BWD_KERNELS",
     "BWD_LAUNCHES",
     "CHUNK",
@@ -28,6 +31,7 @@ __all__ = [
     "KERNELS",
     "LAUNCHES",
     "WKV6",
+    "bwd_groups",
     "log_decay",
     "wkv6",
     "wkv6_bwd_cuda",

@@ -18,8 +18,12 @@
 One CTA owns one (batch row, head) and walks the chunks in order: producer
 warps compute each chunk's state-independent terms ahead, consumer warps
 carry the state through its two products on the tensor cores.  The
-backward's CTA owns one (batch row, head) too and walks the chunks in
-reverse, carrying the state's gradient.
+backward is two launches (``BWD_KERNELS``): ``wkv6_bwd_state`` walks each
+(batch row, head)'s chunks in reverse and writes the state's gradient at
+every chunk's end; ``wkv6_bwd_chunk`` computes the gradients of every
+(batch row, group of :data:`BWD_GROUP` chunks, head) in parallel, its
+products on the tensor cores, du as each CTA's share, which one sum over
+the batch rows and groups adds afterwards, in one order every call.
 
 The launchers return tensors without a graph: under grad mode, inputs that
 require grad raise ``ValueError``; ``ops.wkv6`` (the ``WKV6`` function)
@@ -37,10 +41,17 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked_bwd as wkv6_bwd_plain
 LAUNCHES = _cuda.LaunchCounter("rwkv6_wkv")
 BWD_LAUNCHES = _cuda.LaunchCounter("rwkv6_wkv_bwd")
 KERNELS = ("wkv6_chunks",)   # the device kernels one call launches
-BWD_KERNELS = ("wkv6_bwd_chunks",)
+BWD_KERNELS = ("wkv6_bwd_state", "wkv6_bwd_chunk")
 
 CHUNK = 16       # the kernel's chunk length Q
 HEAD_DIM = 64    # C = V
+BWD_GROUP = 8    # chunks a CTA of wkv6_bwd_chunk takes, in reverse
+
+
+def bwd_groups(T: int) -> int:
+    """The chunk groups of ``wkv6_bwd_chunk`` along a padded length T: du
+    comes back as a share per (batch row, group, head)."""
+    return -(-(T // CHUNK) // BWD_GROUP)
 
 
 def check_shapes(r, k, v, logw, u, h0=None) -> None:
@@ -117,11 +128,11 @@ def wkv6_bwd_cuda(
     *,
     dh_final: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the backward kernel on CUDA tensors: (dr, dk, dv, dlogw
+    """Launch the backward kernels on CUDA tensors: (dr, dk, dv, dlogw
     ``[B, T, H, 64]``, du ``[H, 64]``), float32; ``hs`` the forward's
     chunk-start states, ``dh_final`` the final state's gradient (None:
-    zero).  du is written per (batch row, head) and summed over the batch
-    rows afterwards, in one order every call."""
+    zero).  du is written per (batch row, chunk group, head) and summed
+    over the batch rows and groups afterwards, in one order every call."""
     check_shapes(r, k, v, logw, u, dh_final)
     B, T, H, C = r.shape
     if tuple(dy.shape) != tuple(r.shape):
@@ -129,17 +140,19 @@ def wkv6_bwd_cuda(
     if tuple(hs.shape) != (B, T // CHUNK, H, C, C):
         raise ValueError(f"hs must be [{B}, {T // CHUNK}, {H}, {C}, {C}], got {tuple(hs.shape)}")
     _check_operands(r, r=r, k=k, v=v, logw=logw, u=u, hs=hs, dy=dy, dh_final=dh_final)
+    dhs = torch.empty_like(hs)           # the state's gradient at every chunk's end
     dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
-    du = torch.empty((B, H, C), dtype=torch.float32, device=r.device)
+    du = torch.empty((B, bwd_groups(T), H, C), dtype=torch.float32, device=r.device)
     code = _cuda.library().rwkv6_wkv_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), hs.data_ptr(),
-        dy.data_ptr(), _cuda.ptr(dh_final), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dlogw.data_ptr(), du.data_ptr(), B, T, H, _cuda.stream_handle(r.device),
+        dy.data_ptr(), _cuda.ptr(dh_final), dhs.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), B, T, H, BWD_GROUP,
+        _cuda.stream_handle(r.device),
     )
-    _cuda.check(code, "rwkv6_wkv backward kernel")
+    _cuda.check(code, "rwkv6_wkv backward kernels")
     BWD_LAUNCHES.add()
-    return dr, dk, dv, dlogw, du.sum(0)
+    return dr, dk, dv, dlogw, du.sum((0, 1))
 
 
-__all__ = ["BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES",
-           "check_shapes", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda", "wkv6_plain"]
+__all__ = ["BWD_GROUP", "BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS",
+           "LAUNCHES", "bwd_groups", "check_shapes", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda", "wkv6_plain"]

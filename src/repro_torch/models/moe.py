@@ -28,6 +28,9 @@ The reference's semantics, step by step:
 The dispatch buffer is built by a gather through a ``[E, C]`` slot table
 (the reference's ``sort_dispatch`` form) in both modes: each kept
 assignment owns its slot, so the buffer equals the one-hot scatter-add's.
+Its gradient gathers each token's k kept slots back and adds them in
+assignment order (:class:`_DispatchGather`), where ``index_select``'s own
+backward adds them with atomics in an order that changes from run to run.
 The reference's sharding constraints have no counterpart on one card.
 """
 
@@ -107,6 +110,34 @@ def route(params, xt: torch.Tensor, cfg: MoEConfig):
     return logits, probs, top_w, top_idx
 
 
+class _DispatchGather(torch.autograd.Function):
+    """``x_pad[rows]`` (rows ``[G * E * C]`` into ``x_pad [G * (Tg + 1),
+    d]``, its last row of a group zero) whose backward gives token t of
+    group g the sum of its kept assignments' slots ``slot [G, Tg * k]``,
+    taken in assignment order: the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x_pad, rows, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        ctx.n_rows = x_pad.shape[0]
+        return x_pad.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad_buf):
+        slot, keep = ctx.saved_tensors
+        G, A = slot.shape
+        Tg, d = ctx.n_rows // G - 1, grad_buf.shape[-1]
+        g = grad_buf.index_select(0, slot.reshape(-1)).reshape(G, Tg, A // Tg, d)
+        g = torch.where(keep.reshape(G, Tg, A // Tg, 1), g, torch.zeros((), dtype=g.dtype,
+                                                                       device=g.device))
+        acc = g[:, :, 0]
+        for j in range(1, A // Tg):
+            acc = acc + g[:, :, j]
+        # the zero row of each group takes no gradient
+        grad = torch.cat([acc, torch.zeros((G, 1, d), dtype=acc.dtype, device=acc.device)], 1)
+        return grad.reshape(ctx.n_rows, d), None, None, None
+
+
 def moe_apply(
     params,
     x: torch.Tensor,             # [B, S, d]
@@ -155,9 +186,11 @@ def moe_apply(
     g_idx = torch.arange(G, device=dev)[:, None]
     slot_token[g_idx, e_safe, clipped_pos] = token_of_assign
     rows = slot_token[:, :E] + g_idx[..., None] * (Tg + 1)               # padded row ids
+    # each assignment's slot in the buffer (a dropped one's is not its own)
+    slot = flat_e * C + clipped_pos + g_idx * (E * C)                    # [G, Tg*k]
     x_pad = torch.cat([xt.to(compute_dtype),
                        torch.zeros((G, 1, d), dtype=compute_dtype, device=dev)], dim=1)
-    buf = x_pad.reshape(G * (Tg + 1), d).index_select(0, rows.reshape(-1))
+    buf = _DispatchGather.apply(x_pad.reshape(G * (Tg + 1), d), rows.reshape(-1), slot, keep)
     buf = buf.reshape(G * E, C, d)
 
     # ---- expert computation (stacked products over E) ----------------------
@@ -168,7 +201,6 @@ def moe_apply(
     y = torch.bmm(h, down).reshape(G * E * C, d)
 
     # ---- combine: each token's k outputs added in order, in bf16 -------------
-    slot = flat_e * C + clipped_pos + g_idx * (E * C)                    # [G, Tg*k]
     vals = y.index_select(0, slot.reshape(-1)).reshape(G, Tg * k, d)
     vals = (vals * w_flat[..., None].to(vals.dtype)).reshape(G, Tg, k, d)
     out = torch.zeros((G, Tg, d), dtype=vals.dtype, device=dev)

@@ -805,8 +805,18 @@ def test_ssd_kernel_matches_plain(dev, name):
     torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
 
 
+# the backward's own cases beside the forward's: head counts that the
+# backward's head tile does not take in one wave (3 heads; zamba2's 112 at
+# B = 1 is among SSD_CASES) and a single chunk
+SSD_BWD_CASES = {
+    **SSD_CASES,
+    "3 heads, B = 1": (1, 256, 3, "softplus", False),
+    "one chunk": (1, 128, 8, "softplus", False),
+}
+
+
 def _ssd_bwd_inputs(name, dev, final):
-    B, L, H, decay, with_h0 = SSD_CASES[name]
+    B, L, H, decay, with_h0 = SSD_BWD_CASES[name]
     arrays, h0 = _ssd_arrays(B, L, H, decay, seed=L + H, with_h0=with_h0)
     arrays = [a.to(dev) for a in arrays]
     h0 = None if h0 is None else h0.to(dev)
@@ -822,7 +832,7 @@ def _ssd_bwd_inputs(name, dev, final):
 
 
 @pytest.mark.parametrize("final", [False, True], ids=["dh 0", "dh"])
-@pytest.mark.parametrize("name", sorted(SSD_CASES))
+@pytest.mark.parametrize("name", sorted(SSD_BWD_CASES))
 def test_ssd_bwd_kernel_matches_plain(dev, name, final):
     args, kw = _ssd_bwd_inputs(name, dev, final)
     kernels.reset_launch_counts()
@@ -911,8 +921,17 @@ def test_wkv_kernel_matches_plain(dev, name):
     torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
 
 
+# the backward's own cases: a single chunk, and rwkv6-1.6b's 32 heads at
+# B = 8 (two CTAs of wkv6_bwd_chunk on each SM, many groups of chunks)
+WKV_BWD_CASES = {
+    **WKV_CASES,
+    "one chunk": (1, 16, 4, "model", False),
+    "rwkv6-1.6b heads, B = 8": (8, 2048, 32, "model", False),
+}
+
+
 def _wkv_bwd_inputs(name, dev, final):
-    B, T, H, decay, with_h0 = WKV_CASES[name]
+    B, T, H, decay, with_h0 = WKV_BWD_CASES[name]
     arrays, h0 = _wkv_arrays(B, T, H, decay, seed=T + H, with_h0=with_h0)
     r, k, v, w, u = (a.to(dev) for a in arrays)
     h0 = None if h0 is None else h0.to(dev)
@@ -927,7 +946,7 @@ def _wkv_bwd_inputs(name, dev, final):
 
 
 @pytest.mark.parametrize("final", [False, True], ids=["dh 0", "dh"])
-@pytest.mark.parametrize("name", sorted(WKV_CASES))
+@pytest.mark.parametrize("name", sorted(WKV_BWD_CASES))
 def test_wkv_bwd_kernel_matches_plain(dev, name, final):
     args, kw = _wkv_bwd_inputs(name, dev, final)
     kernels.reset_launch_counts()

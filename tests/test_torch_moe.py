@@ -109,6 +109,39 @@ def test_moe_apply_matches_the_reference(sort_dispatch, dropless, groups):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
 
 
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dropless", [False, True], ids=["capacity", "dropless"])
+def test_the_dispatch_gradient_is_index_selects(monkeypatch, dropless, groups):
+    """The dispatch's backward (each token's kept slots gathered and added
+    in assignment order) gives the gradient of a plain ``index_select``,
+    dropped assignments included, in float32 to summation order."""
+    p = _torch_params(_layer_params())
+    for leaf in (p["router"]["w"], p["gate"], p["up"], p["down"]):
+        leaf.requires_grad_()
+    _, xt = _inputs()
+    x = xt.to(torch.float32)
+    dy = torch.from_numpy(np.random.default_rng(3).normal(size=x.shape).astype(np.float32))
+    cfg = moe.MoEConfig(D, F, E, K)
+
+    def grads():
+        xg = x.clone().requires_grad_()
+        out, aux = moe.moe_apply(p, xg, cfg, moe_groups=groups, dropless=dropless,
+                                 compute_dtype=torch.float32)
+        (out * dy).sum().add(aux).backward()
+        got = [xg.grad] + [t.grad.clone() for t in (p["router"]["w"], p["gate"], p["up"],
+                                                     p["down"])]
+        for t in (p["router"]["w"], p["gate"], p["up"], p["down"]):
+            t.grad = None
+        return got
+
+    got = grads()
+    monkeypatch.setattr(moe._DispatchGather, "apply",
+                        lambda x_pad, rows, slot, keep: x_pad.index_select(0, rows))
+    want = grads()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
 def test_capacity_drops_assignments_on_these_inputs():
     """At capacity factor 1.25 some assignments overflow, so the capacity
     case above tests dropping; dropless keeps all of them."""

@@ -18,6 +18,8 @@ multiplies the overflow by 0).  There ddA is held to a float64 recurrence
 through torch's autograd, the other three gradients to the reference.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,13 @@ import pytest
 import torch
 
 from repro.models.mamba2 import ssd_chunked as ref_ssd_chunked
-from repro_torch.kernels.mamba2_ssd import SSDScan, ssd, ssd_chunked, ssd_chunked_bwd
+from repro_torch.kernels.mamba2_ssd import (
+    SSDScan,
+    bwd_head_tile,
+    ssd,
+    ssd_chunked,
+    ssd_chunked_bwd,
+)
 
 REL_L2 = 1e-5
 
@@ -159,3 +167,21 @@ def test_the_function_saves_no_more_than_its_inputs_and_states():
     y, h = SSDScan.apply(*args, None, 16, "torch")
     saved = y.grad_fn.saved_tensors
     assert len(saved) == 5 and tuple(saved[-1].shape) == (1, 2, 2, 8, 4)
+
+
+@pytest.mark.parametrize("B,L,H,want", [
+    (8, 2048, 112, 112),   # zamba2-7b's training shape: 128 CTAs of every head
+    (2, 2048, 112, 28),    # chip_smoke.py's weak-decay case: 128 CTAs
+    (2, 1024, 112, 14),    # its strong-decay case: 128 CTAs
+    (1, 512, 112, 4),      # zamba2's heads at B = 1: 112 CTAs
+    (1, 128, 3, 1),        # one chunk of 3 heads: 3 CTAs of one head
+    (2, 256, 8, 1),
+])
+def test_the_backward_head_tile_fills_the_card_in_the_fewest_waves(B, L, H, want):
+    # ssd_bwd_tile's grid: a CTA per (batch row, chunk, tile of Ht heads),
+    # one resident an SM of an H100's 132
+    batch = B * L // 128
+    ht = bwd_head_tile(batch, H, 132)
+    assert ht == want and H % ht == 0
+    waves = math.ceil(batch * H // ht / 132)
+    assert waves == 1 or ht == 1

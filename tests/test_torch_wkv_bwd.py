@@ -22,7 +22,15 @@ import pytest
 import torch
 
 from repro.models.rwkv6 import wkv6_scan as ref_wkv6_scan
-from repro_torch.kernels.rwkv6_wkv import WKV6, log_decay, wkv6, wkv6_chunked, wkv6_chunked_bwd
+from repro_torch.kernels.rwkv6_wkv import (
+    BWD_GROUP,
+    WKV6,
+    bwd_groups,
+    log_decay,
+    wkv6,
+    wkv6_chunked,
+    wkv6_chunked_bwd,
+)
 
 REL_L2 = 1e-5
 
@@ -139,3 +147,13 @@ def test_the_function_saves_no_more_than_its_inputs_and_states():
     y, h = WKV6.apply(*args, logw, torch.from_numpy(u), None, "torch")
     saved = y.grad_fn.saved_tensors
     assert len(saved) == 6 and tuple(saved[-1].shape) == (1, 2, 2, 8, 8)
+
+
+@pytest.mark.parametrize("T,want", [(2048, 16), (1024, 8), (144, 2), (128, 1), (16, 1)])
+def test_the_backward_chunk_groups_cover_every_chunk_once(T, want):
+    # wkv6_bwd_chunk's grid: a CTA per (batch row, group of BWD_GROUP
+    # chunks, head), the last group ragged; du comes back a share a group
+    groups = bwd_groups(T)
+    assert groups == want
+    chunks = T // 16
+    assert (groups - 1) * BWD_GROUP < chunks <= groups * BWD_GROUP
