@@ -6,13 +6,14 @@ ingest from disk, block-level estimation, learning from the blocks
 concurrent query serving, the multi-host mesh (distributed queries and the
 collective partition), dense LM serving, zamba2 hybrid serving, rwkv6
 scoring, loss and serving, MoE serving (granite-moe-3b-a800m,
-qwen3-moe-30b-a3b), and training (llama3.2-1b and the hubert-xlarge
-encoder, through the flash backward kernel).
+qwen3-moe-30b-a3b), training (llama3.2-1b and the hubert-xlarge
+encoder, through the flash backward kernel; the MoE, hybrid and RWKV6
+families), and training under sharding rules on a one-rank NCCL mesh.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
-3g, 3b (started), 7, 8, 10, 10b, 3b (waited for), 3c-3f, 6, 9, 5:
+3g, 3b (started), 7, 8, 10, 10b, 10c, 3b (waited for), 3c-3f, 6, 9, 5:
 
 1. build     -- compile the nine CUDA sources (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
@@ -334,13 +335,34 @@ Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
                 first, one step of a fresh state cut to the fewest layers
                 holding every kernel with the kernels against the plain
                 versions, each gradient leaf within 3e-2 relative L2.
+10c. sharded  -- (after 10b) a one-rank NCCL world
+                (``init_process_group("nccl", world_size=1)``) and a (1, 1)
+                ("data", "model") ``DeviceMesh`` (``launch.mesh``); no gloo
+                or CPU fallback: llama3.2-1b at full width and depth
+                trained 3 ``Trainer`` steps of 8 x 2048 under
+                ``default_rules`` (DTensor state, ZeRO-1 shardings, the
+                batch cut by ``batch_shardings``, float32 gradient
+                all-reduce), then 3 without rules from the same seed and
+                batches, one run after the other, both under
+                ``torch.use_deterministic_algorithms``: the losses, the
+                gradient norms and every master leaf equal bit for bit,
+                flash launched as in phase 10, each run's step seconds
+                printed; ``compressed_psum`` over the mesh's data group on
+                128,256 x 2,048 float32 values (llama's embedding gradient,
+                1.05 GB) equal bit for bit to ``quantize_roundtrip`` on the
+                card and on the CPU, its seconds printed, and 20 rounds of
+                ``error_feedback_compress`` held to the reference's drift
+                bound; a checkpoint of a sharded run of llama3.2-1b at 2
+                layers (gathered, written by rank 0) restored onto the
+                mesh by ``restore_for_mesh``, equal to the saved state bit
+                for bit.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
 path, the estimator, the drift monitor, the first serve wave, each mesh
 run on threads, each rank of the collective partition, each LM path, each
-MoE generate, each training run and step).
+MoE generate, each training run and step, each sharded training run).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -5294,6 +5316,251 @@ def training_families(args, device, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10c: training under sharding rules on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 3              # Trainer steps with and without rules, from one seed
+SHARDED_MESH = (1, 1)          # ("data", "model") on the world's one rank
+COMPRESS_SHAPE = (128_256, 2_048)   # llama3.2-1b's embedding gradient, float32
+COMPRESS_CALLS = 5             # compressed_psum calls timed (after one warm call)
+EF_ROUNDS = 20                 # tests/test_distributed.py:86-99
+RESTORE_LAYERS, RESTORE_STEPS = 2, 2
+
+
+def _nccl_world(device):
+    """A one-rank NCCL process group on ``device``, on a free localhost
+    port."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=device)
+
+
+def _host_leaves(tree) -> dict:
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.models.common import iter_leaves
+
+    return {"/".join(p): gather(t).detach().to("cpu", copy=True) for p, t in iter_leaves(tree)}
+
+
+def sharded_train(args, device, gpu: str) -> dict:
+    """Phase 10c: llama3.2-1b at full width and depth trained SHARDED_STEPS
+    Trainer steps of TRAIN_BATCH x TRAIN_SEQ under the default sharding
+    rules on a (1, 1) ("data", "model") mesh of a one-rank NCCL world, then
+    SHARDED_STEPS steps without rules from the same seed and batches, one
+    after the other (one 17.3 GB state on the card at a time), both under
+    ``torch.use_deterministic_algorithms``: losses, gradient norms and every
+    master leaf equal bit for bit, flash's launches as phase 10's; the
+    compressed all-reduce over the mesh's data group on a COMPRESS_SHAPE
+    float32 leaf equal bit for bit to ``quantize_roundtrip`` on the card
+    and on the CPU, and EF_ROUNDS rounds of error feedback held to the
+    reference's drift bound; a sharded checkpoint of llama3.2-1b at
+    RESTORE_LAYERS layers restored onto the mesh by ``restore_for_mesh``,
+    equal to the saved state bit for bit."""
+    import dataclasses
+    import os
+    import shutil
+    import statistics as st
+    import tempfile
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.compression import (
+        compressed_psum,
+        error_feedback_compress,
+        init_residual,
+        quantize_roundtrip,
+    )
+    from repro_torch.distributed.elastic import restore_for_mesh
+    from repro_torch.distributed.sharding import default_rules, is_dtensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="rsp_sharded_")
+    transform = lambda b: {"tokens": b.to(torch.int32)}  # noqa: E731
+    t_phase = time.perf_counter()
+    _nccl_world(device)
+    try:
+        mesh = make_host_mesh(SHARDED_MESH, ("data", "model"), device_type=device.type)
+        cfg = ARCHS[TRAIN_ARCH]
+        rules = default_rules(mesh, cfg=cfg)
+        out["backend"] = dist.get_backend()
+        out["mesh"] = {"shape": list(SHARDED_MESH), "axes": ["data", "model"]}
+        runs, masters = {}, {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for tag, r in (("rules", rules), ("plain", None)):
+                    loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, False)
+                    tc = TrainConfig(total_steps=SHARDED_STEPS, warmup_steps=1, log_every=1,
+                                     checkpoint_every=10**9, seed=args.seed)
+                    trainer = Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tc, loader,
+                                      f"{tmp}/{tag}", device=device, rules=r,
+                                      batch_transform=transform)
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    state = trainer.run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = kernels.launch_counts()      # the run ends here
+                    loader.close()
+                    masters[tag] = _host_leaves(state["opt"]["master"])
+                    hist = trainer.history
+                    step_t = state["opt"]["step"]
+                    runs[tag] = {
+                        "wall_s": wall, "counts": counts,
+                        "losses": [h["loss"] for h in hist],
+                        "grad_norms": [h["grad_norm"] for h in hist],
+                        "step_s_all": [h["sec_per_step"] for h in hist],
+                        "step_s": st.median(h["sec_per_step"] for h in hist[1:]),
+                        "step": int(step_t.to_local() if is_dtensor(step_t) else step_t),
+                        "dtensor_leaves": sum(is_dtensor(t) for t in _leaf_list(state)),
+                    }
+                    del state, trainer
+                    torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w.message).split(" does not have")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        differ = [k for k in masters["plain"]
+                  if not torch.equal(masters["rules"][k], masters["plain"][k])]
+        del masters
+        out.update(runs=runs, master_leaves_differing=differ, nondeterministic_ops=nondet)
+        L = cfg.num_layers
+        for tag, run in runs.items():
+            print(f"sharded train ({cfg.name}, {tag}, mesh {SHARDED_MESH} over"
+                  f" {out['backend']}): {SHARDED_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ},"
+                  f" step seconds {run['step_s']:.4f} (median of steps 2-{SHARDED_STEPS};"
+                  f" all {json.dumps([round(x, 4) for x in run['step_s_all']])}), losses"
+                  f" {json.dumps(run['losses'])}, gradient norms {json.dumps(run['grad_norms'])},"
+                  f" launches {json.dumps(run['counts'])} [{gpu}]", flush=True)
+            check(run["counts"]["flash_attention"] == SHARDED_STEPS * 2 * L
+                  and run["counts"]["flash_attention_bwd"] == SHARDED_STEPS * L,
+                  f"sharded train {tag}: {run['counts']} launches in {SHARDED_STEPS} steps")
+            check(run["step"] == SHARDED_STEPS, f"sharded train {tag}: step {run['step']}")
+        check(runs["rules"]["dtensor_leaves"] > 0 and runs["plain"]["dtensor_leaves"] == 0,
+              f"the runs' DTensor leaves: {runs['rules']['dtensor_leaves']} under rules,"
+              f" {runs['plain']['dtensor_leaves']} without")
+        check(runs["rules"]["losses"] == runs["plain"]["losses"],
+              f"the losses under rules {runs['rules']['losses']} are not the plain run's"
+              f" {runs['plain']['losses']}")
+        check(runs["rules"]["grad_norms"] == runs["plain"]["grad_norms"],
+              f"the gradient norms under rules {runs['rules']['grad_norms']} are not the plain"
+              f" run's {runs['plain']['grad_norms']}")
+        check(not differ, f"master leaves differ between the runs with and without rules:"
+              f" {differ} (ops without a deterministic version: {nondet})")
+
+        # the int8 compressed all-reduce over the mesh's data group
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+        x = torch.randn(COMPRESS_SHAPE, generator=gen, device=device)
+        group = mesh.get_group("data")
+        y = compressed_psum(x, group)                     # warm
+        secs = []
+        for _ in range(COMPRESS_CALLS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = compressed_psum(x, group)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        same_card = torch.equal(y.view(torch.int32), quantize_roundtrip(x).view(torch.int32))
+        t1 = time.perf_counter()
+        on_cpu = quantize_roundtrip(x.cpu())
+        cpu_s = time.perf_counter() - t1
+        same_cpu = torch.equal(y.cpu().view(torch.int32), on_cpu.view(torch.int32))
+        del y, on_cpu
+        residual = init_residual({"w": x})
+        total_true = torch.zeros_like(x)
+        total_sent = torch.zeros_like(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(EF_ROUNDS):
+            g = {"w": torch.randn(COMPRESS_SHAPE, generator=gen, device=device)}
+            comp, residual = error_feedback_compress(g, residual)
+            total_true += g["w"]
+            total_sent += comp["w"]
+            del g, comp
+        torch.cuda.synchronize()
+        ef_s = time.perf_counter() - t1
+        drift = float((total_true - total_sent).abs().max())
+        bound = float(total_true.abs().max()) / 100.0 + 0.1
+        del x, residual, total_true, total_sent
+        torch.cuda.empty_cache()
+        comp_out = {"shape": list(COMPRESS_SHAPE),
+                    "bytes": 4 * COMPRESS_SHAPE[0] * COMPRESS_SHAPE[1],
+                    "psum_s": st.median(secs), "psum_s_all": secs,
+                    "equal_to_roundtrip_on_card": same_card, "equal_to_cpu": same_cpu,
+                    "cpu_roundtrip_s": cpu_s, "ef_rounds": EF_ROUNDS, "ef_s": ef_s,
+                    "ef_drift": drift, "ef_bound": bound}
+        out["compressed_psum"] = comp_out
+        phase("sharded compressed psum", t0, f"{json.dumps(comp_out)} [{gpu}]")
+        print(f"compressed_psum over the one-rank data group on {COMPRESS_SHAPE[0]:,} x"
+              f" {COMPRESS_SHAPE[1]:,} float32: {comp_out['psum_s']:.4f} s (median of"
+              f" {COMPRESS_CALLS}); {EF_ROUNDS} rounds of error feedback {ef_s:.4f} s, drift"
+              f" {drift:.4g} within {bound:.4g} [{gpu}]", flush=True)
+        check(same_card, "compressed_psum over one rank is not quantize_roundtrip on the card")
+        check(same_cpu, "compressed_psum on the card is not quantize_roundtrip on the CPU")
+        check(drift <= bound, f"error feedback drifted {drift:.4g}, beyond {bound:.4g}")
+
+        # a sharded run's checkpoint restored onto the mesh
+        t0 = time.perf_counter()
+        cfg2 = dataclasses.replace(cfg, num_layers=RESTORE_LAYERS)
+        rules2 = default_rules(mesh, cfg=cfg2)
+        loader = token_loader(cfg2.vocab_size, TRAIN_SEQ + 1, args.seed, device, False)
+        tc = TrainConfig(total_steps=RESTORE_STEPS, warmup_steps=1, log_every=1,
+                         checkpoint_every=RESTORE_STEPS, seed=args.seed)
+        ckpt_dir = f"{tmp}/restore"
+        state = Trainer(cfg2, AdamWConfig(lr=TRAIN_LR), tc, loader, ckpt_dir, device=device,
+                        rules=rules2, batch_transform=transform).run()
+        loader.close()
+        restored, extra = restore_for_mesh(ckpt_dir, RESTORE_STEPS, cfg2, rules2, like=state)
+        want, got = _host_leaves(state), _host_leaves(restored)
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        placed = all(is_dtensor(t) for t in _leaf_list(restored))
+        written = sum(os.path.getsize(os.path.join(ckpt_dir, f"step_{RESTORE_STEPS:08d}", f))
+                      for f in os.listdir(os.path.join(ckpt_dir, f"step_{RESTORE_STEPS:08d}")))
+        del state, restored, want, got
+        torch.cuda.empty_cache()
+        rest = {"layers": RESTORE_LAYERS, "steps": RESTORE_STEPS, "bytes_written": written,
+                "leaves_differing": differ, "all_dtensors": placed,
+                "loader_state": "loader" in extra, "s": time.perf_counter() - t0}
+        out["restore"] = rest
+        phase("sharded restore", t0, f"{json.dumps(rest)} [{gpu}]")
+        check(not differ and placed and rest["loader_state"],
+              f"the restored state differs from the saved one: {rest}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    phase("sharded train", t_phase, f"step seconds under rules"
+          f" {out['runs']['rules']['step_s']:.4f}, without {out['runs']['plain']['step_s']:.4f};"
+          f" compressed psum"
+          f" {out['compressed_psum']['psum_s']:.4f} s; phase {out['s']:.1f} s [{gpu}]")
+    return out
+
+
+def _leaf_list(tree) -> list:
+    from repro_torch.models.common import iter_leaves
+
+    return [t for _, t in iter_leaves(tree)]
+
+
 # the kernels redesigned for Hopper, by their names in the build log
 REDESIGNED = {
     **{f"fa_wgmma_bf16<{d}>": f"fa_wgmma_bf16ILi{d}E" for d in (64, 80, 112, 128)},
@@ -5495,6 +5762,8 @@ def main() -> int:
             t0 = time.perf_counter()
             tf = training_families(args, device, gpu)
             phase("training families", t0)
+            torch.cuda.empty_cache()
+            sh = sharded_train(args, device, gpu)
             ing = ingest(args, data, child, device)
             inputs = learning_inputs(data, args.records // BLOCKS)
             del data
@@ -5599,7 +5868,10 @@ def main() -> int:
                             "hubert-xlarge forward": tr["hubert"]["forward"]["counts"][
                                 "flash_attention"],
                             **{run: c["flash_attention"] for run, c in family_runs.items()
-                               if c["flash_attention"]}},
+                               if c["flash_attention"]},
+                            **{f"llama3.2-1b training {tag} ({SHARDED_STEPS} steps)":
+                               run["counts"]["flash_attention"]
+                               for tag, run in sh["runs"].items()}},
         "flash_attention_bwd": {
             "llama3.2-1b training (20 steps)": tr["llama"]["counts"]["flash_attention_bwd"],
             "llama3.2-1b training, no drift (20 steps)":
@@ -5608,7 +5880,9 @@ def main() -> int:
             **{f"one {tag} step": st["counts"]["flash_attention_bwd"]
                for tag, st in tr["flat_step"].items() if isinstance(st, dict)},
             **{run: c["flash_attention_bwd"] for run, c in family_runs.items()
-               if c["flash_attention_bwd"]}},
+               if c["flash_attention_bwd"]},
+            **{f"llama3.2-1b training {tag} ({SHARDED_STEPS} steps)":
+               run["counts"]["flash_attention_bwd"] for tag, run in sh["runs"].items()}},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"],
                        **{run: c["mamba2_ssd"] for run, c in family_runs.items()
                           if c["mamba2_ssd"]}},
@@ -5651,6 +5925,7 @@ def main() -> int:
     print(f"moe serving: {json.dumps(mo)}", flush=True)
     print(f"training: {json.dumps(tr)}", flush=True)
     print(f"training families: {json.dumps(tf)}", flush=True)
+    print(f"sharded training: {json.dumps(sh)}", flush=True)
     print(f"scan backward parity: {json.dumps(scan_bwd)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
@@ -5663,6 +5938,7 @@ def main() -> int:
              "flash_attention_d80": tm["flash_attention_d80"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
              "rwkv": rw, "moe": mo, "training": tr, "training_families": tf,
+             "sharded_training": sh,
              "scan_bwd_parity": scan_bwd,
              "flash_attention_bwd_d80": tm["flash_attention_bwd_d80"], "gpu": gpu},
             indent=1))

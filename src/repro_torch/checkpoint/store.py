@@ -25,6 +25,12 @@ extension dtype is needed.
   background thread; a failed write raises at the next ``wait()``.
 * :func:`restore` turns the keys back into a nested dict of tensors on
   ``device``, in their stored dtypes.
+
+A state whose leaves are DTensors (training under sharding rules) is saved
+by every rank of its mesh together: each leaf is gathered to its full
+tensor (a collective), and rank 0 alone writes the files above, the same
+files a single card writes.  ``distributed.elastic.restore_for_mesh``
+places such a checkpoint, or a single card's, onto any mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import iter_leaves
@@ -51,12 +58,39 @@ def keystr(path: tuple[str, ...]) -> str:
     return "".join(f"['{name}']" for name in path)
 
 
+def _sharded(state: Any) -> bool:
+    """Whether any leaf of ``state`` is a DTensor."""
+    if not any(isinstance(leaf, torch.Tensor) for _, leaf in iter_leaves(state)):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(leaf, DTensor) for _, leaf in iter_leaves(state))
+
+
+def _writer(state: Any) -> bool:
+    """Whether this process writes ``state``: always for a plain state; for
+    a sharded one, rank 0 of the process group only."""
+    if isinstance(state, list) or not _sharded(state):
+        return True
+    return dist.get_rank() == 0
+
+
 def host_leaves(state: Any) -> list[tuple[str, np.ndarray, str]]:
     """(key, host array, dtype name) of every leaf in flatten order; a
     tensor is copied off its device (a host tensor is copied too), bf16 as
-    its uint16 bits."""
+    its uint16 bits.  A DTensor is gathered to its full tensor first, on
+    every rank of its mesh (a collective); only rank 0 keeps the host
+    copies, the other ranks get an empty list."""
+    from repro_torch.distributed.sharding import gather, is_dtensor
+
+    sharded = _sharded(state)
+    keep = _writer(state)
     out = []
     for path, leaf in iter_leaves(state):
+        if sharded and is_dtensor(leaf):
+            leaf = gather(leaf)
+        if not keep:
+            continue
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().to("cpu", copy=True)
             if t.dtype == torch.bfloat16:
@@ -73,9 +107,17 @@ def host_leaves(state: Any) -> list[tuple[str, np.ndarray, str]]:
 def save(root: str, step: int, state: Any, *, extra: dict | None = None,
          keep_last: int = 3) -> str:
     """Synchronous atomic save of a nested dict of tensors (or arrays, or
-    :func:`host_leaves`' list).  Returns the checkpoint directory."""
-    os.makedirs(root, exist_ok=True)
+    :func:`host_leaves`' list).  A sharded state is gathered on every rank
+    and written by rank 0.  Returns the checkpoint directory."""
     final = os.path.join(root, f"step_{step:08d}")
+    if not isinstance(state, list) and _sharded(state):
+        writer = _writer(state)
+        leaves = host_leaves(state)
+        if writer:
+            save(root, step, leaves, extra=extra, keep_last=keep_last)
+        dist.barrier()      # the checkpoint is complete when any rank returns
+        return final
+    os.makedirs(root, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -172,10 +214,18 @@ class AsyncCheckpointer:
         self.keep_last = keep_last
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sharded = False
 
     def save(self, step: int, state: Any, *, extra: dict | None = None) -> None:
+        """Snapshot ``state`` now and write it in the background.  A sharded
+        state is gathered on every rank (each rank calls this, and later
+        ``wait``) and written by rank 0 alone."""
         self.wait()
+        self._sharded = _sharded(state)
+        writer = _writer(state)
         snapshot = host_leaves(state)
+        if not writer:
+            return
 
         def work():
             try:
@@ -187,9 +237,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the write in flight; after a sharded save, every rank
+        waits until rank 0's write is complete (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -59,14 +59,14 @@ class AttentionConfig:
 def attention_specs(cfg: AttentionConfig) -> Tree:
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
-        "q": linear_spec(cfg.d_model, H * D, bias=cfg.qkv_bias),
-        "k": linear_spec(cfg.d_model, Hkv * D, bias=cfg.qkv_bias),
-        "v": linear_spec(cfg.d_model, Hkv * D, bias=cfg.qkv_bias),
-        "o": linear_spec(H * D, cfg.d_model),
+        "q": linear_spec(cfg.d_model, H * D, ("embed", "heads"), bias=cfg.qkv_bias),
+        "k": linear_spec(cfg.d_model, Hkv * D, ("embed", "kv_heads"), bias=cfg.qkv_bias),
+        "v": linear_spec(cfg.d_model, Hkv * D, ("embed", "kv_heads"), bias=cfg.qkv_bias),
+        "o": linear_spec(H * D, cfg.d_model, ("heads", "embed")),
     }
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((D,), "ones")
-        specs["k_norm"] = ParamSpec((D,), "ones")
+        specs["q_norm"] = ParamSpec((D,), (None,), "ones")
+        specs["k_norm"] = ParamSpec((D,), (None,), "ones")
     return specs
 
 

@@ -2,9 +2,9 @@
 with an explicit ``torch.Generator``, and the basic layers.
 
 A model is described by a nested dict of :class:`ParamSpec` leaves, laid out
-as the reference lays it out (layers stacked on a leading axis).  The
-reference's logical sharding axes have no counterpart on one card and are
-left out.  From that
+as the reference lays it out (layers stacked on a leading axis).  Each spec
+carries the reference's logical axis names, one a dimension, which
+``distributed.sharding`` maps to the axes of a device mesh.  From that
 tree :func:`init_params` makes real float32 values at the reference's
 scales; :class:`Params` turns a (per-layer) tree into an ``nn.Module`` whose
 leaves are parameters (frozen for serving, trainable for training) and
@@ -33,11 +33,24 @@ from torch import nn
 Tree = dict[str, Any]
 
 
+# Logical axis vocabulary.  distributed/sharding.py maps these to mesh axes.
+#   "batch"   -> (pod, data)        "vocab"   -> model
+#   "heads"   -> model              "kv_heads"-> model (if wide enough)
+#   "ff"      -> model              "embed"   -> None (replicated)
+#   "experts" -> model              "layers"  -> None (stacked layers)
+#   "seq"/"kv_seq" -> None (or data for long-context decode)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # a logical axis name (or None) a dimension
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float | None = None    # stddev override for "normal" / "embed"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
@@ -90,11 +103,12 @@ def init_params(specs: Tree, generator: torch.Generator, device) -> Tree:
     return out
 
 
-def stack_specs(specs: Tree, num: int) -> Tree:
-    """Prepend a stacked layer dimension to every leaf."""
+def stack_specs(specs: Tree, num: int, axis_name: str = "layers") -> Tree:
+    """Prepend a stacked dimension, on logical axis ``axis_name``, to every
+    leaf."""
     out: Tree = {}
     for path, s in iter_leaves(specs):
-        set_leaf(out, path, ParamSpec((num, *s.shape), s.init, s.scale))
+        set_leaf(out, path, ParamSpec((num, *s.shape), (axis_name, *s.axes), s.init, s.scale))
     return out
 
 
@@ -125,10 +139,13 @@ class Params(nn.Module):
 # Basic layers (functional; params are dicts or Params of the spec trees)
 # ---------------------------------------------------------------------------
 
-def linear_spec(d_in: int, d_out: int, *, bias: bool = False) -> Tree:
-    out = {"w": ParamSpec((d_in, d_out))}
+def linear_spec(d_in: int, d_out: int, axes: tuple[str | None, str | None], *,
+                bias: bool = False, bias_axis: str | None = None,
+                scale: float | None = None) -> Tree:
+    out = {"w": ParamSpec((d_in, d_out), axes, "normal", scale)}
     if bias:
-        out["b"] = ParamSpec((d_out,), "zeros")
+        out["b"] = ParamSpec((d_out,), (bias_axis if bias_axis is not None else axes[1],),
+                             "zeros")
     return out
 
 
@@ -140,7 +157,7 @@ def linear(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Te
 
 
 def rmsnorm_spec(d: int) -> Tree:
-    return {"scale": ParamSpec((d,), "ones")}
+    return {"scale": ParamSpec((d,), ("embed",), "ones")}
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -151,7 +168,8 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
 
 
 def layernorm_spec(d: int) -> Tree:
-    return {"scale": ParamSpec((d,), "ones"), "bias": ParamSpec((d,), "zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), "ones"),
+            "bias": ParamSpec((d,), ("embed",), "zeros")}
 
 
 def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -170,7 +188,7 @@ def rmsnorm_1d(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-5) -> to
 
 
 def embedding_spec(vocab: int, d: int, *, scale: float = 0.02) -> Tree:
-    return {"table": ParamSpec((vocab, d), "embed", scale)}
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), "embed", scale)}
 
 
 def embed(params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -39,9 +39,9 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu_specs(d_model: int, d_ff: int) -> Tree:
     return {
-        "gate": linear_spec(d_model, d_ff),
-        "up": linear_spec(d_model, d_ff),
-        "down": linear_spec(d_ff, d_model),
+        "gate": linear_spec(d_model, d_ff, ("embed", "ff")),
+        "up": linear_spec(d_model, d_ff, ("embed", "ff")),
+        "down": linear_spec(d_ff, d_model, ("ff", "embed")),
     }
 
 
@@ -53,8 +53,8 @@ def swiglu_apply(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> to
 
 def gelu_mlp_specs(d_model: int, d_ff: int, *, bias: bool = True) -> Tree:
     return {
-        "fc1": linear_spec(d_model, d_ff, bias=bias),
-        "fc2": linear_spec(d_ff, d_model, bias=bias),
+        "fc1": linear_spec(d_model, d_ff, ("embed", "ff"), bias=bias),
+        "fc2": linear_spec(d_ff, d_model, ("ff", "embed"), bias=bias),
     }
 
 

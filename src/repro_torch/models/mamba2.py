@@ -57,17 +57,17 @@ class Mamba2Config:
 def mamba2_specs(cfg: Mamba2Config) -> Tree:
     di, N, H = cfg.d_inner, cfg.d_state, cfg.num_heads
     return {
-        "z": linear_spec(cfg.d_model, di),
-        "x": linear_spec(cfg.d_model, di),
-        "B": linear_spec(cfg.d_model, N),
-        "C": linear_spec(cfg.d_model, N),
-        "dt": linear_spec(cfg.d_model, H),
-        "dt_bias": ParamSpec((H,), "zeros"),
-        "A_log": ParamSpec((H,), "normal", 0.5),
-        "D": ParamSpec((H,), "ones"),
-        "conv": ParamSpec((cfg.conv_kernel, di + 2 * N), "normal", 0.5),
-        "norm": ParamSpec((di,), "ones"),
-        "out": linear_spec(di, cfg.d_model),
+        "z": linear_spec(cfg.d_model, di, ("embed", "heads")),
+        "x": linear_spec(cfg.d_model, di, ("embed", "heads")),
+        "B": linear_spec(cfg.d_model, N, ("embed", None)),
+        "C": linear_spec(cfg.d_model, N, ("embed", None)),
+        "dt": linear_spec(cfg.d_model, H, ("embed", "heads")),
+        "dt_bias": ParamSpec((H,), ("heads",), "zeros"),
+        "A_log": ParamSpec((H,), ("heads",), "normal", 0.5),
+        "D": ParamSpec((H,), ("heads",), "ones"),
+        "conv": ParamSpec((cfg.conv_kernel, di + 2 * N), (None, "heads"), "normal", 0.5),
+        "norm": ParamSpec((di,), ("heads",), "ones"),
+        "out": linear_spec(di, cfg.d_model, ("heads", "embed")),
     }
 
 

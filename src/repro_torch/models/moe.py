@@ -31,7 +31,9 @@ assignment owns its slot, so the buffer equals the one-hot scatter-add's.
 Its gradient gathers each token's k kept slots back and adds them in
 assignment order (:class:`_DispatchGather`), where ``index_select``'s own
 backward adds them with atomics in an order that changes from run to run.
-The reference's sharding constraints have no counterpart on one card.
+The reference's activation constraints (``distributed.sharding.constrain``)
+are not applied here: under sharding rules each model rank computes the
+whole layer (tensor-parallel compute is queued in the roadmap).
 """
 
 from __future__ import annotations
@@ -61,10 +63,13 @@ class MoEConfig:
 def moe_specs(cfg: MoEConfig) -> Tree:
     E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     return {
-        "router": linear_spec(d, E),
-        "gate": ParamSpec((E, d, f), "normal", 1.0 / math.sqrt(d)),
-        "up": ParamSpec((E, d, f), "normal", 1.0 / math.sqrt(d)),
-        "down": ParamSpec((E, f, d), "normal", 1.0 / math.sqrt(f)),
+        "router": linear_spec(d, E, ("embed", "experts")),
+        "gate": ParamSpec((E, d, f), ("experts", "embed", "expert_ff"), "normal",
+                          1.0 / math.sqrt(d)),
+        "up": ParamSpec((E, d, f), ("experts", "embed", "expert_ff"), "normal",
+                        1.0 / math.sqrt(d)),
+        "down": ParamSpec((E, f, d), ("experts", "expert_ff", "embed"), "normal",
+                          1.0 / math.sqrt(f)),
     }
 
 

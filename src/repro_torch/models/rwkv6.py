@@ -65,29 +65,29 @@ class RWKV6Config:
 def rwkv6_timemix_specs(cfg: RWKV6Config) -> Tree:
     d, r = cfg.d_model, cfg.lora_rank
     return {
-        "mu_base": ParamSpec((5, d), "normal", 0.1),
-        "lora_a": ParamSpec((d, r)),
-        "lora_b": ParamSpec((5, r, d), "zeros"),
-        "w0": ParamSpec((d,), "normal", 0.5),
-        "w_lora_a": ParamSpec((d, r)),
-        "w_lora_b": ParamSpec((r, d), "zeros"),
-        "u": ParamSpec((d,), "normal", 0.5),
-        "r": linear_spec(d, d),
-        "k": linear_spec(d, d),
-        "v": linear_spec(d, d),
-        "g": linear_spec(d, d),
-        "o": linear_spec(d, d),
-        "ln_x": ParamSpec((d,), "ones"),
+        "mu_base": ParamSpec((5, d), (None, "embed"), "normal", 0.1),
+        "lora_a": ParamSpec((d, r), ("embed", None), "normal"),
+        "lora_b": ParamSpec((5, r, d), (None, None, "embed"), "zeros"),
+        "w0": ParamSpec((d,), ("embed",), "normal", 0.5),
+        "w_lora_a": ParamSpec((d, r), ("embed", None), "normal"),
+        "w_lora_b": ParamSpec((r, d), (None, "embed"), "zeros"),
+        "u": ParamSpec((d,), ("embed",), "normal", 0.5),
+        "r": linear_spec(d, d, ("embed", "heads")),
+        "k": linear_spec(d, d, ("embed", "heads")),
+        "v": linear_spec(d, d, ("embed", "heads")),
+        "g": linear_spec(d, d, ("embed", "heads")),
+        "o": linear_spec(d, d, ("heads", "embed")),
+        "ln_x": ParamSpec((d,), ("embed",), "ones"),
     }
 
 
 def rwkv6_channelmix_specs(cfg: RWKV6Config) -> Tree:
     d = cfg.d_model
     return {
-        "mu_k": ParamSpec((d,), "normal", 0.1),
-        "key": linear_spec(d, cfg.d_ff),
-        "value": linear_spec(cfg.d_ff, d),
-        "receptance": linear_spec(d, d),
+        "mu_k": ParamSpec((d,), ("embed",), "normal", 0.1),
+        "key": linear_spec(d, cfg.d_ff, ("embed", "ff")),
+        "value": linear_spec(cfg.d_ff, d, ("ff", "embed")),
+        "receptance": linear_spec(d, d, ("embed", "embed")),
     }
 
 

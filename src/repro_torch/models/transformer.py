@@ -140,7 +140,7 @@ def _dense_layer_specs(cfg: ModelConfig) -> Tree:
 
 def _shared_block_specs(cfg: ModelConfig) -> Tree:
     return {
-        "in_proj": linear_spec(2 * cfg.d_model, cfg.d_model),
+        "in_proj": linear_spec(2 * cfg.d_model, cfg.d_model, (None, "embed")),
         "norm1": rmsnorm_spec(cfg.d_model),
         "attn": attn.attention_specs(cfg.attention_config()),
         "norm2": rmsnorm_spec(cfg.d_model),
@@ -183,19 +183,19 @@ def model_specs(cfg: ModelConfig) -> Tree:
     if cfg.family == "encoder":
         # the modality frontend is a stub: inputs are precomputed frame embeddings
         return {
-            "in_proj": linear_spec(cfg.d_model, cfg.d_model, bias=True),
-            "pos_conv": ParamSpec((128, cfg.d_model), "normal", 0.02),
+            "in_proj": linear_spec(cfg.d_model, cfg.d_model, ("embed", "embed"), bias=True),
+            "pos_conv": ParamSpec((128, cfg.d_model), (None, "embed"), "normal", 0.02),
             "ln_in": layernorm_spec(cfg.d_model),
             "layers": stack_specs(_encoder_layer_specs(cfg), cfg.num_layers),
             "ln_out": layernorm_spec(cfg.d_model),
-            "head": linear_spec(cfg.d_model, cfg.vocab_size, bias=True),
+            "head": linear_spec(cfg.d_model, cfg.vocab_size, ("embed", "vocab"), bias=True),
         }
     if cfg.family == "hybrid":
         full, period, rem = hybrid_layout(cfg)
         layer = _mamba_layer_specs(cfg)
         specs: Tree = {
             "embed": embedding_spec(cfg.vocab_size, cfg.d_model),
-            "rounds": stack_specs(stack_specs(layer, period), full),
+            "rounds": stack_specs(stack_specs(layer, period, "inner"), full, "layers"),
             "shared": _shared_block_specs(cfg),
             "final_norm": rmsnorm_spec(cfg.d_model),
         }

@@ -17,8 +17,15 @@ optimizer state; a leaf of more than :data:`SLICE_ELEMS` entries (an MoE
 model's stacked experts: 4 GB of float32 in granite-moe-3b-a800m) is
 updated in slices along its leading axis, so its temporaries stay a
 slice's.  The update is elementwise, so slicing changes no bit; the
-squared norm of such a leaf sums its slices' sums.  The reference's ZeRO
-sharding metadata has no counterpart on one card.
+squared norm of such a leaf sums its slices' sums.
+
+Under sharding rules (ZeRO-1, ``distributed.sharding``) master, m and v are
+DTensors at their optimizer shardings: ``adamw_update`` takes the full
+float32 gradients (already reduced over the data ranks), clips them by the
+norm of the full gradient, updates only this rank's chunk of each leaf, and
+places the new bf16 parameters back at their parameter shardings (an
+all-gather over "data").  The update being elementwise, a rank's chunk
+holds the bits a single card computes for it.
 """
 
 from __future__ import annotations
@@ -98,6 +105,19 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, torch.Tenso
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
 
 
+def _update_leaf(master_leaf, m_leaf, v_leaf, g_leaf, cfg: AdamWConfig, scale, lr, bc1,
+                 bc2) -> None:
+    """AdamW on one leaf, in place, a slice at a time."""
+    for sl in _slices(master_leaf):
+        master, m, v = master_leaf[sl], m_leaf[sl], v_leaf[sl]
+        g = g_leaf[sl].to(torch.float32) * scale
+        m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
+        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        master.copy_(master - lr * (update + cfg.weight_decay * master))
+        del g, update
+
+
 def adamw_update(
     state: dict,
     grads: Tree,
@@ -105,29 +125,50 @@ def adamw_update(
     *,
     lr_scale: torch.Tensor | float = 1.0,
     compute_dtype=torch.bfloat16,
+    param_shardings: Tree | None = None,
 ) -> tuple[dict, Tree, dict]:
     """Returns (new_state, new_compute_params, {"grad_norm", "lr"}).  The
     gradients are clipped leaf by leaf as the update reads them, with
-    ``clip_by_global_norm``'s scale, so no clipped copy of them is held."""
+    ``clip_by_global_norm``'s scale, so no clipped copy of them is held.
+
+    A sharded state (DTensor master, m and v; see the module docstring)
+    takes the full reduced gradients and ``param_shardings``, the
+    parameters' ``NamedSharding`` tree, at which the new parameters are
+    placed."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import is_dtensor, local_chunk
+
+    sharded = is_dtensor(leaves(state["master"])[0])
+    if sharded and param_shardings is None:
+        raise ValueError("a sharded optimizer state needs the parameters' shardings")
     norm = global_norm(grads)
     scale = _clip_scale(norm, cfg.grad_clip)
-    step = state["step"] + 1
+    step_in = state["step"]
+    step = (step_in.to_local() if is_dtensor(step_in) else step_in) + 1
     t = step.to(torch.float32)
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=t.device)  # noqa: E731
     bc1 = 1.0 - f32(cfg.b1) ** t
     bc2 = 1.0 - f32(cfg.b2) ** t
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
+    shardings = dict(iter_leaves(param_shardings)) if sharded else {}
     new_params: Tree = {}
     for (path, master_leaf), m_leaf, v_leaf, g_leaf in zip(
             iter_leaves(state["master"]), leaves(state["m"]), leaves(state["v"]), leaves(grads)):
-        for sl in _slices(master_leaf):
-            master, m, v = master_leaf[sl], m_leaf[sl], v_leaf[sl]
-            g = g_leaf[sl].to(torch.float32) * scale
-            m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
-            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            master.copy_(master - lr * (update + cfg.weight_decay * master))
-            del g, update
-        set_leaf(new_params, path, master_leaf.to(compute_dtype))
+        if not sharded:
+            _update_leaf(master_leaf, m_leaf, v_leaf, g_leaf, cfg, scale, lr, bc1, bc2)
+            set_leaf(new_params, path, master_leaf.to(compute_dtype))
+            continue
+        mesh, placements = master_leaf.device_mesh, master_leaf.placements
+        local = master_leaf.to_local()
+        _update_leaf(local, m_leaf.to_local(), v_leaf.to_local(),
+                     local_chunk(g_leaf, mesh, placements), cfg, scale, lr, bc1, bc2)
+        # the bf16 chunk, then to the parameter's placements (cast first:
+        # the all-gather moves half the bytes, and the cast is elementwise)
+        chunk = DTensor.from_local(local.to(compute_dtype), mesh, placements, run_check=False,
+                                   shape=master_leaf.shape, stride=master_leaf.stride())
+        set_leaf(new_params, path, chunk.redistribute(mesh, shardings[path].placements()))
+    if is_dtensor(step_in):
+        step = DTensor.from_local(step, step_in.device_mesh, step_in.placements, run_check=False)
     new_state = {"master": state["master"], "m": state["m"], "v": state["v"], "step": step}
     return new_state, new_params, {"grad_norm": norm, "lr": lr}

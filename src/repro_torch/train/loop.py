@@ -1,5 +1,6 @@
-"""Training on one card: the step builder (mixed precision, optional
-microbatch gradient accumulation) and a preemption-safe Trainer.
+"""Training: ``make_train_step`` (mixed precision, optional microbatch
+gradient accumulation, and the reference's sharding rules with ZeRO-1 over
+the data ranks) and a preemption-safe Trainer.
 
 The state is the reference's tree, ``{"params": bf16 parameters, "opt":
 {"master", "m", "v", "step"}}``, every leaf in the reference's layout
@@ -8,8 +9,21 @@ packages.  A step builds the model around ``state["params"]`` (a layer's
 parameters are views of the stacked leaves, requiring grad), runs the
 family's loss and its backward, stacks the layers' gradients back into the
 reference's layout (:func:`param_grads`) and applies ``adamw_update``,
-which updates the optimizer state in place.  The reference's ``rules``
-(sharding constraints over a device mesh) have no counterpart on one card.
+which updates the optimizer state in place.
+
+Under ``rules`` (``distributed.sharding.ShardingRules`` on a
+``DeviceMesh``; ``rules=None`` changes nothing, bit for bit) the state is
+DTensors: the bf16 parameters rest at ``param_shardings`` and master, m
+and v at ``optimizer_shardings`` (ZeRO-1: one more dimension over
+"data").  Every rank's loader yields the same global batch, and a step
+keeps this rank's data shard of it (``batch_shardings``), gathers the
+parameters, computes the loss and gradients of its shard, all-reduces the
+gradients in float32 over the data axes (their mean), clips by the norm of
+the reduced gradient, updates its own chunk of master, m and v, and places
+the new bf16 parameters back (an all-gather over "data").  Each model rank
+computes the whole model on its data shard: compute over "model" is
+replicated, so a mesh of model ranks alone steps as one card does, bit for
+bit, while memory at rest follows the reference's placements.
 
 Families: all five train -- the dense decoders, the MoE decoders (their
 capacity dispatch in ``moe_groups`` groups, the router's aux loss added to
@@ -24,6 +38,7 @@ so a restart reproduces the exact batch sequence.
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 import time
 from typing import Callable
@@ -90,11 +105,47 @@ def param_grads(model, params: Tree) -> Tree:
     return out
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConfig) -> Callable:
+def _data_groups(rules) -> tuple[list, int]:
+    """The process groups of the mesh dimensions that carry the batch, and
+    the number of data ranks."""
+    from repro_torch.distributed.sharding import mesh_shape
+
+    dp = rules.rules["batch"]
+    names = () if dp is None else dp if isinstance(dp, tuple) else (dp,)
+    sizes = mesh_shape(rules.mesh)
+    return [rules.mesh.get_group(n) for n in names], math.prod(sizes[n] for n in names)
+
+
+def _data_mean(t: torch.Tensor, groups: list, n: int) -> torch.Tensor:
+    """The float32 mean of ``t`` over the data ranks: summed over each
+    data mesh dimension in turn, then divided by their count."""
+    import torch.distributed as dist
+
+    t = t.to(torch.float32)
+    for group in groups:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t.div_(n)
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` is set on any rank of ``mesh``: a one-element MAX
+    all-reduce over each of its dimensions."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device_type)
+    for group in mesh.get_all_groups():
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConfig, *,
+                    rules=None) -> Callable:
     """``(state, batch) -> (state, metrics)``, state = {params, opt}; the
     batch's tensors on the parameters' device.  ``metrics``: loss (averaged
     over microbatches), ce and aux (the last microbatch's), grad_norm and
-    lr, as 0-d tensors."""
+    lr, as 0-d tensors.  Under ``rules`` (see the module docstring) the
+    batch is the global batch, and loss, ce and aux are averaged over the
+    data ranks."""
     schedule = SCHEDULES[train_cfg.schedule]
 
     def grads_of(params: Tree, batch: dict):
@@ -105,11 +156,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
         grads = param_grads(model, params)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def step_fn(state: dict, batch: dict):
-        params = state["params"]
+    def loss_and_grads(params: Tree, batch: dict):
         n = train_cfg.microbatch
         if n > 1:
-            # split the global batch into microbatches; accumulate float32
+            # split the batch into microbatches; accumulate float32
             loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
@@ -123,20 +173,62 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
             grads = tree_map(lambda g: g / n, grads)
         else:
             loss, metrics, grads = grads_of(params, batch)
+        return loss, metrics, grads
+
+    def step_fn(state: dict, batch: dict):
+        loss, metrics, grads = loss_and_grads(state["params"], batch)
         lr_scale = schedule(state["opt"]["step"], warmup_steps=train_cfg.warmup_steps,
                             total_steps=train_cfg.total_steps)
         new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg, lr_scale=lr_scale)
         return {"params": new_params, "opt": new_opt}, {"loss": loss, **metrics, **stats}
 
-    return step_fn
+    if rules is None:
+        return step_fn
+
+    from repro_torch.distributed.sharding import (
+        batch_shardings,
+        gather,
+        is_dtensor,
+        local_chunk,
+        param_shardings,
+    )
+
+    p_shardings = param_shardings(api.model_specs(cfg), rules)
+    groups, n_data = _data_groups(rules)
+
+    def sharded_step_fn(state: dict, batch: dict):
+        b_shardings = batch_shardings(batch, rules)
+        for k, v in batch.items():
+            b_shardings[k].shard_shape(v.shape)     # raises unless the data ranks divide it
+        mine = {k: local_chunk(v, rules.mesh, b_shardings[k].placements())
+                for k, v in batch.items()}
+        params = tree_map(gather, state["params"])
+        loss, metrics, grads = loss_and_grads(params, mine)
+        del params
+        for path, g in list(iter_leaves(grads)):
+            set_leaf(grads, path, _data_mean(g, groups, n_data))
+        loss = _data_mean(loss, groups, n_data)
+        metrics = {k: _data_mean(v, groups, n_data) for k, v in metrics.items()}
+        step = state["opt"]["step"]
+        lr_scale = schedule(step.to_local() if is_dtensor(step) else step,
+                            warmup_steps=train_cfg.warmup_steps,
+                            total_steps=train_cfg.total_steps)
+        new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg,
+                                                  lr_scale=lr_scale,
+                                                  param_shardings=p_shardings)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **metrics, **stats}
+
+    return sharded_step_fn
 
 
 def init_state(cfg: ModelConfig, seed: int = 0, *, params: Tree | None = None, device="cuda",
-               compute_dtype=torch.bfloat16) -> dict:
+               compute_dtype=torch.bfloat16, rules=None) -> dict:
     """{params: bf16, opt: adamw_init(master)}: the master weights drawn
     from ``torch.Generator(device)`` seeded with ``seed`` at the reference's
     scales, or ``params`` (a reference-layout tree, such as the
-    reference's ``init_params``) as the master."""
+    reference's ``init_params``) as the master.  Under ``rules`` every
+    rank draws the same state and keeps its chunk of each leaf
+    (``distributed.elastic.state_shardings``)."""
     dev = resolve_device(device)
     specs = api.model_specs(cfg)
     if params is None:
@@ -145,7 +237,12 @@ def init_state(cfg: ModelConfig, seed: int = 0, *, params: Tree | None = None, d
         master = transformer.params_to_tensors(specs, params, dev)
     opt = adamw_init(master)
     del master
-    return {"params": tree_map(lambda p: p.to(compute_dtype), opt["master"]), "opt": opt}
+    state = {"params": tree_map(lambda p: p.to(compute_dtype), opt["master"]), "opt": opt}
+    if rules is None:
+        return state
+    from repro_torch.distributed.elastic import reshard_state, state_shardings
+
+    return reshard_state(state, state_shardings(cfg, rules))
 
 
 class Trainer:
@@ -156,7 +253,12 @@ class Trainer:
     optimizer *and loader state*) is restored so a killed run resumes
     exactly where it stopped.  ``history`` keeps the metrics of every
     ``log_every``-th step (and the first), as floats, with the step and its
-    seconds.
+    seconds.  Under ``rules`` every rank of the mesh runs a Trainer over a
+    loader of the same seed; a checkpoint is gathered on every rank and
+    written by rank 0, and a restart restores it onto the rules' mesh
+    (``distributed.elastic.restore_for_mesh``).  Since such a save is a
+    collective, the ranks agree after each step whether any of them was
+    signalled (a one-element all-reduce), and all save and stop together.
     """
 
     def __init__(
@@ -168,14 +270,16 @@ class Trainer:
         ckpt_dir: str,
         *,
         device="cuda",
+        rules=None,
         batch_transform: Callable | None = None,
     ):
         self.cfg, self.opt_cfg, self.train_cfg = cfg, opt_cfg, train_cfg
         self.loader = loader
         self.ckpt_dir = ckpt_dir
         self.device = resolve_device(device)
+        self.rules = rules
         self.batch_transform = batch_transform or (lambda b: b)
-        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg)
+        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg, rules=rules)
         self.checkpointer = ckpt.AsyncCheckpointer(ckpt_dir, keep_last=train_cfg.keep_checkpoints)
         self.history: list[dict] = []
         self._preempted = False
@@ -207,11 +311,18 @@ class Trainer:
         if state is None:
             latest = ckpt.latest_step(self.ckpt_dir)
             if latest is not None:
-                state, extra = ckpt.restore(self.ckpt_dir, latest, device=self.device)
+                if self.rules is None:
+                    state, extra = ckpt.restore(self.ckpt_dir, latest, device=self.device)
+                else:
+                    from repro_torch.distributed.elastic import restore_for_mesh
+
+                    state, extra = restore_for_mesh(self.ckpt_dir, latest, self.cfg, self.rules,
+                                                    like=None)
                 self.loader.load_state_dict(extra["loader"])
                 start_step = latest
             else:
-                state = init_state(self.cfg, self.train_cfg.seed, device=self.device)
+                state = init_state(self.cfg, self.train_cfg.seed, device=self.device,
+                                   rules=self.rules)
 
         for step in range(start_step, self.train_cfg.total_steps):
             if stop_after_steps is not None and step - start_step >= stop_after_steps:
@@ -225,10 +336,14 @@ class Trainer:
                 metrics = {k: float(v) for k, v in metrics.items()}     # waits for the step
                 metrics.update(step=step + 1, sec_per_step=time.time() - t0)
                 self.history.append(metrics)
-            if (step + 1) % self.train_cfg.checkpoint_every == 0 or self._preempted:
+            # under rules a save is a collective: every rank stops at the
+            # step on which any rank saw the signal
+            stop = self._preempted if self.rules is None else _any_rank(self._preempted,
+                                                                         self.rules.mesh)
+            if (step + 1) % self.train_cfg.checkpoint_every == 0 or stop:
                 self.checkpointer.save(step + 1, state,
                                        extra={"loader": self.loader.state_dict()})
-            if self._preempted:
+            if stop:
                 break
         self.checkpointer.wait()
         return state
