@@ -8,12 +8,13 @@ collective partition), dense LM serving, zamba2 hybrid serving, rwkv6
 scoring, loss and serving, MoE serving (granite-moe-3b-a800m,
 qwen3-moe-30b-a3b), training (llama3.2-1b and the hubert-xlarge
 encoder, through the flash backward kernel; the MoE, hybrid and RWKV6
-families), and training under sharding rules on a one-rank NCCL mesh.
+families), training under sharding rules on a one-rank NCCL mesh, and the
+dry run (``launch/dryrun.py``) with its prediction held against the card.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
-3g, 3b (started), 7, 8, 10, 10b, 10c, 3b (waited for), 3c-3f, 6, 9, 5:
+3g, 3b (started), 7, 8, 10, 10b, 10c, 11, 3b (waited for), 3c-3f, 6, 9, 5:
 
 1. build     -- compile the nine CUDA sources (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
@@ -356,13 +357,36 @@ Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
                 layers (gathered, written by rank 0) restored onto the
                 mesh by ``restore_for_mesh``, equal to the saved state bit
                 for bit.
+11. dry run  -- (after 10c; its children start together) (a) ``python -m
+                repro_torch.launch.dryrun`` of the reference test's cells,
+                qwen2-0.5b ``decode_32k`` on the 16x16 and 2x16x16 fake
+                worlds and ``rsp-partition``, each a child with
+                ``CUDA_VISIBLE_DEVICES`` empty: FLOPs and arguments above 0,
+                arguments + temp below the card's 80 GB, the multi-pod
+                FLOPs at most 1.05x the single-pod's, the partition's FLOPs
+                0 and bytes above twice its slab; (b) in a child with the
+                card visible (autograd of a fake CUDA tensor asks for its
+                context), phase 10c's step of llama3.2-1b (8 x 2048, (1, 1)
+                mesh, the same ``TrainConfig``) traced on a fake world of
+                one rank, and one step of the llama3.2-1b, zamba2-7b and
+                rwkv6-1.6b smoke configs, whose recorded launches must be
+                ``family_launches``; then a real step of phase 10c's on a
+                one-rank NCCL world: the argument bytes equal the real
+                state's and batch's, the recorder's aten FLOPs equal a
+                ``FlopCounterMode`` count of a real step, the recorded
+                launches equal the launch counters and the profiler's
+                device events of a real step, and arguments + temp lie
+                within 10% of ``max_memory_allocated`` over a real step;
+                the roofline terms, the dominant one and the measured share
+                of the bf16 peak printed beside the card.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
 path, the estimator, the drift monitor, the first serve wave, each mesh
 run on threads, each rank of the collective partition, each LM path, each
-MoE generate, each training run and step, each sharded training run).
+MoE generate, each training run and step, each sharded training run, phase
+11's profiled step).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -2410,7 +2434,7 @@ def times(args, device) -> dict:
     from repro_torch.kernels.plan import ops as plan_ops
     from repro_torch.kernels.rsp_shuffle import (
         flat_gather_index, partition_permutations, rsp_shuffle_cuda, rsp_shuffle_plain,
-        shuffle_path)
+        shuffle_bytes, shuffle_path)
     from repro_torch.kernels.rsp_shuffle import ops as rs_ops
 
     P = K = BLOCKS
@@ -2423,7 +2447,7 @@ def times(args, device) -> dict:
     tp, ip = (torch.from_numpy(a).to(device) for a in partition_permutations(args.seed, P, K, delta))
     flat = flat_gather_index(tp, ip, delta)
     xf = x.reshape(P * R, F)
-    nbytes = 2 * x.numel() * 4 + tp.numel() * 4 + ip.numel() * 4
+    nbytes = shuffle_bytes(x, tp, ip)
     b, by = bound_ms(nbytes, 0)
     # the staged kernel at the HIGGS tile (1100 x 116 B), the row kernel at
     # --records 1100000's (110 x 116 B)
@@ -2722,31 +2746,6 @@ def ssd_parity(args, device) -> float:
     return worst
 
 
-def ssd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
-    """(operations, bytes) of one SSD scan: per batch row and chunk C B^T's
-    causal half (B and C are shared by all heads), then per chunk and head
-    the causal half of the intra-chunk product, the inter-chunk term and the
-    state update (2 operations a multiply-add); xbar, dA, B and C read once,
-    y and h_final written once."""
-    nc = -(-L // Q)
-    tri = Q * (Q + 1) // 2
-    per_head = tri * P + Q * N * P + Q * P * N
-    ops = 2 * B * nc * (tri * N + H * per_head)
-    nbytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N + B * H * P * N)
-    return ops, nbytes
-
-
-def prefill_flops(cfg, batch: int, seq: int) -> int:
-    """Operations of a prefill to last-position logits: every projection
-    (2 per multiply-add) over every token, causal attention over the
-    prompt's pairs, and the last position's unembedding."""
-    d, dh = cfg.d_model, cfg.resolved_head_dim
-    proj = d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    mlp = (2 if cfg.mlp_type == "gelu" else 3) * d * cfg.d_ff
-    attn = 4 * cfg.num_heads * dh * seq * (seq + 1) // 2 * batch
-    return cfg.num_layers * (2 * (proj + mlp) * batch * seq + attn) + 2 * batch * d * cfg.vocab_size
-
-
 def logit_deviation(got, want) -> dict:
     """Logits held against the plain attention's: how many lie beyond
     TF_TOL (1 + |b|), the largest |a - b| and the argmax agreement."""
@@ -2914,6 +2913,7 @@ def lm_serving(args, device, gpu: str) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
+    from repro_torch.launch.roofline import decode_step_bytes, prefill_flops
     from repro_torch.models.transformer import DenseLM, init_caches
     from repro_torch.serve import EnsembleServer, Server
 
@@ -2923,9 +2923,10 @@ def lm_serving(args, device, gpu: str) -> dict:
     model = DenseLM(cfg, device=device, seed=args.seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = 4 * n_params
-    cache_bytes = (2 * cfg.num_layers * SERVE_BATCH * cfg.num_kv_heads
-                   * (SERVE_PROMPT + SERVE_NEW) * cfg.resolved_head_dim * 4)
+    dec = decode_step_bytes(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+    weight_bytes, cache_bytes = dec["weights"], dec["kv"]
+    check(weight_bytes == 4 * n_params, f"{cfg.name} holds {n_params:,} parameters, its specs"
+          f" {weight_bytes // 4:,}")
     phase("lm model", t0, f"{cfg.name}: {n_params:,} float32 parameters ({weight_bytes / 1e9:.3f}"
           f" GB), seed {args.seed}; float32 KV cache {cache_bytes / 1e9:.3f} GB")
     # least times: the prefill's operations at the bf16 tensor-core peak; a
@@ -3038,25 +3039,6 @@ def lm_serving(args, device, gpu: str) -> dict:
     torch.cuda.empty_cache()
     return {"counts": counts, "ensemble_counts": ecounts, "serve": serve,
             "ensemble": dict(estats, tokens_per_s=ens_tps)}
-
-
-def hybrid_prefill_flops(cfg, batch: int, seq: int) -> int:
-    """bf16 operations of a hybrid prefill to last-position logits: every
-    projection of the shared block's invocations and of the Mamba2 layers
-    (the float32 dt projection included) over every token, causal attention
-    over the prompt's pairs, and the last position's unembedding.  The SSD
-    scans' float32 operations are counted apart (``ssd_work``)."""
-    from repro_torch.models.transformer import hybrid_layout
-
-    d, dh, m = cfg.d_model, cfg.resolved_head_dim, cfg.mamba_config()
-    full, _, rem = hybrid_layout(cfg)
-    inv = full + (1 if rem else 0)
-    shared = 2 * d * d + d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff
-    mamba = d * (2 * m.d_inner + 2 * m.d_state + m.num_heads) + m.d_inner * d
-    attn = 4 * cfg.num_heads * dh * seq * (seq + 1) // 2 * batch
-    tokens = batch * seq
-    return (inv * (2 * shared * tokens + attn) + cfg.num_layers * 2 * mamba * tokens
-            + 2 * batch * d * cfg.vocab_size)
 
 
 @contextlib.contextmanager
@@ -3172,6 +3154,8 @@ def hybrid_serving(args, device, gpu: str) -> dict:
 
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels.mamba2_ssd import ssd_work
+    from repro_torch.launch.roofline import decode_step_bytes, hybrid_prefill_flops
     from repro_torch.models.transformer import HybridLM, hybrid_layout
     from repro_torch.serve import Server
 
@@ -3184,11 +3168,11 @@ def hybrid_serving(args, device, gpu: str) -> dict:
     model = HybridLM(cfg, device=device, seed=args.seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = 4 * n_params
-    T = HY_PROMPT + HY_NEW
-    kv_bytes = 2 * inv * HY_BATCH * cfg.num_kv_heads * T * cfg.resolved_head_dim * 4
-    ssm_bytes = cfg.num_layers * HY_BATCH * m.num_heads * m.head_dim * m.d_state * 4
-    conv_bytes = cfg.num_layers * HY_BATCH * (m.conv_kernel - 1) * (m.d_inner + 2 * m.d_state) * 4
+    dec = decode_step_bytes(cfg, HY_BATCH, HY_PROMPT + HY_NEW)
+    weight_bytes, kv_bytes, ssm_bytes, conv_bytes = (dec[k] for k in ("weights", "kv", "ssm",
+                                                                      "conv"))
+    check(weight_bytes == 4 * n_params, f"{cfg.name} holds {n_params:,} parameters, its specs"
+          f" {weight_bytes // 4:,}")
     phase("hybrid model", t0, f"{cfg.name}: {n_params:,} float32 parameters"
           f" ({weight_bytes / 1e9:.3f} GB), seed {args.seed}; float32 KV caches of {inv}"
           f" invocations {kv_bytes / 1e9:.3f} GB, SSM states of {cfg.num_layers} layers"
@@ -3199,7 +3183,7 @@ def hybrid_serving(args, device, gpu: str) -> dict:
     pf_flops = hybrid_prefill_flops(cfg, HY_BATCH, HY_PROMPT)
     ssd_ops, _ = ssd_work(HY_BATCH, HY_PROMPT, m.num_heads)
     pf_bound_s = pf_flops / BF16_OPS_PER_S + cfg.num_layers * ssd_ops / FP32_OPS_PER_S
-    step_bytes = weight_bytes + kv_bytes + 2 * (ssm_bytes + conv_bytes)
+    step_bytes = dec["step"]
     step_bound_s = step_bytes / HBM_BYTES_PER_S
     print(f"serve {cfg.name} bounds: prefill {pf_flops / 1e12:.2f} TFLOP bf16"
           f" ({pf_flops / BF16_OPS_PER_S:.4f} s at the bf16 peak) and"
@@ -3291,7 +3275,7 @@ def ssd_times(args, device) -> dict:
     states written and read back."""
     import torch
 
-    from repro_torch.kernels.mamba2_ssd import KERNELS, head_tile, ssd_cuda, ssd_plain
+    from repro_torch.kernels.mamba2_ssd import KERNELS, head_tile, ssd_cuda, ssd_plain, ssd_work
 
     B, L, H, decay, _ = SSD_CASES["zamba2-7b prefill"]
     arrays, _ = ssd_inputs(B, L, H, decay, device, args.seed)
@@ -3328,13 +3312,12 @@ def flash_times(args, device, case: str = "llama3.2-1b prefill") -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_work)
 
     B, H, Hkv, S, D, causal, strided = FLASH_CASES[case]
     q, k, v = flash_inputs(B, H, Hkv, S, D, torch.bfloat16, device, args.seed, strided)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v read; o written
+    flops, nbytes = flash_work(B, H, Hkv, S, D, causal)     # q, k, v read; o written
     b, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
     qc = q.contiguous()
     ke = k.repeat_interleave(H // Hkv, dim=1).contiguous()
@@ -3472,39 +3455,6 @@ def wkv_parity(args, device) -> float:
               f" plain| {float(diff.max()):.3g}", flush=True)
     torch.cuda.empty_cache()
     return worst
-
-
-def wkv_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
-    """(operations, bytes) of one WKV pass, counted from the kernel: per
-    (b, h, chunk) the prefix sums, the two decayed operands (a subtraction,
-    an exp and a product each), A once -- 5 operations a channel of each
-    strictly lower pair --, the bonus, the inter-chunk product, the
-    intra-chunk sum and the state update (2 operations a multiply-add); r,
-    k, v, logw and u read once, y and h_final written once."""
-    nc = -(-T // Q)
-    pairs = Q * (Q - 1) // 2
-    per_chunk = (Q * C + 5 * Q * C + C + 5 * pairs * C + 3 * Q * C
-                 + 2 * Q * C * C + 2 * pairs * C + 3 * Q * C
-                 + 2 * Q * C * C + 2 * C * C)
-    ops = B * H * nc * per_chunk
-    nbytes = 4 * (5 * B * T * H * C + H * C + B * H * C * C)
-    return ops, nbytes
-
-
-def rwkv_flops(cfg, batch: int, seq: int, every_position: bool) -> tuple[int, int]:
-    """(bf16, float32) operations of a pass over ``batch x seq`` tokens:
-    every bf16 projection (r, k, v, g, o, the channel mix's key, value and
-    receptance; 2 a multiply-add) over every token and the unembedding of
-    every position or of the last; the float32 low-rank products of the
-    ddlerp and the decay.  The WKV's operations are counted apart
-    (``wkv_work``)."""
-    d, f, r = cfg.d_model, cfg.d_ff, cfg.lora_rank
-    matrix = 6 * d * d + 2 * d * f
-    lora = 10 * d * r + 2 * d * r
-    tokens = batch * seq
-    bf16 = 2 * cfg.num_layers * matrix * tokens + 2 * d * cfg.vocab_size * (
-        tokens if every_position else batch)
-    return bf16, 2 * cfg.num_layers * lora * tokens
 
 
 @contextlib.contextmanager
@@ -3774,6 +3724,8 @@ def rwkv_serving(args, device, gpu: str) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
+    from repro_torch.kernels.rwkv6_wkv import wkv_work
+    from repro_torch.launch.roofline import decode_step_bytes, rwkv_flops
     from repro_torch.models.common import iter_leaves
     from repro_torch.models.transformer import RWKVLM
     from repro_torch.serve import Server
@@ -3786,9 +3738,8 @@ def rwkv_serving(args, device, gpu: str) -> dict:
     model = RWKVLM(cfg, device=device, seed=args.seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = 4 * n_params
-    wkv_bytes = cfg.num_layers * RW_BATCH * H * C * C * 4
-    shift_bytes = 2 * cfg.num_layers * RW_BATCH * cfg.d_model * 4
+    dec = decode_step_bytes(cfg, RW_BATCH)
+    weight_bytes, wkv_bytes, shift_bytes = dec["weights"], dec["wkv"], dec["shift"]
     phase("rwkv model", t0, f"{cfg.name}: {n_params:,} float32 parameters"
           f" ({weight_bytes / 1e9:.3f} GB), seed {args.seed}; float32 WKV states of"
           f" {cfg.num_layers} layers {wkv_bytes / 1e9:.4f} GB, shift states"
@@ -3808,9 +3759,7 @@ def rwkv_serving(args, device, gpu: str) -> dict:
                         "f32_s": f32 / FP32_OPS_PER_S, "wkv_s": cfg.num_layers * wkv_bound_s,
                         "bound_s": bf / BF16_OPS_PER_S + f32 / FP32_OPS_PER_S
                         + cfg.num_layers * wkv_bound_s}
-    table = model.embed.table
-    step_bytes = (weight_bytes - 4 * table.numel() + 4 * RW_BATCH * cfg.d_model
-                  + 2 * (wkv_bytes + shift_bytes))
+    step_bytes = dec["step"]
     step_bound_s = step_bytes / HBM_BYTES_PER_S
     for name, b in bounds.items():
         print(f"rwkv {cfg.name} bounds: {name} {b['bf16_flops'] / 1e12:.2f} TFLOP bf16"
@@ -3914,7 +3863,7 @@ def wkv_times(args, device) -> dict:
     bytes (nothing is materialised)."""
     import torch
 
-    from repro_torch.kernels.rwkv6_wkv import KERNELS, log_decay, wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.rwkv6_wkv import KERNELS, log_decay, wkv6_cuda, wkv6_plain, wkv_work
 
     B, T, H, decay, _ = WKV_CASES["rwkv6-1.6b prefill"]
     (r, k, v, w, u), _ = wkv_inputs(B, T, H, decay, device, args.seed)
@@ -4088,39 +4037,6 @@ def worst_rel_l2(parity: dict, names) -> float:
     return max(case[n]["rel_l2"] for case in parity.values() for n in names)
 
 
-def ssd_bwd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
-    """(operations, bytes) of one SSD backward, counted from its algebra:
-    per batch row and chunk C B^T's causal half (B and C are shared by the
-    heads); per chunk and head the state gradient's update and the three
-    chunk-boundary products (dxbar's, dB's, dC's), and over the chunk's
-    causal pairs dy . xbar, the two weightings and exponents, the three
-    intra-chunk products and the decay's path sums (2 operations a
-    multiply-add); xbar, dy, dA, B, C and the chunk-start states read once,
-    dxbar, ddA, dB and dC written once."""
-    nc = -(-L // Q)
-    tri = Q * (Q + 1) // 2
-    per_head = 4 * 2 * Q * P * N + tri * (2 * P + 2 * P + 2 * N + 2 * N + 6)
-    ops = B * nc * (2 * tri * N + H * per_head)
-    nbytes = 4 * (3 * B * L * H * P + 2 * B * L * H + 4 * B * L * N + B * nc * H * P * N)
-    return ops, nbytes
-
-
-def wkv_bwd_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
-    """(operations, bytes) of one WKV backward, counted from its algebra:
-    per (b, h, chunk) the four [Q, C] x [C, C] products (the state's
-    gradient update, S dy, G v, G^T kdec), vd over the chunk's pairs, and
-    over its strictly lower pairs E (a subtraction and an exp), dr's, dk's
-    and dv's intra-chunk terms, A, P and dlogw's path sums, plus the
-    elementwise terms of each step; r, k, v, logw, dy and the chunk-start
-    states read once, dr, dk, dv, dlogw and du written once."""
-    nc = -(-T // Q)
-    pairs = Q * (Q - 1) // 2
-    per_chunk = 8 * Q * C * C + 2 * Q * Q * C + pairs * C * 17 + 12 * Q * C
-    ops = B * H * nc * per_chunk
-    nbytes = 4 * (9 * B * T * H * C + B * nc * H * C * C + 2 * H * C)
-    return ops, nbytes
-
-
 def ssd_bwd_times(args, device) -> dict:
     """The SSD backward kernels at zamba2-7b's training shape beside their
     bound and their plain version.  No single PyTorch call computes the
@@ -4136,6 +4052,7 @@ def ssd_bwd_times(args, device) -> dict:
         bwd_head_tile,
         ssd_bwd_cuda,
         ssd_bwd_plain,
+        ssd_bwd_work,
     )
 
     B, L, H, decay = SSD_BWD_CASES["zamba2-7b train"]
@@ -4182,6 +4099,7 @@ def wkv_bwd_times(args, device) -> dict:
         bwd_groups,
         wkv6_bwd_cuda,
         wkv6_bwd_plain,
+        wkv_bwd_work,
     )
 
     B, T, H, decay = WKV_BWD_CASES["rwkv6-1.6b train"]
@@ -4668,7 +4586,7 @@ def flash_bwd_times(args, device, case: str) -> dict:
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNELS, flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_stats,
-        log_sum_exp)
+        flash_bwd_work, log_sum_exp)
 
     q, k, v, dout, causal, scale = bwd_inputs(case, device, args.seed + 80)
     B, H, S, Dp = q.shape
@@ -4676,18 +4594,11 @@ def flash_bwd_times(args, device, case: str) -> dict:
     out32, (m, l) = flash_attention_stats(q, k, v, causal=causal, scale=scale)
     out, lse = out32.bfloat16(), log_sum_exp(m, l)
     del out32
-    pairs = S * (S + 1) // 2 if causal else S * S
-
-    def work(d):
-        # 2.5x the forward's 4 B H d pairs; q, k, v, out, dout read and dq,
-        # dk, dv written once in bf16, lse read in float32
-        return 10 * B * H * d * pairs, 2 * d * (4 * B * H * S + 4 * B * Hkv * S) + 4 * lse.numel()
-
     # the function's work is at the unpadded D (the padded columns are
     # zeros); the kernel's at Dp, the padding's cost beside it
-    flops, nbytes = work(D)
+    flops, nbytes = flash_bwd_work(B, H, Hkv, S, D, causal)
     b, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
-    padded_flops, padded_bytes = work(Dp)
+    padded_flops, padded_bytes = flash_bwd_work(B, H, Hkv, S, Dp, causal)
     run = lambda i: flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal,  # noqa: E731
                                              scale=scale)
     # the library's call at the unpadded D, which it takes as it is
@@ -4714,19 +4625,6 @@ def flash_bwd_times(args, device, case: str) -> dict:
     del q, k, v, dout, out, lse, m, l, qr, ke, ve, lib_dout, lib_out
     torch.cuda.empty_cache()
     return got
-
-
-def train_flops(cfg, batch: int, seq: int) -> int:
-    """A training step's operations before remat: three times the forward's
-    (every projection over every token, attention over its pairs, the
-    unembedding or head at every position)."""
-    d, dh, T = cfg.d_model, cfg.resolved_head_dim, batch * seq
-    proj = d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    mlp = (2 if cfg.family == "encoder" or cfg.mlp_type == "gelu" else 3) * d * cfg.d_ff
-    pairs = seq * (seq + 1) // 2 if cfg.causal else seq * seq
-    attn = 4 * cfg.num_heads * dh * pairs * batch
-    ends = 2 * d * cfg.vocab_size * T + (2 * d * d * T if cfg.family == "encoder" else 0)
-    return 3 * (cfg.num_layers * (2 * (proj + mlp) * T + attn) + ends)
 
 
 def token_loader(vocab: int, seq: int, seed: int, device, drift: bool):
@@ -4764,6 +4662,7 @@ def trained(tag: str, cfg, state, loader, transform, device, gpu: str, ckpt_dir:
     import torch
 
     from repro_torch import kernels
+    from repro_torch.launch.roofline import train_flops
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, Trainer
 
@@ -5135,71 +5034,6 @@ def family_cfg(arch: str):
         else cfg
 
 
-def shared_calls(cfg) -> int:
-    from repro_torch.models.transformer import hybrid_layout
-
-    full, _, rem = hybrid_layout(cfg)
-    return full + (1 if rem else 0)
-
-
-def family_launches(cfg) -> dict:
-    """Each kernel wrapper's launches a training step: the forward twice a
-    layer (remat), the backward once."""
-    L = cfg.num_layers
-    if cfg.family == "rwkv":
-        return {"rwkv6_wkv": 2 * L, "rwkv6_wkv_bwd": L}
-    if cfg.family == "hybrid":
-        inv = shared_calls(cfg)
-        return {"mamba2_ssd": 2 * L, "mamba2_ssd_bwd": L, "flash_attention": 2 * inv,
-                "flash_attention_bwd": inv}
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L}
-
-
-def family_bwd_kernels(cfg) -> dict:
-    """The backward's device kernels and their events in one step."""
-    from repro_torch.kernels.flash_attention import BWD_KERNELS as FA
-    from repro_torch.kernels.mamba2_ssd import BWD_KERNELS as SSD
-    from repro_torch.kernels.rwkv6_wkv import BWD_KERNELS as WKV
-
-    L = cfg.num_layers
-    if cfg.family == "rwkv":
-        return {k: L for k in WKV}
-    if cfg.family == "hybrid":
-        return {**{k: L for k in SSD}, **{k: shared_calls(cfg) for k in FA}}
-    return {k: L for k in FA}
-
-
-def family_train_ops(cfg, batch: int, seq: int) -> tuple[int, int]:
-    """(bf16, float32) operations of a training step before remat: three
-    times the forward's projections (2 a multiply-add) over every token,
-    attention over its causal pairs and the unembedding at every position;
-    the MoE's active experts (top-k of them a token) and float32 router;
-    the hybrid's float32 dt projection; rwkv6's float32 low-rank products;
-    and each scan's forward and backward once (``ssd_work`` and
-    ``ssd_bwd_work``, ``wkv_work`` and ``wkv_bwd_work``)."""
-    d, T, L = cfg.d_model, batch * seq, cfg.num_layers
-    ends = 2 * d * cfg.vocab_size * T
-    if cfg.family == "rwkv":
-        bf16, f32 = rwkv_flops(cfg, batch, seq, every_position=True)
-        scan = L * (wkv_work(batch, seq, cfg.num_heads)[0]
-                    + wkv_bwd_work(batch, seq, cfg.num_heads)[0])
-        return 3 * bf16, 3 * f32 + scan
-    dh = cfg.resolved_head_dim
-    proj = d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    attn = 4 * cfg.num_heads * dh * seq * (seq + 1) // 2 * batch
-    if cfg.family == "hybrid":
-        m = cfg.mamba_config()
-        inv = shared_calls(cfg)
-        shared = 2 * d * d + proj + 3 * d * cfg.d_ff
-        mamba = d * (2 * m.d_inner + 2 * m.d_state) + m.d_inner * d
-        bf16 = inv * (2 * shared * T + attn) + L * 2 * mamba * T + ends
-        scan = L * (ssd_work(batch, seq, m.num_heads)[0] + ssd_bwd_work(batch, seq, m.num_heads)[0])
-        return 3 * bf16, 3 * L * 2 * d * m.num_heads * T + scan
-    experts = cfg.num_experts_per_token * 3 * d * cfg.d_ff
-    bf16 = L * (2 * (proj + experts) * T + attn) + ends
-    return 3 * bf16, 3 * L * 2 * d * cfg.num_experts * T
-
-
 def family_loss(model, batch: dict, impls: dict):
     """``lm_loss`` with the given impls: the cross entropy of every
     position's logits plus the MoE's aux loss."""
@@ -5218,6 +5052,7 @@ def family_parity(tag: str, cfg, seed: int, batch: dict, device) -> dict:
     import torch
 
     from repro_torch import kernels
+    from repro_torch.launch.roofline import family_launches
     from repro_torch.models.common import iter_leaves
     from repro_torch.models.transformer import build_lm
     from repro_torch.train import init_state, param_grads
@@ -5272,6 +5107,7 @@ def training_families(args, device, gpu: str) -> dict:
 
     import torch
 
+    from repro_torch.launch.roofline import family_bwd_kernels, family_launches, family_train_ops
     from repro_torch.models.common import iter_leaves
     from repro_torch.train import init_state
 
@@ -5344,6 +5180,14 @@ def _nccl_world(device):
                             device_id=device)
 
 
+def sharded_train_config(seed: int):
+    """Phase 10c's TrainConfig, which phase 11's dry run traces too."""
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(total_steps=SHARDED_STEPS, warmup_steps=1, log_every=1,
+                       checkpoint_every=10**9, seed=seed)
+
+
 def _host_leaves(tree) -> dict:
     from repro_torch.distributed.sharding import gather
     from repro_torch.models.common import iter_leaves
@@ -5407,8 +5251,7 @@ def sharded_train(args, device, gpu: str) -> dict:
                 warnings.simplefilter("always")
                 for tag, r in (("rules", rules), ("plain", None)):
                     loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, False)
-                    tc = TrainConfig(total_steps=SHARDED_STEPS, warmup_steps=1, log_every=1,
-                                     checkpoint_every=10**9, seed=args.seed)
+                    tc = sharded_train_config(args.seed)
                     trainer = Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tc, loader,
                                       f"{tmp}/{tag}", device=device, rules=r,
                                       batch_transform=transform)
@@ -5555,6 +5398,258 @@ def sharded_train(args, device, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dry run (launch/dryrun.py), and its prediction against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT = 300          # seconds a dry-run child may take
+# tests/test_dryrun_launch.py's cells of the reference, each a child with no
+# card visible
+DRYRUN_CELLS = {
+    "qwen2-0.5b_decode_32k_single": ["--arch", "qwen2-0.5b", "--shape", "decode_32k"],
+    "qwen2-0.5b_decode_32k_multi": ["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--multi-pod"],
+    "rsp-partition_single": ["--arch", "rsp-partition"],
+}
+RSP_SLAB = 1024 * 4097 * 4    # a rank's records of the partition (tests/test_dryrun_launch.py:77)
+MULTI_POD_SLACK = 1.05        # multi-pod FLOPs at most this times single-pod's (the same test)
+PEAK_TOL = 0.10               # arguments + temp against max_memory_allocated, relative
+# smoke configs whose training launches, traced on fake tensors, are held to
+# family_launches
+DRYRUN_FAMILIES = ("llama3.2-1b", "zamba2-7b", "rwkv6-1.6b")
+DRYRUN_SMOKE_SEQ, DRYRUN_SMOKE_BATCH = 32, 4
+
+
+def dryrun_child(seed: int) -> dict:
+    """Phase 11(b)'s dry run, in a child of its own (the fake process group
+    is process-wide): phase 10c's training step of llama3.2-1b at TRAIN_BATCH
+    x TRAIN_SEQ on a fake world of one rank and a (1, 1) mesh, on fake CUDA
+    tensors; and one training step of each DRYRUN_FAMILIES smoke config,
+    whose recorded kernel launches must be family_launches'."""
+    from repro_torch.configs import ARCHS, ShapeCell, smoke_config
+    from repro_torch.launch.dryrun import dryrun_cell, init_fake_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import family_launches
+
+    init_fake_world(1)
+    mesh = make_host_mesh(SHARDED_MESH, ("data", "model"), device_type="cuda")
+    cell = ShapeCell(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
+    out = {"train": dryrun_cell(TRAIN_ARCH, cell.name, cfg=ARCHS[TRAIN_ARCH], cell=cell,
+                                train_cfg=sharded_train_config(seed), mesh=mesh),
+           "families": {}}
+    smoke = ShapeCell("train_smoke", "train", DRYRUN_SMOKE_SEQ, DRYRUN_SMOKE_BATCH)
+    for arch in DRYRUN_FAMILIES:
+        cfg = smoke_config(arch)
+        r = dryrun_cell(arch, smoke.name, cfg=cfg, cell=smoke, mesh=mesh)
+        out["families"][arch] = {
+            "recorded": {k: v["launches"] for k, v in r["analysis"]["kernels"].items()},
+            "expected": family_launches(cfg)}
+    return out
+
+
+def dryrun_start(args, tmp: str) -> dict:
+    """Start phase 11's children, all at once: the three reference cells
+    (``python -m repro_torch.launch.dryrun``) with ``CUDA_VISIBLE_DEVICES``
+    empty, and :func:`dryrun_child` (the card visible: autograd of a fake
+    CUDA tensor asks for the device's context, though nothing is allocated
+    on it).  Each writes its output under ``tmp``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for tag, argv in {**DRYRUN_CELLS, "train": None}.items():
+        if argv is None:
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(args.seed),
+                   "--dryrun-child"]
+            child_env = env
+        else:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", tmp]
+            child_env = dict(env, CUDA_VISIBLE_DEVICES="")
+        log = open(Path(tmp) / f"{tag}.log", "w")
+        procs[tag] = (subprocess.Popen(cmd, env=child_env, stdout=log, stderr=subprocess.STDOUT,
+                                       cwd=str(ROOT)), log)
+    return {"procs": procs, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def dryrun_wait(started: dict) -> dict:
+    """Wait for phase 11's children (each within DRYRUN_TIMEOUT of the
+    start; one past it is killed and fails the phase) and read their
+    results."""
+    tmp, codes = Path(started["tmp"]), {}
+    for tag, (proc, log) in started["procs"].items():
+        left = DRYRUN_TIMEOUT - (time.perf_counter() - started["t0"])
+        try:
+            codes[tag] = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            codes[tag] = None
+        log.close()
+    out = {"children_s": time.perf_counter() - started["t0"]}
+    for tag, code in codes.items():
+        text = (tmp / f"{tag}.log").read_text()
+        check(code == 0, f"dry-run child {tag} {'timed out' if code is None else f'exited {code}'}:"
+              f" {text[-3000:]}")
+        if tag == "train":
+            out[tag] = json.loads(text.strip().splitlines()[-1])
+        else:
+            out[tag] = json.loads((tmp / f"{tag}.json").read_text())
+    return out
+
+
+def dryrun_phase(args, device, gpu: str, started: dict) -> dict:
+    """Phase 11: (a) the reference test's dry-run cells, run with no card
+    visible, gated as tests/test_dryrun_launch.py gates the reference's;
+    (b) the dry run of phase 10c's training step held against one real step
+    of it on the card: the argument bytes equal to the real state's and
+    batch's, the recorder's aten FLOPs equal to ``FlopCounterMode``'s count
+    of the real step, each kernel's recorded launches equal to
+    ``family_launches`` and to the profiler's device events of the real
+    step, and arguments + temp within PEAK_TOL of the step's
+    ``max_memory_allocated``; then the roofline terms and the step's
+    measured share of the bf16 peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.roofline import (
+        family_bwd_kernels, family_launches, local_bytes, roofline_terms, train_flops)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    got = dryrun_wait(started)
+    out: dict = {"children_s": got["children_s"]}
+
+    # (a) the reference test's properties of the port's results
+    cells = {tag: got[tag] for tag in DRYRUN_CELLS}
+    for tag in ("qwen2-0.5b_decode_32k_single", "qwen2-0.5b_decode_32k_multi"):
+        r = cells[tag]
+        mem = r["memory"]
+        used = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        check(r["analysis"]["flops"] > 0 and mem["argument_size_in_bytes"] > 0,
+              f"dry run {tag}: flops {r['analysis']['flops']}, arguments"
+              f" {mem['argument_size_in_bytes']}")
+        check(used < mesh_lib.HBM_CAPACITY, f"dry run {tag}: arguments + temp {used / 1e9:.2f} GB"
+              f" exceed the card's {mesh_lib.HBM_CAPACITY / 1e9:.0f} GB")
+    single, multi = (cells[f"qwen2-0.5b_decode_32k_{m}"]["analysis"]["flops"]
+                     for m in ("single", "multi"))
+    check(multi <= single * MULTI_POD_SLACK, f"dry run: multi-pod FLOPs {multi:.4g} above"
+          f" {MULTI_POD_SLACK} x single-pod's {single:.4g}")
+    rsp = cells["rsp-partition_single"]["analysis"]
+    check(rsp["flops"] == 0 and rsp["bytes"] > 2 * RSP_SLAB,
+          f"dry run rsp-partition: flops {rsp['flops']}, bytes {rsp['bytes']:.4g} (slab {RSP_SLAB})")
+    out["cells"] = {tag: {"memory": r["memory"], "flops": r["analysis"]["flops"],
+                          "bytes": r["analysis"]["bytes"],
+                          "collectives": r["analysis"]["collectives"], "lower_s": r["lower_s"]}
+                    for tag, r in cells.items()}
+    phase("dry run cells", t_phase, f"{json.dumps(out['cells'])} (children with no card visible,"
+          f" {got['children_s']:.1f} s)")
+
+    # the smoke configs' recorded launches against family_launches
+    fam = got["train"]["families"]
+    out["families"] = fam
+    for arch, f in fam.items():
+        check(f["recorded"] == f["expected"], f"dry run {arch} smoke step: kernels recorded"
+              f" {f['recorded']}, family_launches {f['expected']}")
+
+    # (b) the dry run of phase 10c's step against one real step on the card
+    dry = got["train"]["train"]
+    analysis, dmem = dry["analysis"], dry["memory"]
+    cfg = ARCHS[TRAIN_ARCH]
+    recorded = {k: v["launches"] for k, v in analysis["kernels"].items()}
+    check(recorded == family_launches(cfg), f"dry run {TRAIN_ARCH}: kernels recorded {recorded},"
+          f" family_launches {family_launches(cfg)}")
+    t0 = time.perf_counter()
+    _nccl_world(device)
+    try:
+        mesh = mesh_lib.make_host_mesh(SHARDED_MESH, ("data", "model"), device_type=device.type)
+        rules = default_rules(mesh, cfg=cfg)
+        state = init_state(cfg, args.seed, device=device, rules=rules)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 11)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                         generator=gen, device=device, dtype=torch.int32)}
+        step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), sharded_train_config(args.seed),
+                               rules=rules)
+        real_args = local_bytes(state) + local_bytes(batch)
+        state, _ = step(state, batch)                  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(device)
+        with FlopCounterMode(display=False) as fc:
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        real_flops = fc.get_total_flops()
+        scratch = torch.empty(1, dtype=torch.int16, device=device)
+
+        def run():
+            nonlocal state
+            for _ in range(PROFILER_WARMUP):
+                scratch.fill_(0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            kernels.reset_launch_counts()
+            state, _ = step(state, batch)
+
+        events: dict = {}
+        profiled(run, events)
+        counts = kernels.launch_counts()               # the profiled step ends here
+        del state, batch, step, scratch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    seen = {"flash_attention": sum(n for name, n in events.items() if "fa_wgmma_bf16" in name),
+            **{k: sum(n for name, n in events.items() if k in name) for k in BWD_KERNELS}}
+    predicted = dmem["argument_size_in_bytes"] + dmem["temp_size_in_bytes"]
+    terms = roofline_terms(analysis, chips=1)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    share = flops / mesh_lib.PEAK_FLOPS_BF16 / step_s
+    out["card"] = {
+        "arguments": dmem["argument_size_in_bytes"], "real_arguments": real_args,
+        "aten_flops": analysis["aten_flops"], "real_flops": real_flops,
+        "recorded_launches": recorded, "launch_counts": {k: v for k, v in counts.items() if v},
+        "device_events": seen, "expected_bwd_events": family_bwd_kernels(cfg),
+        "predicted_bytes": predicted, "temp": dmem["temp_size_in_bytes"], "peak": peak,
+        "peak_rel_err": (predicted - peak) / peak, "trace_s": dry["lower_s"],
+        "roofline": terms, "step_s": step_s, "train_flops": flops, "share_of_bf16_peak": share,
+        "s": time.perf_counter() - t0}
+    print(f"dry run against the card ({TRAIN_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ}, mesh"
+          f" {SHARDED_MESH}): arguments {dmem['argument_size_in_bytes']:,} B (real {real_args:,});"
+          f" aten FLOPs {analysis['aten_flops']:.6e} (FlopCounterMode {real_flops:.6e});"
+          f" launches recorded {json.dumps(recorded)}, device events {json.dumps(seen)};"
+          f" arguments + temp {predicted / 1e9:.3f} GB against the step's peak {peak / 1e9:.3f} GB"
+          f" ({(predicted - peak) / peak:+.2%}) [{gpu}]", flush=True)
+    print(f"dry run roofline ({TRAIN_ARCH} step, one rank): T_compute {terms['t_compute_s']:.4f} s,"
+          f" T_memory {terms['t_memory_s']:.4f} s, T_collective {terms['t_collective_s']:.4f} s,"
+          f" dominant {terms['dominant']}; measured step {step_s:.4f} s, {flops:.4e} FLOP"
+          f" (train_flops), {share:.4f} of the bf16 peak [{gpu}]", flush=True)
+    check(dmem["argument_size_in_bytes"] == real_args, f"dry run arguments"
+          f" {dmem['argument_size_in_bytes']:,} B, the real state and batch {real_args:,} B")
+    check(analysis["aten_flops"] == real_flops, f"dry run aten FLOPs {analysis['aten_flops']:.6e},"
+          f" FlopCounterMode's of the real step {real_flops:.6e}")
+    check(counts.get("flash_attention") == recorded.get("flash_attention")
+          and counts.get("flash_attention_bwd") == recorded.get("flash_attention_bwd"),
+          f"the real step launched {counts}, the dry run recorded {recorded}")
+    check(seen == {"flash_attention": recorded["flash_attention"], **family_bwd_kernels(cfg)},
+          f"the real step's device events {seen}, the dry run recorded {recorded}")
+    check(abs(predicted - peak) <= PEAK_TOL * peak, f"dry run arguments + temp"
+          f" {predicted / 1e9:.3f} GB, the real step's peak {peak / 1e9:.3f} GB: beyond"
+          f" {PEAK_TOL:.0%}")
+    out["s"] = time.perf_counter() - t_phase
+    phase("dry run", t_phase, f"phase {out['s']:.1f} s [{gpu}]")
+    return out
+
+
 def _leaf_list(tree) -> list:
     from repro_torch.models.common import iter_leaves
 
@@ -5652,10 +5747,13 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--partition-child", nargs=2, metavar=("NPY", "DEVICE"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.ingest_child or args.mesh_child or args.partition_child:
+    if args.ingest_child or args.mesh_child or args.partition_child or args.dryrun_child:
         sys.path.insert(0, str(SRC))
-        if args.ingest_child:
+        if args.dryrun_child:
+            got = dryrun_child(args.seed)
+        elif args.ingest_child:
             got = ingest_child(*args.ingest_child[:2], args.seed, args.ingest_child[2])
         elif args.mesh_child:
             got = mesh_child(*args.mesh_child)
@@ -5764,6 +5862,11 @@ def main() -> int:
             phase("training families", t0)
             torch.cuda.empty_cache()
             sh = sharded_train(args, device, gpu)
+            dry_dir = tempfile.mkdtemp(prefix="rsp_dryrun_")
+            try:
+                dr = dryrun_phase(args, device, gpu, dryrun_start(args, dry_dir))
+            finally:
+                shutil.rmtree(dry_dir, ignore_errors=True)
             ing = ingest(args, data, child, device)
             inputs = learning_inputs(data, args.records // BLOCKS)
             del data
@@ -5926,6 +6029,7 @@ def main() -> int:
     print(f"training: {json.dumps(tr)}", flush=True)
     print(f"training families: {json.dumps(tf)}", flush=True)
     print(f"sharded training: {json.dumps(sh)}", flush=True)
+    print(f"dry run: {json.dumps(dr)}", flush=True)
     print(f"scan backward parity: {json.dumps(scan_bwd)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     if args.out:
@@ -5938,7 +6042,7 @@ def main() -> int:
              "flash_attention_d80": tm["flash_attention_d80"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
              "rwkv": rw, "moe": mo, "training": tr, "training_families": tf,
-             "sharded_training": sh,
+             "sharded_training": sh, "dry_run": dr,
              "scan_bwd_parity": scan_bwd,
              "flash_attention_bwd_d80": tm["flash_attention_bwd_d80"], "gpu": gpu},
             indent=1))

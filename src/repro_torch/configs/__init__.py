@@ -6,6 +6,9 @@ widths: the five dense decoders (llama3.2-1b, qwen2-0.5b, qwen3-14b,
 granite-20b, chameleon-34b), the two MoE decoders (granite-moe-3b-a800m,
 qwen3-moe-30b-a3b), the zamba2-7b hybrid, rwkv6-1.6b and the hubert-xlarge
 encoder; ``smoke_config`` shrinks them exactly as the reference's does.
+``cells()`` lists the (arch, shape) pairs a dry run covers, as the
+reference's does: ``long_500k`` only for the sub-quadratic archs
+(``SUBQUADRATIC``), no decode shape for the encoder.
 """
 
 from __future__ import annotations
@@ -26,9 +29,30 @@ from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, RWKV6_1_6B,
-                        CHAMELEON_34B, GRANITE_MOE, QWEN3_MOE, HUBERT_XL]
+    # the reference's order, which cells() and the dry run's tables follow
+    c.name: c for c in [LLAMA32_1B, GRANITE_20B, QWEN3_14B, QWEN2_05B, ZAMBA2_7B, CHAMELEON_34B,
+                        GRANITE_MOE, QWEN3_MOE, RWKV6_1_6B, HUBERT_XL]
 }
+
+# archs allowed to run the long_500k decode cell (sub-quadratic context)
+SUBQUADRATIC = {"zamba2-7b", "rwkv6-1.6b"}
+
+
+def cell_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """Whether the (arch, shape) cell runs, and why not."""
+    cfg = ARCHS[arch]
+    cell = SHAPES[shape]
+    if cfg.family == "encoder" and cell.kind == "decode":
+        return False, "encoder-only: no decode step"
+    if shape == "long_500k" and arch not in SUBQUADRATIC:
+        return False, "full-attention arch: long_500k restricted to SSM/hybrid"
+    return True, ""
+
+
+def cells() -> list[tuple[str, str]]:
+    """All applicable (arch, shape) dry-run cells, in the reference's order."""
+    return [(arch, shape) for arch in ARCHS for shape in SHAPES
+            if cell_applicable(arch, shape)[0]]
 
 
 def smoke_config(arch: str) -> ModelConfig:
@@ -56,4 +80,5 @@ def smoke_config(arch: str) -> ModelConfig:
     return dataclasses.replace(cfg, **shrink)
 
 
-__all__ = ["ARCHS", "SHAPES", "ShapeCell", "smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "ShapeCell", "cell_applicable", "cells",
+           "smoke_config"]

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.types import RSPSpec
-from repro_torch.device import as_numpy
+from repro_torch.device import as_numpy, dry_run
 
 
 def _np_rng(seed: int, *stream: int) -> np.random.Generator:
@@ -142,13 +142,15 @@ def distributed_rsp_partition(shard: torch.Tensor, seed: int, group=None) -> tor
 
     The group must be a gloo group: the exchange runs on host tensors, so a
     shard on the card costs one copy off the card, the exchange, and one
-    copy back.  Any other backend is refused.
+    copy back.  Any other backend is refused, but the ``"fake"`` backend of
+    a dry run on a fake shard (``device.dry_run``, ``launch/dryrun.py``),
+    which traces the program on shapes.
     """
     import torch.distributed as dist
 
     from repro_torch.kernels.rsp_shuffle import make_permutations, rsp_shuffle
 
-    reason = exchange_refusal(group)
+    reason = exchange_refusal(group, shard)
     if reason is not None:
         raise ValueError(reason)
     d, i = dist.get_world_size(group), dist.get_rank(group)
@@ -172,12 +174,15 @@ def distributed_rsp_partition(shard: torch.Tensor, seed: int, group=None) -> tor
 _NO_SPAN = contextlib.nullcontext()
 
 
-def exchange_refusal(group=None) -> str | None:
-    """Why :func:`distributed_rsp_partition` cannot exchange over ``group``
-    (a group that is not gloo), or ``None``."""
+def exchange_refusal(group=None, shard: torch.Tensor | None = None) -> str | None:
+    """Why :func:`distributed_rsp_partition` cannot exchange ``shard`` over
+    ``group`` (a group that is not gloo, or the ``"fake"`` backend, which
+    moves no data, outside a dry run on a fake shard), or ``None``."""
     import torch.distributed as dist
 
     backend = dist.get_backend(group)
+    if backend == "fake" and shard is not None and dry_run(shard):
+        return None
     if backend != "gloo":
         return f"the exchange runs on host tensors over gloo; the group's backend is {backend!r}"
     return None

@@ -4,7 +4,9 @@ Every entry point of ``repro_torch`` takes an explicit ``device``; the
 default is ``"cuda"``.  :func:`resolve_device` turns the argument into a
 ``torch.device`` and raises when the card is asked for and absent -- the
 port never falls back to the CPU on its own.  Only an explicit
-``device="cpu"`` runs on the host (the tests always pass it).
+``device="cpu"`` runs on the host (the tests always pass it).  In a dry
+run (:func:`dry_run`, ``launch/dryrun.py``) a tensor has shapes and no
+data, so ``"cuda"`` needs no card.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.
     ``torch.device``, raising ``RuntimeError`` when CUDA is asked for but no
     card is present."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and not dry_run():
         raise RuntimeError(
             f"device={str(dev)!r} was requested but no CUDA device is available;"
             " pass device='cpu' to run on the host"
@@ -28,6 +30,16 @@ def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda | cpu)")
     return dev
+
+
+def dry_run(*tensors: torch.Tensor) -> bool:
+    """Whether this is a dry run: a ``FakeTensorMode`` is active (tensors
+    made now carry shapes and dtypes and no data) and every one of
+    ``tensors`` is fake."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import is_fake
+
+    return detect_fake_mode() is not None and all(is_fake(t) for t in tensors)
 
 
 def as_numpy(x) -> np.ndarray:

@@ -12,6 +12,13 @@ tests import every module on a machine with no ``nvcc`` and no card.
 Every kernel wrapper checks its arguments, launches on
 ``torch.cuda.current_stream()``, raises if the C function returns a
 non-zero ``cudaGetLastError()``, and adds one to its :class:`LaunchCounter`.
+
+A launcher handed fake tensors (``torch._subclasses.fake_tensor``: shapes
+and dtypes, no data, as a dry run traces one rank's program) launches
+nothing: it returns empty outputs of the kernel's shapes and records the
+launch, with the operations and bytes of the kernel's work function, in the
+active dry run (:func:`record_shape_only`).  It builds no library and adds
+nothing to a counter.
 """
 
 from __future__ import annotations
@@ -75,6 +82,9 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+# the dry runs that record shape-only launches, innermost last
+# (``launch.roofline.DryRunRecorder`` pushes itself while it is active)
+_DRY_RUNS: list = []
 
 
 class LaunchCounter:
@@ -262,3 +272,19 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype | None = None) -
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def is_fake(t: torch.Tensor | None) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no data)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return t is not None and _is_fake(t)
+
+
+def record_shape_only(name: str, ops: int, nbytes: int, dtype: str) -> None:
+    """One shape-only launch of kernel ``name``: ``ops`` operations in
+    ``dtype`` ("bf16" on the tensor cores, "f32" at the float32 rate) and
+    ``nbytes`` of device memory moved, recorded in the innermost active dry
+    run (none active: nothing is recorded)."""
+    if _DRY_RUNS:
+        _DRY_RUNS[-1].record_kernel(name, int(ops), int(nbytes), dtype)

@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_cuda,
     flash_attention_plain,
     flash_attention_stats,
+    flash_bwd_work,
+    flash_work,
 )
 from repro_torch.kernels.flash_attention.ops import IMPLS, FlashAttention, flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref, log_sum_exp
@@ -35,5 +37,7 @@ __all__ = [
     "flash_attention_plain",
     "flash_attention_ref",
     "flash_attention_stats",
+    "flash_bwd_work",
+    "flash_work",
     "log_sum_exp",
 ]

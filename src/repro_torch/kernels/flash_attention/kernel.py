@@ -29,6 +29,9 @@ running sum and accumulator are float32; the output has q's dtype.
 * :func:`flash_attention_plain`, :func:`flash_attention_stats` and
   :func:`flash_attention_bwd_plain` are the same functions in plain
   PyTorch (``ref.py``), on any device.
+* :func:`flash_work` and :func:`flash_bwd_work` are each direction's
+  operations and bytes, from which its bound is computed; handed fake
+  tensors, the launchers record them and launch nothing (``_cuda``).
 """
 
 from __future__ import annotations
@@ -77,8 +80,9 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise ValueError(f"q, k and v must all be float32 or all bfloat16, got {t.dtype}")
     if t.stride(3) != 1:
         raise ValueError(f"{name}'s head dim must be contiguous")
-    # bf16 tiles are read as 16-byte vectors
-    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))):
+    # bf16 tiles are read as 16-byte vectors (a fake tensor has no address)
+    if t.dtype == torch.bfloat16 and ((not _cuda.is_fake(t) and t.data_ptr() % 16)
+                                      or any(t.stride(i) % 8 for i in range(3))):
         raise ValueError(f"{name}'s rows must be 16-byte aligned")
 
 
@@ -87,6 +91,28 @@ def _check_sizes(B: int, H: int, S: int, D: int) -> None:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
     if B > 65535 or H > 65535 or S >= 2**31:
         raise ValueError("the kernel takes B, H <= 65535 and S < 2**31")
+
+
+def _pairs(S: int, causal: bool) -> int:
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def flash_work(B: int, H: int, Hkv: int, S: int, D: int, causal: bool, *, itemsize: int = 2,
+               lse: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one forward: QK^T and PV over the attended
+    pairs (2 operations a multiply-add); q, k, v read and the output
+    written once in ``itemsize`` bytes, and with ``lse`` each row's
+    float32 log-sum-exp written."""
+    nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D) + (4 * B * H * S if lse else 0)
+    return 4 * B * H * D * _pairs(S, causal), nbytes
+
+
+def flash_bwd_work(B: int, H: int, Hkv: int, S: int, D: int, causal: bool) -> tuple[int, int]:
+    """(operations, bytes) of one backward: 2.5x the forward's products;
+    q, k, v, out, dout read and dq, dk, dv written once in bf16, lse read
+    in float32."""
+    return (10 * B * H * D * _pairs(S, causal),
+            2 * D * (4 * B * H * S + 4 * B * Hkv * S) + 4 * B * H * S)
 
 
 def _heads_last(B: int, S: int, heads: int, D: int, like: torch.Tensor) -> torch.Tensor:
@@ -117,6 +143,11 @@ def flash_attention_cuda(
         scale = 1.0 / D**0.5
     o = _heads_last(B, S, H, D, q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    if _cuda.is_fake(q):
+        _cuda.record_shape_only("flash_attention", *flash_work(
+            B, H, k.shape[1], S, D, causal, itemsize=q.element_size(), lse=with_lse),
+            "bf16" if q.dtype == torch.bfloat16 else "f32")
+        return (o, lse) if with_lse else o
     lib = _cuda.library()
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -167,6 +198,10 @@ def flash_attention_bwd_cuda(
     # each row's lse (log2 units) and Dvec, which the dQ kernel writes
     Sp = -(-S // BWD_PAD_ROWS) * BWD_PAD_ROWS
     stats = torch.empty((B, H, 2, Sp), dtype=torch.float32, device=q.device)
+    if _cuda.is_fake(q):
+        _cuda.record_shape_only("flash_attention_bwd", *flash_bwd_work(B, H, Hkv, S, D, causal),
+                                "bf16")
+        return dq, dk, dv
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
                                          for s in t.stride()[:3]))
     code = _cuda.library().flash_attention_bwd_launch(
@@ -181,4 +216,5 @@ def flash_attention_bwd_cuda(
 
 __all__ = ["BWD_KERNELS", "BWD_LAUNCHES", "GRAD_ROADMAP", "HEAD_DIMS", "LAUNCHES",
            "check_shapes", "flash_attention_bwd_cuda", "flash_attention_bwd_plain",
-           "flash_attention_cuda", "flash_attention_plain", "flash_attention_stats"]
+           "flash_attention_cuda", "flash_attention_plain", "flash_attention_stats",
+           "flash_bwd_work", "flash_work"]

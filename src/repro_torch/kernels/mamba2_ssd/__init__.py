@@ -15,8 +15,10 @@ from repro_torch.kernels.mamba2_ssd.kernel import (
     head_tile,
     ssd_bwd_cuda,
     ssd_bwd_plain,
+    ssd_bwd_work,
     ssd_cuda,
     ssd_plain,
+    ssd_work,
 )
 from repro_torch.kernels.mamba2_ssd.ops import IMPLS, SSDScan, ssd
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked, ssd_chunked_bwd, ssd_recurrence
@@ -34,9 +36,11 @@ __all__ = [
     "ssd",
     "ssd_bwd_cuda",
     "ssd_bwd_plain",
+    "ssd_bwd_work",
     "ssd_chunked",
     "ssd_chunked_bwd",
     "ssd_cuda",
     "ssd_plain",
     "ssd_recurrence",
+    "ssd_work",
 ]

@@ -33,7 +33,10 @@ forward's.
 
 The launchers return tensors without a graph: under grad mode, inputs that
 require grad raise ``ValueError``; ``ops.ssd`` (the ``SSDScan`` function)
-carries the gradient.
+carries the gradient.  :func:`ssd_work` and :func:`ssd_bwd_work` are each
+direction's operations and bytes, from which its bound is computed; handed
+fake tensors, the launchers record them and launch nothing (``_cuda``),
+with the backward's head tile taken for the H100's :data:`SMS_H100` SMs.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ BWD_LAUNCHES = _cuda.LaunchCounter("mamba2_ssd_bwd")
 KERNELS = ("ssd_state", "ssd_scan")   # the device kernels one call launches
 BWD_KERNELS = ("ssd_bwd_state", "ssd_bwd_tile")
 
+SMS_H100 = 132     # the H100 SXM's SMs (a fake tensor has no card to ask)
 CHUNK = 128        # the kernel's chunk length Q
 HEAD_DIM = 64      # P
 STATE_DIM = 64     # N
@@ -85,6 +89,37 @@ def bwd_head_tile(batch: int, heads: int, sms: int) -> int:
     an SM too: 222 KB), whose once-a-CTA work is C B^T and the intra-chunk
     products of dB and dC."""
     return head_tile(batch, heads, sms, _BWD_TILE_SHARE)
+
+
+def ssd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
+    """(operations, bytes) of one SSD scan: per batch row and chunk C B^T's
+    causal half (B and C are shared by all heads), then per chunk and head
+    the causal half of the intra-chunk product, the inter-chunk term and the
+    state update (2 operations a multiply-add); xbar, dA, B and C read once,
+    y and h_final written once."""
+    nc = -(-L // Q)
+    tri = Q * (Q + 1) // 2
+    per_head = tri * P + Q * N * P + Q * P * N
+    ops = 2 * B * nc * (tri * N + H * per_head)
+    nbytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N + B * H * P * N)
+    return ops, nbytes
+
+
+def ssd_bwd_work(B, L, H, P=64, N=64, Q=128) -> tuple[int, int]:
+    """(operations, bytes) of one SSD backward, counted from its algebra:
+    per batch row and chunk C B^T's causal half (B and C are shared by the
+    heads); per chunk and head the state gradient's update and the three
+    chunk-boundary products (dxbar's, dB's, dC's), and over the chunk's
+    causal pairs dy . xbar, the two weightings and exponents, the three
+    intra-chunk products and the decay's path sums (2 operations a
+    multiply-add); xbar, dy, dA, B, C and the chunk-start states read once,
+    dxbar, ddA, dB and dC written once."""
+    nc = -(-L // Q)
+    tri = Q * (Q + 1) // 2
+    per_head = 4 * 2 * Q * P * N + tri * (2 * P + 2 * P + 2 * N + 2 * N + 6)
+    ops = B * nc * (2 * tri * N + H * per_head)
+    nbytes = 4 * (3 * B * L * H * P + 2 * B * L * H + 4 * B * L * N + B * nc * H * P * N)
+    return ops, nbytes
 
 
 def check_shapes(xbar, dA, Bm, Cm, h0=None) -> None:
@@ -122,6 +157,9 @@ def ssd_cuda(
     y = torch.empty_like(xbar)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=xbar.device)
     hs = torch.empty((B, L // CHUNK, H, P, N), dtype=torch.float32, device=xbar.device)
+    if _cuda.is_fake(xbar):
+        _cuda.record_shape_only("mamba2_ssd", *ssd_work(B, L, H, P, N), "f32")
+        return (y, h, hs) if states else (y, h)
     sms = torch.cuda.get_device_properties(xbar.device).multi_processor_count
     ht = head_tile(B * (L // CHUNK), H, sms)
     lib = _cuda.library()
@@ -177,7 +215,8 @@ def ssd_bwd_cuda(
         raise ValueError(f"hs must be [{B}, {L // CHUNK}, {H}, {P}, {N}], got {tuple(hs.shape)}")
     _check_operands(xbar, xbar=xbar, dA=dA, B=Bm, C=Cm, hs=hs, dy=dy, dh_final=dh_final)
     dev = xbar.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fake = _cuda.is_fake(xbar)
+    sms = SMS_H100 if fake else torch.cuda.get_device_properties(dev).multi_processor_count
     ht = bwd_head_tile(B * (L // CHUNK), H, sms)
     dhs = torch.empty_like(hs)           # the state's gradient at every chunk's end
     dx = torch.empty_like(xbar)
@@ -185,6 +224,9 @@ def ssd_bwd_cuda(
     # each tile's sums of dB and dC over its heads
     dB_part = torch.empty((B, L, H // ht, N), dtype=torch.float32, device=dev)
     dC_part = torch.empty((B, L, H // ht, N), dtype=torch.float32, device=dev)
+    if fake:
+        _cuda.record_shape_only("mamba2_ssd_bwd", *ssd_bwd_work(B, L, H, P, N), "f32")
+        return dx, ddA, dB_part.sum(2), dC_part.sum(2)
     code = _cuda.library().mamba2_ssd_bwd_launch(
         xbar.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), hs.data_ptr(),
         dy.data_ptr(), _cuda.ptr(dh_final), dhs.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
@@ -196,5 +238,5 @@ def ssd_bwd_cuda(
 
 
 __all__ = ["BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS", "LAUNCHES",
-           "STATE_DIM", "bwd_head_tile", "check_shapes", "head_tile", "ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda",
-           "ssd_plain"]
+           "SMS_H100", "STATE_DIM", "bwd_head_tile", "check_shapes", "head_tile", "ssd_bwd_cuda",
+           "ssd_bwd_plain", "ssd_bwd_work", "ssd_cuda", "ssd_plain", "ssd_work"]

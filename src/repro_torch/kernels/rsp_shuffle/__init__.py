@@ -8,6 +8,7 @@ from repro_torch.kernels.rsp_shuffle.kernel import (
     rsp_shuffle,
     rsp_shuffle_cuda,
     rsp_shuffle_plain,
+    shuffle_bytes,
     shuffle_path,
     staged_smem_bytes,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "rsp_shuffle_cuda",
     "rsp_shuffle_plain",
     "rsp_shuffle_ref",
+    "shuffle_bytes",
     "shuffle_candidates",
     "shuffle_config",
     "shuffle_path",

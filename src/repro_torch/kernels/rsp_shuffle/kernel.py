@@ -21,6 +21,9 @@ bit for bit; the kernel takes rows of an even number of bytes), ``tile_perm`` ``
   bit for bit as it is.
 * :func:`rsp_shuffle_plain` is the same gather in plain PyTorch, on any
   device.
+
+Handed fake tensors, the launcher records the gather's bytes
+(:func:`shuffle_bytes`) and launches nothing (``_cuda``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ def shuffle_path(tile_rows: int, row_bytes: int, *, x_ptr: int = 0, out_ptr: int
             or staged_smem_bytes(tile_rows, row_bytes) > smem_limit):
         return "rows"
     return "staged"
+
+
+def shuffle_bytes(x, tile_perm, intra_perm) -> int:
+    """The bytes one shuffle moves: ``x`` read and the output written once,
+    the int32 permutations read once."""
+    return 2 * x.numel() * x.element_size() + 4 * (tile_perm.numel() + intra_perm.numel())
 
 
 def _batched(x, tile_perm, intra_perm, tile_rows: int):
@@ -113,6 +122,9 @@ def rsp_shuffle_cuda(x, tile_perm, intra_perm, *, tile_rows: int, path: str | No
     if b > 65535:
         raise ValueError("the kernel takes at most 65535 batches per launch")
     out = torch.empty_like(xb)
+    if _cuda.is_fake(xb):
+        _cuda.record_shape_only("rsp_shuffle", 0, shuffle_bytes(xb, tp, ip), "f32")
+        return out if batched else out[0]
     row_bytes = d * xb.element_size()
     lib = _cuda.library()
     fits = shuffle_path(tile_rows, row_bytes, x_ptr=xb.data_ptr(), out_ptr=out.data_ptr(),

@@ -18,6 +18,8 @@ from repro_torch.kernels.rwkv6_wkv.kernel import (
     wkv6_bwd_plain,
     wkv6_cuda,
     wkv6_plain,
+    wkv_bwd_work,
+    wkv_work,
 )
 from repro_torch.kernels.rwkv6_wkv.ops import IMPLS, WKV6, log_decay, wkv6
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked, wkv6_chunked_bwd, wkv6_scan
@@ -41,4 +43,6 @@ __all__ = [
     "wkv6_cuda",
     "wkv6_plain",
     "wkv6_scan",
+    "wkv_bwd_work",
+    "wkv_work",
 ]

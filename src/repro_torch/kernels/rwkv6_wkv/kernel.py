@@ -27,7 +27,9 @@ the batch rows and groups adds afterwards, in one order every call.
 
 The launchers return tensors without a graph: under grad mode, inputs that
 require grad raise ``ValueError``; ``ops.wkv6`` (the ``WKV6`` function)
-carries the gradient.
+carries the gradient.  :func:`wkv_work` and :func:`wkv_bwd_work` are each
+direction's operations and bytes, from which its bound is computed; handed
+fake tensors, the launchers record them and launch nothing (``_cuda``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,39 @@ def bwd_groups(T: int) -> int:
     """The chunk groups of ``wkv6_bwd_chunk`` along a padded length T: du
     comes back as a share per (batch row, group, head)."""
     return -(-(T // CHUNK) // BWD_GROUP)
+
+
+def wkv_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
+    """(operations, bytes) of one WKV pass, counted from the kernel: per
+    (b, h, chunk) the prefix sums, the two decayed operands (a subtraction,
+    an exp and a product each), A once -- 5 operations a channel of each
+    strictly lower pair --, the bonus, the inter-chunk product, the
+    intra-chunk sum and the state update (2 operations a multiply-add); r,
+    k, v, logw and u read once, y and h_final written once."""
+    nc = -(-T // Q)
+    pairs = Q * (Q - 1) // 2
+    per_chunk = (Q * C + 5 * Q * C + C + 5 * pairs * C + 3 * Q * C
+                 + 2 * Q * C * C + 2 * pairs * C + 3 * Q * C
+                 + 2 * Q * C * C + 2 * C * C)
+    ops = B * H * nc * per_chunk
+    nbytes = 4 * (5 * B * T * H * C + H * C + B * H * C * C)
+    return ops, nbytes
+
+
+def wkv_bwd_work(B, T, H, C=64, Q=16) -> tuple[int, int]:
+    """(operations, bytes) of one WKV backward, counted from its algebra:
+    per (b, h, chunk) the four [Q, C] x [C, C] products (the state's
+    gradient update, S dy, G v, G^T kdec), vd over the chunk's pairs, and
+    over its strictly lower pairs E (a subtraction and an exp), dr's, dk's
+    and dv's intra-chunk terms, A, P and dlogw's path sums, plus the
+    elementwise terms of each step; r, k, v, logw, dy and the chunk-start
+    states read once, dr, dk, dv, dlogw and du written once."""
+    nc = -(-T // Q)
+    pairs = Q * (Q - 1) // 2
+    per_chunk = 8 * Q * C * C + 2 * Q * Q * C + pairs * C * 17 + 12 * Q * C
+    ops = B * H * nc * per_chunk
+    nbytes = 4 * (9 * B * T * H * C + B * nc * H * C * C + 2 * H * C)
+    return ops, nbytes
 
 
 def check_shapes(r, k, v, logw, u, h0=None) -> None:
@@ -89,6 +124,9 @@ def wkv6_cuda(
     h = torch.empty((B, H, C, C), dtype=torch.float32, device=r.device)
     hs = (torch.empty((B, T // CHUNK, H, C, C), dtype=torch.float32, device=r.device)
           if states else None)
+    if _cuda.is_fake(r):
+        _cuda.record_shape_only("rwkv6_wkv", *wkv_work(B, T, H, C), "f32")
+        return (y, h, hs) if states else (y, h)
     lib = _cuda.library()
     code = lib.rwkv6_wkv_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
@@ -143,6 +181,9 @@ def wkv6_bwd_cuda(
     dhs = torch.empty_like(hs)           # the state's gradient at every chunk's end
     dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B, bwd_groups(T), H, C), dtype=torch.float32, device=r.device)
+    if _cuda.is_fake(r):
+        _cuda.record_shape_only("rwkv6_wkv_bwd", *wkv_bwd_work(B, T, H, C), "f32")
+        return dr, dk, dv, dlogw, du.sum((0, 1))
     code = _cuda.library().rwkv6_wkv_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), hs.data_ptr(),
         dy.data_ptr(), _cuda.ptr(dh_final), dhs.data_ptr(), dr.data_ptr(), dk.data_ptr(),
@@ -155,4 +196,5 @@ def wkv6_bwd_cuda(
 
 
 __all__ = ["BWD_GROUP", "BWD_KERNELS", "BWD_LAUNCHES", "CHUNK", "HEAD_DIM", "KERNELS",
-           "LAUNCHES", "bwd_groups", "check_shapes", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda", "wkv6_plain"]
+           "LAUNCHES", "bwd_groups", "check_shapes", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda",
+           "wkv6_plain", "wkv_bwd_work", "wkv_work"]

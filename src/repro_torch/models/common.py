@@ -103,6 +103,11 @@ def init_params(specs: Tree, generator: torch.Generator, device) -> Tree:
     return out
 
 
+def param_count(specs: Tree) -> int:
+    """The number of parameters of a spec tree."""
+    return sum(math.prod(s.shape) for _, s in iter_leaves(specs))
+
+
 def stack_specs(specs: Tree, num: int, axis_name: str = "layers") -> Tree:
     """Prepend a stacked dimension, on logical axis ``axis_name``, to every
     leaf."""

@@ -16,7 +16,8 @@ Under ``rules`` (``distributed.sharding.ShardingRules`` on a
 DTensors: the bf16 parameters rest at ``param_shardings`` and master, m
 and v at ``optimizer_shardings`` (ZeRO-1: one more dimension over
 "data").  Every rank's loader yields the same global batch, and a step
-keeps this rank's data shard of it (``batch_shardings``), gathers the
+keeps this rank's data shard of it (``batch_shardings``; a batch leaf that
+is a DTensor at that sharding is taken as the rank's shard), gathers the
 parameters, computes the loss and gradients of its shard, all-reduces the
 gradients in float32 over the data axes (their mean), clips by the norm of
 the reduced gradient, updates its own chunk of master, m and v, and places
@@ -200,8 +201,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
         b_shardings = batch_shardings(batch, rules)
         for k, v in batch.items():
             b_shardings[k].shard_shape(v.shape)     # raises unless the data ranks divide it
-        mine = {k: local_chunk(v, rules.mesh, b_shardings[k].placements())
-                for k, v in batch.items()}
+            if is_dtensor(v) and tuple(v.placements) != b_shardings[k].placements():
+                raise ValueError(f"batch leaf {k!r} is placed at {v.placements}, not at its"
+                                 f" batch sharding {b_shardings[k].placements()}")
+        # a DTensor leaf at its batch sharding is this rank's chunk already
+        mine = {k: v.to_local() if is_dtensor(v) else
+                local_chunk(v, rules.mesh, b_shardings[k].placements()) for k, v in batch.items()}
         params = tree_map(gather, state["params"])
         loss, metrics, grads = loss_and_grads(params, mine)
         del params

@@ -1368,3 +1368,45 @@ def test_smoke_train_steps_on_the_card(dev, arch):
     assert int(state["opt"]["step"]) == 4 and np.isfinite(losses).all()
     assert losses[-1] < losses[1], losses
     assert all(p.dtype == torch.bfloat16 and p.is_cuda for _, p in iter_leaves(state["params"]))
+
+
+DRY_RUN_FAMILIES = """
+import json
+from repro_torch import kernels
+from repro_torch.configs import ShapeCell, smoke_config
+from repro_torch.launch.dryrun import dryrun_cell, init_fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.roofline import family_launches
+
+init_fake_world(1)
+mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+cell = ShapeCell("train_smoke", "train", 32, 4)
+out = {}
+for arch in ("llama3.2-1b", "granite-moe-3b-a800m", "zamba2-7b", "rwkv6-1.6b"):
+    cfg = smoke_config(arch)
+    r = dryrun_cell(arch, cell.name, cfg=cfg, cell=cell, mesh=mesh)
+    out[arch] = [{k: v["launches"] for k, v in r["analysis"]["kernels"].items()},
+                 family_launches(cfg)]
+print(json.dumps({"families": out, "counts": kernels.launch_counts()}))
+"""
+
+
+def test_a_dry_run_records_each_training_steps_kernel_launches(dev):
+    """A smoke training step traced on fake CUDA tensors (``launch/dryrun.py``
+    on a fake world of one rank, in a child: the fake process group is
+    process-wide) records the launches the real step makes
+    (``family_launches``), and launches nothing."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    proc = subprocess.run([sys.executable, "-c", DRY_RUN_FAMILIES], capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(src)))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(v == 0 for v in got["counts"].values()), got["counts"]
+    for arch, (recorded, expected) in got["families"].items():
+        assert recorded == expected, arch
