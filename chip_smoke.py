@@ -8,13 +8,16 @@ collective partition), dense LM serving, zamba2 hybrid serving, rwkv6
 scoring, loss and serving, MoE serving (granite-moe-3b-a800m,
 qwen3-moe-30b-a3b), training (llama3.2-1b and the hubert-xlarge
 encoder, through the flash backward kernel; the MoE, hybrid and RWKV6
-families), training under sharding rules on a one-rank NCCL mesh, and the
-dry run (``launch/dryrun.py``) with its prediction held against the card.
+families), training under sharding rules on a one-rank NCCL mesh,
+tensor-parallel training and serving over two gloo ranks on the card, and
+the dry run (``launch/dryrun.py``) with its prediction held against the
+card.
 
     python3 chip_smoke.py [--seed S] [--records N] [--out DIR]
 
 Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
-3g, 3b (started), 7, 8, 10, 10b, 10c, 11, 3b (waited for), 3c-3f, 6, 9, 5:
+3g, 3b (started), 7, 8, 10, 10b, 10c, 11 (started), 10d, 11, 3b (waited
+for), 3c-3f, 6, 9, 5:
 
 1. build     -- compile the nine CUDA sources (``src/repro_torch/csrc``) with
                 nvcc for sm_90a, one process per source, at first use, into
@@ -357,6 +360,32 @@ Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
                 layers (gathered, written by rank 0) restored onto the
                 mesh by ``restore_for_mesh``, equal to the saved state bit
                 for bit.
+10d. tensor parallel -- (after 10c, beside phase 11's children) two gloo
+                ranks, processes on the one card (NCCL refuses two ranks on
+                one card), on a (1, 2) ("data", "model") mesh; the port's
+                tensor-parallel collectives copy CUDA tensors through host
+                memory on a gloo group: (a) llama3.2-1b at full width and
+                depth, 3 ``Trainer`` steps of 4 x 2048 under
+                ``default_rules`` (16 q and 4 kv heads a rank) against 3
+                steps without rules of the same batches in this process:
+                each loss within 1e-3 (relative above 1), each gradient
+                norm within 1e-2
+                relative, the master's update within 5e-2 relative L2,
+                flash and its backward launched as phase 10 counts them;
+                (b) one step of rwkv6-1.6b (2 layers) and zamba2-7b (1
+                layer after a shared-block call) at full width, 8 x 2048,
+                each gradient leaf within 3e-2 relative L2 of the unsplit
+                step, or within twice the unsplit step's own movement under
+                an embedding scaled by (1 + 1e-3 N(0, 1)) where that is
+                larger, the WKV, the SSD, flash and their backwards launched
+                on the ranks' heads; (c) a prefill of 4 x 2048 and 15
+                decode tokens of llama3.2-1b on each rank's parameter and
+                cache chunks, layer by layer (each split layer fed the
+                unsplit layer's input, at every pass) every output and the
+                head's logits within 2e-2 (1 + |b|) of the unsplit model's,
+                the end-to-end logits reported; each rank's
+                ``max_memory_allocated``, their sum, each step's seconds
+                and the phase's printed.
 11. dry run  -- (after 10c; its children start together) (a) ``python -m
                 repro_torch.launch.dryrun`` of the reference test's cells,
                 qwen2-0.5b ``decode_32k`` on the 16x16 and 2x16x16 fake
@@ -378,15 +407,17 @@ Phases, one line each with its seconds, run in the order 1, 2, 2b, 3, 4,
                 device events of a real step, and arguments + temp lie
                 within 10% of ``max_memory_allocated`` over a real step;
                 the roofline terms, the dominant one and the measured share
-                of the bf16 peak printed beside the card.
+                of the bf16 peak printed beside the card; and phase 10d(a)'s
+                step traced on a fake world of two ranks: rank 0's argument
+                bytes and aten FLOPs equal to phase 10d's real rank 0's.
 
 Phase 3 also times one block's partition-time summary by stage (copy off
 the card, float64 moments, each host sketch).  Each path's launch counts
 are set to 0 just before the path is driven and read just after (the main
 path, the estimator, the drift monitor, the first serve wave, each mesh
 run on threads, each rank of the collective partition, each LM path, each
-MoE generate, each training run and step, each sharded training run, phase
-11's profiled step).
+MoE generate, each training run and step, each sharded training run, each
+tensor-parallel rank's runs, phase 11's profiled step).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  The
@@ -5399,6 +5430,485 @@ def sharded_train(args, device, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10d: tensor parallel over "model", two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, 2)               # ("data", "model")
+TP_STEPS = 3                   # Trainer steps with and without rules
+TP_BATCH = 4                   # rows of each loader batch a step takes
+TP_FAMILY_BATCH = TRAIN_BATCH  # rows of (b)'s one step, as phase 10b's parity step
+TP_DECODE = 16                 # decode tokens of (c)
+TP_TIMEOUT = 600               # seconds the two ranks may take
+# tests/test_torch_sharding.py's gates of a step under rules
+# (the loss's relative to it above 1: the random llama3.2-1b's third loss
+# is 12-13 at a gradient norm of 190-405, where bf16 logits' rounding moved
+# it by 1.6e-3 and 2.3e-3 between the runs, at learning rates 3e-5 and
+# 3e-4: H100 runs, PERF.md §6)
+TP_LOSS_TOL, TP_GRAD_NORM_REL, TP_UPDATE_REL_L2 = 1e-3, 1e-2, 5e-2
+TP_FAMILIES = ("rwkv6-1.6b", "zamba2-7b")
+# (b) holds each gradient leaf within FAMILY_GRAD_TOL or, where the unsplit
+# step itself moves more under an embedding scaled by (1 + TP_NOISE N(0,
+# 1)), within TP_NOISE_MARGIN times that: at full width zamba2-7b's C and
+# B projections move 4.0-4.9% and, at 8 x 2048, rwkv6-1.6b's u 22% (H100
+# runs, PERF.md §6), more than any rounding of a split step stays within
+TP_NOISE, TP_NOISE_MARGIN = 1e-3, 2.0
+TP_DEVICE_TYPE = "cuda"        # the ranks' device and mesh
+
+
+def tp_train_config(seed: int):
+    """Phase 10d(a)'s TrainConfig, which phase 11(b) traces too."""
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(total_steps=TP_STEPS, warmup_steps=1, log_every=1,
+                       checkpoint_every=10**9, seed=seed)
+
+
+def tp_batch(batch):
+    """The first TP_BATCH rows of a loader batch, as int32 tokens."""
+    import torch
+
+    return {"tokens": batch[:TP_BATCH].to(torch.int32)}
+
+
+def _split_sums(got: dict, want: dict, mesh, shardings: dict) -> dict:
+    """Per leaf path: the squared L2 of ``got - chunk(want)`` and of
+    ``chunk(want)`` over this rank's chunk (``want`` whole, ``got`` the
+    rank's chunk at ``shardings``), and whether "model" splits it."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import local_chunk
+
+    out = {}
+    for path, g in got.items():
+        pl = shardings[path].placements()
+        w = local_chunk(want[path], mesh, pl).to(g.device).float()
+        out["/".join(path)] = {"diff2": float(((g.float() - w) ** 2).sum()),
+                               "ref2": float((w ** 2).sum()),
+                               "split": any(isinstance(p, Shard) for p in pl)}
+    return out
+
+
+def tp_child(rank: int, port: int, tmp: str, seed: int) -> dict:
+    """One rank of phase 10d: joins a two-rank gloo group on the parent's
+    store and a TP_MESH ("data", "model") mesh on the card, then (a) trains
+    llama3.2-1b TP_STEPS Trainer steps under ``default_rules`` and compares
+    its chunk of the master's update with the parent's run without rules,
+    counting its steps' aten FLOPs for phase 11(b); (b) one step of
+    each TP_FAMILIES cut to FAMILY_PARITY_LAYERS, its gradient chunks
+    against the unsplit step's; (c) a prefill of TP_BATCH x TRAIN_SEQ and
+    TP_DECODE decode tokens of llama3.2-1b on its parameter and cache
+    chunks, against the unsplit model's layer by layer (each split layer on
+    the unsplit layer's input) and end to end."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.distributed.sharding import (
+        activation_sharding, default_rules, local_caches, local_chunk, param_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import local_bytes
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params, iter_leaves, rmsnorm, set_leaf
+    from repro_torch.models.transformer import build_lm, init_caches
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, init_state, param_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(TP_DEVICE_TYPE, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.TCPStore("127.0.0.1", port, is_master=False),
+                            rank=rank, world_size=2)
+    out: dict = {"rank": rank}
+
+    def mark(what: str) -> None:     # progress, for a rank that dies
+        print(f"tensor-parallel rank {rank}: {what}", file=sys.stderr, flush=True)
+
+    try:
+        mesh = make_host_mesh(TP_MESH, ("data", "model"), device_type=TP_DEVICE_TYPE)
+        mark("mesh")
+
+        def chunks(tree, cfg, rules):
+            # this rank's chunk of every leaf of a whole (plain) tree: a
+            # DTensor's chunk would be a collective, which gloo crashes on
+            # for CUDA tensors
+            sh = dict(iter_leaves(param_shardings(api.model_specs(cfg), rules)))
+            local: dict = {}
+            for path, t in iter_leaves(tree):
+                set_leaf(local, path, local_chunk(t, mesh, sh[path].placements()))
+            return local, sh
+
+        # (a) llama3.2-1b, TP_STEPS Trainer steps under rules
+        cfg = ARCHS[TRAIN_ARCH]
+        rules = default_rules(mesh, cfg=cfg)
+        tp = tpl.from_rules(rules)
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, seed, device, False)
+        state = init_state(cfg, seed, device=device, rules=rules)
+        before = {p: t.to_local().clone() for p, t in iter_leaves(state["opt"]["master"])}
+        out["arguments"] = local_bytes(state) + 4 * TP_BATCH * (TRAIN_SEQ + 1)   # int32 batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tp_train_config(seed), loader,
+                          f"{tmp}/ckpt{rank}", device=device, rules=rules,
+                          batch_transform=tp_batch)
+        mark("(a) training")
+        # every step's aten FLOPs are the same: the run's over TP_STEPS
+        with FlopCounterMode(display=False) as fc:
+            state = trainer.run(state)
+        torch.cuda.synchronize()
+        out["flops"], left = divmod(fc.get_total_flops(), TP_STEPS)
+        out["flops_rest"] = left
+        mark("(a) trained")
+        out["train"] = {"s": time.perf_counter() - t0,
+                        "counts": {k: v for k, v in kernels.launch_counts().items() if v},
+                        "history": trainer.history,
+                        "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                        "heads": (cfg.num_heads // TP_MESH[1], cfg.num_kv_heads // TP_MESH[1])}
+        plain = torch.load(f"{tmp}/plain_update.pt", mmap=True)
+        upd = {p: t.to_local() - before[p] for p, t in iter_leaves(state["opt"]["master"])}
+        del before
+        out["train"]["update"] = _split_sums(
+            upd, {tuple(k.split("/")): v for k, v in plain.items()}, mesh,
+            dict(iter_leaves(param_shardings(api.model_specs(cfg), rules))))
+        del upd, plain
+        loader.close()
+        del state, trainer
+        torch.cuda.empty_cache()
+
+        # (b) one step of each family on the rank's heads, against the unsplit step
+        out["families"] = {}
+        for arch in TP_FAMILIES:
+            mark(f"(b) {arch}")
+            fcfg = dataclasses.replace(ARCHS[arch], num_layers=FAMILY_PARITY_LAYERS[arch])
+            frules = default_rules(mesh, cfg=fcfg)
+            ftp = tpl.from_rules(frules)
+            gen = torch.Generator(device=device).manual_seed(seed + 13)
+            fbatch = {"tokens": torch.randint(0, fcfg.vocab_size, (TP_FAMILY_BATCH, TRAIN_SEQ + 1),
+                                              generator=gen, device=device, dtype=torch.int32)}
+            params = init_state(fcfg, seed, device=device)["params"]
+            model = build_lm(fcfg, params, device=device, trainable=True)
+            loss, _ = api.make_loss_fn(model)(fbatch)
+            loss.backward()
+            want = param_grads(model, params)
+            del model
+            control = None
+            if rank == 0:
+                # the unsplit step's own sensitivity: its embedding scaled by
+                # (1 + TP_NOISE N(0, 1)), about a bf16 rounding; each leaf's
+                # relative L2 from the step (see TP_NOISE_MARGIN)
+                shaken = init_state(fcfg, seed, device=device)["params"]
+                table = shaken["embed"]["table"]
+                noise = torch.randn(table.shape, device=device,
+                                    generator=torch.Generator(device=device).manual_seed(seed + 19))
+                table.copy_((table.float() * (1 + TP_NOISE * noise)).to(table.dtype))
+                model = build_lm(fcfg, shaken, device=device, trainable=True)
+                api.make_loss_fn(model)(fbatch)[0].backward()
+                moved = param_grads(model, shaken)
+                control = {"/".join(p): float((a.float() - b.float()).norm() / b.float().norm())
+                           if float(b.float().norm()) else 0.0
+                           for (p, a), (_, b) in zip(iter_leaves(moved), iter_leaves(want))}
+                del model, moved, shaken, table, noise
+            local, fsh = chunks(params, fcfg, frules)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with activation_sharding(frules), tpl.tensor_parallel(ftp):
+                model = build_lm(fcfg, local, device=device, trainable=True)
+                tloss, _ = api.make_loss_fn(model)(fbatch)
+                tloss.backward()
+                got = param_grads(model, local)
+            torch.cuda.synchronize()
+            out["families"][arch] = {
+                "layers": fcfg.num_layers, "s": time.perf_counter() - t0, "control": control,
+                "loss": [float(tloss.detach()), float(loss.detach())],
+                "counts": {k: v for k, v in kernels.launch_counts().items() if v},
+                "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                "grads": _split_sums(dict(iter_leaves(got)), dict(iter_leaves(want)), mesh, fsh)}
+            del model, params, local, got, want, loss, tloss
+            torch.cuda.empty_cache()
+
+        # (c) llama3.2-1b prefill and decode on the rank's chunks, end to end
+        # and layer by layer (each split layer fed the unsplit layer's input)
+        mark("(c)")
+        gen = torch.Generator(device=device).manual_seed(seed + 17)
+        toks = torch.randint(0, cfg.vocab_size, (TP_BATCH, TRAIN_SEQ + TP_DECODE),
+                             generator=gen, device=device, dtype=torch.int32)
+        full = init_params(api.model_specs(cfg), torch.Generator(device=device).manual_seed(seed),
+                           device)
+        local, _ = chunks(full, cfg, rules)
+        lo, hi = tp.chunk(cfg.vocab_size)
+        passes = [toks[:, :TRAIN_SEQ]] + [toks[:, t:t + 1]
+                                          for t in range(TRAIN_SEQ, TRAIN_SEQ + TP_DECODE)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        models, caches, secs = {}, {}, {}
+        for tag, params, r in (("split", local, rules), ("whole", full, None)):
+            with activation_sharding(r), tpl.tensor_parallel(tp if r is not None else None):
+                models[tag] = build_lm(cfg, params, device=device)
+            c = init_caches(cfg, TP_BATCH, TRAIN_SEQ + TP_DECODE, dtype=torch.float32,
+                            device=device)
+            caches[tag] = local_caches(c, r) if r is not None else c
+        split, whole = models["split"], models["whole"]
+        seen: list = []
+        hooks = [layer.register_forward_hook(
+            lambda mod, a, kw, o: seen.append((a[0], a[1], o[0])), with_kwargs=True)
+            for layer in whole.layers]
+        layers, e2e = {}, {}
+        lcache = {k: caches["split"]["layers"][k].clone() for k in ("k", "v")}
+        length = 0
+        with torch.no_grad():
+            for n, chunk in enumerate(passes):
+                fn = api.make_prefill_fn if n == 0 else api.make_decode_fn
+                seen.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want, caches["whole"] = fn(whole)(caches["whole"], {"tokens": chunk})
+                torch.cuda.synchronize()
+                secs["whole"] = secs.get("whole", 0.0) + time.perf_counter() - t0
+                with activation_sharding(rules), tpl.tensor_parallel(tp):
+                    t0 = time.perf_counter()
+                    got, caches["split"] = fn(split)(caches["split"], {"tokens": chunk})
+                    torch.cuda.synchronize()
+                    secs["split"] = secs.get("split", 0.0) + time.perf_counter() - t0
+                    _tally(e2e, "logits", got, want[..., lo:hi], LAYER_TOL)
+                    for i, (h, positions, h_out) in enumerate(seen):
+                        cache = {"k": lcache["k"][i], "v": lcache["v"][i], "length": length}
+                        _tally(layers, "layer output", split.layers[i](h, positions, cache)[0],
+                               h_out, LAYER_TOL)
+                    h_last = rmsnorm(whole.final_norm, seen[-1][2], eps=cfg.norm_eps)[:, -1:]
+                    _tally(layers, "logits", split.logits(h_last),
+                           whole.logits(h_last)[..., lo:hi], LAYER_TOL)
+                length += chunk.shape[1]
+        for hook in hooks:
+            hook.remove()
+        out["serve"] = {"split_s": secs["split"], "whole_s": secs["whole"], "decode": TP_DECODE,
+                        "layers": layers, "end_to_end": e2e,
+                        "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        del full, local, models, caches, split, whole, lcache, seen
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _leaf_rel(ranks: list, key) -> dict:
+    """Each leaf's relative L2 over the ranks' sums (a leaf "model" splits
+    sums every rank's chunk; a replicated one is rank 0's)."""
+    out = {}
+    for path, r0 in key(ranks[0]).items():
+        parts = [key(r)[path] for r in ranks] if r0["split"] else [r0]
+        diff2, ref2 = sum(p["diff2"] for p in parts), sum(p["ref2"] for p in parts)
+        out[path] = (diff2 ** 0.5 / ref2 ** 0.5) if ref2 else (0.0 if not diff2 else float("inf"))
+    return out
+
+
+def _whole_rel(ranks: list, key) -> float:
+    """The relative L2 over every leaf together (split leaves summed over
+    the ranks, replicated ones counted once)."""
+    diff2 = ref2 = 0.0
+    for path, r0 in key(ranks[0]).items():
+        for p in ([key(r)[path] for r in ranks] if r0["split"] else [r0]):
+            diff2, ref2 = diff2 + p["diff2"], ref2 + p["ref2"]
+    return (diff2 / ref2) ** 0.5
+
+
+def tensor_parallel(args, device, gpu: str) -> dict:
+    """Phase 10d: tensor parallelism over two gloo ranks, processes on the
+    one card (NCCL refuses two ranks on one card) on a TP_MESH ("data",
+    "model") mesh.  gloo refuses some collectives on CUDA tensors, so the
+    port's tensor-parallel collectives copy a CUDA tensor through host
+    memory on a gloo group (``distributed.tensor_parallel``, as the
+    collective partition's exchange does).  This process first trains
+    llama3.2-1b TP_STEPS Trainer steps without rules (full width and depth,
+    TP_BATCH x TRAIN_SEQ) and writes the master's update; then the two
+    ranks (:func:`tp_child`) run (a)-(c).  Gates: (a) each step's loss
+    within 1e-3 (relative to the loss above 1), gradient norm within 1e-2
+    relative, the master's whole
+    update within 5e-2 relative L2 (tests/test_torch_sharding.py's), flash
+    and its backward launched as phase 10 counts them on each rank's 16 q
+    and 4 kv heads; (b) each gradient leaf within FAMILY_GRAD_TOL relative
+    L2, or within TP_NOISE_MARGIN times the unsplit step's own movement
+    under an embedding scaled by (1 + TP_NOISE N(0, 1)) where that is
+    larger, the SSD, WKV and their backward kernels launched on the
+    ranks' heads; (c) layer by layer -- each split layer fed the unsplit
+    layer's input, at every prefill and decode pass, its cache filled
+    from those inputs -- every output and the head's logits within
+    LAYER_TOL (1 + |b|); the end-to-end logits are reported.  No CPU fallback and
+    no failure caught."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import serve_store
+    from repro_torch.launch.roofline import family_launches
+    from repro_torch.models.common import iter_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, init_state
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rsp_tp_")
+    out: dict = {"mesh": list(TP_MESH),
+                 "transport": "gloo; CUDA tensors copied through host memory"}
+    try:
+        cfg = ARCHS[TRAIN_ARCH]
+        loader = token_loader(cfg.vocab_size, TRAIN_SEQ + 1, args.seed, device, False)
+        state = init_state(cfg, args.seed, device=device)
+        before = {p: t.clone() for p, t in iter_leaves(state["opt"]["master"])}
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, AdamWConfig(lr=TRAIN_LR), tp_train_config(args.seed), loader,
+                          f"{tmp}/plain", device=device, batch_transform=tp_batch)
+        state = trainer.run(state)
+        torch.cuda.synchronize()
+        loader.close()
+        plain = {"s": time.perf_counter() - t0, "history": trainer.history}
+        torch.save({"/".join(p): (t - before[p]).bfloat16().cpu()
+                    for p, t in iter_leaves(state["opt"]["master"])}, f"{tmp}/plain_update.pt")
+        del state, before, trainer
+        torch.cuda.empty_cache()
+
+        server = serve_store()
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        procs = []
+        for rank in range(2):
+            log = open(Path(tmp) / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(args.seed),
+                 "--tp-child", str(rank), str(server.port), tmp],
+                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)), log))
+        t_children = time.perf_counter()
+        codes = []
+        for proc, log in procs:
+            left = TP_TIMEOUT - (time.perf_counter() - t_children)
+            try:
+                codes.append(proc.wait(timeout=max(left, 1.0)))
+            except subprocess.TimeoutExpired:
+                for p, _ in procs:
+                    p.kill()
+                    p.wait()
+                codes.append(None)
+            log.close()
+        texts = [(Path(tmp) / f"rank{rank}.log").read_text() for rank in range(2)]
+        check(codes == [0, 0], "tensor-parallel ranks exited " + ", ".join(
+            f"{'timed out' if c is None else c}: {t[-6000:]}" for c, t in zip(codes, texts)))
+        ranks = [json.loads(t.strip().splitlines()[-1]) for t in texts]
+        out["children_s"] = time.perf_counter() - t_children
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) the training steps
+    L = cfg.num_layers
+    hist = ranks[0]["train"]["history"]
+    ref = plain["history"]
+    upd = _leaf_rel(ranks, lambda r: r["train"]["update"])
+    worst = max(upd, key=upd.get)
+    train = {"losses": [h["loss"] for h in hist], "plain_losses": [h["loss"] for h in ref],
+             "grad_norms": [h["grad_norm"] for h in hist],
+             "plain_grad_norms": [h["grad_norm"] for h in ref],
+             "step_s": [h["sec_per_step"] for h in hist],
+             "plain_step_s": [h["sec_per_step"] for h in ref],
+             "update_rel_l2": _whole_rel(ranks, lambda r: r["train"]["update"]),
+             "worst_leaf": [worst, upd[worst]],
+             "counts": [r["train"]["counts"] for r in ranks],
+             "peak_gb": [r["train"]["peak_gb"] for r in ranks],
+             "heads_a_rank": ranks[0]["train"]["heads"]}
+    train["peak_gb_sum"] = sum(train["peak_gb"])
+    out["train"] = train
+    print(f"tensor parallel (a) ({cfg.name}, mesh {TP_MESH}, {TP_STEPS} Trainer steps of"
+          f" {TP_BATCH} x {TRAIN_SEQ}, {train['heads_a_rank'][0]} q and"
+          f" {train['heads_a_rank'][1]} kv heads a rank): losses {json.dumps(train['losses'])}"
+          f" against {json.dumps(train['plain_losses'])} without rules; gradient norms"
+          f" {json.dumps(train['grad_norms'])} against {json.dumps(train['plain_grad_norms'])};"
+          f" the master's update {train['update_rel_l2']:.4g} relative L2 (worst leaf {worst}"
+          f" {upd[worst]:.4g}); step seconds {json.dumps([round(x, 4) for x in train['step_s']])}"
+          f" (without rules, one process: {json.dumps([round(x, 4) for x in train['plain_step_s']])});"
+          f" max_memory_allocated a rank {json.dumps([round(x, 3) for x in train['peak_gb']])} GB,"
+          f" sum {train['peak_gb_sum']:.3f} GB; launches a rank {json.dumps(train['counts'])}"
+          f" [{gpu}]", flush=True)
+    for g, w in zip(hist, ref):
+        check(abs(g["loss"] - w["loss"]) < TP_LOSS_TOL * max(1.0, abs(w["loss"])),
+              f"tensor parallel (a): loss {g['loss']} against {w['loss']} without rules")
+        check(abs(g["grad_norm"] - w["grad_norm"]) <= TP_GRAD_NORM_REL * abs(w["grad_norm"]),
+              f"tensor parallel (a): gradient norm {g['grad_norm']} against {w['grad_norm']}")
+    check(train["update_rel_l2"] < TP_UPDATE_REL_L2, f"tensor parallel (a): the master's update"
+          f" is {train['update_rel_l2']:.4g} relative L2 from the run without rules")
+    for r, c in enumerate(train["counts"]):
+        check(c.get("flash_attention") == TP_STEPS * 2 * L
+              and c.get("flash_attention_bwd") == TP_STEPS * L,
+              f"tensor parallel (a) rank {r}: launches {c} in {TP_STEPS} steps")
+
+    # (b) the families' one step
+    fams = {}
+    for arch in TP_FAMILIES:
+        per = [r["families"][arch] for r in ranks]
+        rel = _leaf_rel(per, lambda r: r["grads"])
+        worst = max(rel, key=rel.get)
+        control = per[0]["control"]
+        allowed = {k: max(FAMILY_GRAD_TOL, TP_NOISE_MARGIN * control[k]) for k in rel}
+        over = {k: [rel[k], allowed[k]] for k in rel if rel[k] > allowed[k]}
+        fams[arch] = {"layers": per[0]["layers"], "loss": per[0]["loss"],
+                      "noise_rel_l2": control, "worst_noise": [max(control, key=control.get),
+                                                              max(control.values())],
+                      "beyond": over,
+                      "grad_rel_l2_max": rel[worst], "worst_leaf": worst, "leaves": len(rel),
+                      "counts": [p["counts"] for p in per], "s": [p["s"] for p in per],
+                      "peak_gb": [p["peak_gb"] for p in per]}
+        print(f"tensor parallel (b) ({arch}, {per[0]['layers']} layers, {TP_FAMILY_BATCH} x"
+              f" {TRAIN_SEQ}): loss {per[0]['loss'][0]:.5f} against {per[0]['loss'][1]:.5f}"
+              f" unsplit; largest gradient relative L2 {rel[worst]:.3g} ({worst}) of"
+              f" {len(rel)} leaves; the unsplit step's own, its embedding scaled by"
+              f" (1 + {TP_NOISE} N(0, 1)): {control[worst]:.3g} there, largest"
+              f" {fams[arch]['worst_noise'][1]:.3g} ({fams[arch]['worst_noise'][0]}); seconds {json.dumps([round(x, 3) for x in fams[arch]['s']])};"
+              f" max_memory_allocated {json.dumps([round(x, 3) for x in fams[arch]['peak_gb']])}"
+              f" GB; launches a rank {json.dumps(fams[arch]['counts'])} [{gpu}]", flush=True)
+        check(not over, f"tensor parallel (b) {arch}: gradient leaves beyond"
+              f" max({FAMILY_GRAD_TOL}, {TP_NOISE_MARGIN} x the step's own sensitivity)"
+              f" (relative L2, allowed): {over}")
+        for r, c in enumerate(fams[arch]["counts"]):
+            want = family_launches(ARCHS[arch])
+            check(all(c.get(k, 0) > 0 for k in want), f"tensor parallel (b) {arch} rank {r}:"
+                  f" launches {c}, expected every one of {sorted(want)}")
+    out["families"] = fams
+
+    # (c) prefill and decode
+    serve = {k: [r["serve"][k] for r in ranks] for k in ranks[0]["serve"]}
+    out["serve"] = serve
+    bad = {name: sum(r["serve"]["layers"][name]["bad"] for r in ranks)
+           for name in ranks[0]["serve"]["layers"]}
+    e2e = [r["serve"]["end_to_end"]["logits"] for r in ranks]
+    print(f"tensor parallel (c) ({cfg.name}, prefill {TP_BATCH} x {TRAIN_SEQ} and {TP_DECODE}"
+          f" decode tokens), layer by layer: values beyond {LAYER_TOL} (1 + |b|) {json.dumps(bad)}"
+          f" of {json.dumps({k: sum(r['serve']['layers'][k]['values'] for r in ranks) for k in bad})},"
+          f" max |split - whole|"
+          f" {json.dumps({k: max(r['serve']['layers'][k]['max_abs_err'] for r in ranks) for k in bad})};"
+          f" end to end ({cfg.num_layers} layers of rounding carried, no gate):"
+          f" {sum(e['bad'] for e in e2e)} of"
+          f" {sum(e['values'] for e in e2e)} logits beyond it, max"
+          f" {max(e['max_abs_err'] for e in e2e):.4g}; seconds split"
+          f" {json.dumps([round(x, 3) for x in serve['split_s']])}, whole"
+          f" {json.dumps([round(x, 3) for x in serve['whole_s']])}; max_memory_allocated"
+          f" {json.dumps([round(x, 3) for x in serve['peak_gb']])} GB [{gpu}]", flush=True)
+    check(not any(bad.values()), f"tensor parallel (c): layer-by-layer values beyond"
+          f" {LAYER_TOL} (1 + |b|) of the unsplit model's: {bad}")
+    check(ranks[0]["flops_rest"] == 0, f"tensor parallel (a): {TP_STEPS} steps' aten FLOPs"
+          f" {ranks[0]['flops']} x {TP_STEPS} + {ranks[0]['flops_rest']} are not equal steps'")
+    out["real_rank0"] = {"arguments": ranks[0]["arguments"], "flops": ranks[0]["flops"]}
+    out["s"] = time.perf_counter() - t_phase
+    phase("tensor parallel", t_phase, f"children {out['children_s']:.1f} s; phase"
+          f" {out['s']:.1f} s [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: the dry run (launch/dryrun.py), and its prediction against the card
 # ---------------------------------------------------------------------------
 
@@ -5424,7 +5934,10 @@ def dryrun_child(seed: int) -> dict:
     is process-wide): phase 10c's training step of llama3.2-1b at TRAIN_BATCH
     x TRAIN_SEQ on a fake world of one rank and a (1, 1) mesh, on fake CUDA
     tensors; and one training step of each DRYRUN_FAMILIES smoke config,
-    whose recorded kernel launches must be family_launches'."""
+    whose recorded kernel launches must be family_launches'; then phase
+    10d(a)'s step on a fake world of two ranks and a TP_MESH mesh."""
+    import torch.distributed as dist
+
     from repro_torch.configs import ARCHS, ShapeCell, smoke_config
     from repro_torch.launch.dryrun import dryrun_cell, init_fake_world
     from repro_torch.launch.mesh import make_host_mesh
@@ -5443,6 +5956,13 @@ def dryrun_child(seed: int) -> dict:
         out["families"][arch] = {
             "recorded": {k: v["launches"] for k, v in r["analysis"]["kernels"].items()},
             "expected": family_launches(cfg)}
+    # phase 10d(a)'s step on a fake world of its two ranks: rank 0's program
+    dist.destroy_process_group()
+    init_fake_world(TP_MESH[0] * TP_MESH[1])
+    mesh = make_host_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    cell = ShapeCell(f"train_{TP_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TP_BATCH)
+    out["tensor_parallel"] = dryrun_cell(TRAIN_ARCH, cell.name, cfg=ARCHS[TRAIN_ARCH], cell=cell,
+                                         train_cfg=tp_train_config(seed), mesh=mesh)
     return out
 
 
@@ -5496,7 +6016,7 @@ def dryrun_wait(started: dict) -> dict:
     return out
 
 
-def dryrun_phase(args, device, gpu: str, started: dict) -> dict:
+def dryrun_phase(args, device, gpu: str, started: dict, tp: dict) -> dict:
     """Phase 11: (a) the reference test's dry-run cells, run with no card
     visible, gated as tests/test_dryrun_launch.py gates the reference's;
     (b) the dry run of phase 10c's training step held against one real step
@@ -5506,7 +6026,10 @@ def dryrun_phase(args, device, gpu: str, started: dict) -> dict:
     ``family_launches`` and to the profiler's device events of the real
     step, and arguments + temp within PEAK_TOL of the step's
     ``max_memory_allocated``; then the roofline terms and the step's
-    measured share of the bf16 peak."""
+    measured share of the bf16 peak; and phase 10d(a)'s step traced on a
+    fake two-rank world: rank 0's argument bytes and aten FLOPs equal to
+    phase 10d's rank 0 (``tp``: its state's and batch's bytes, a
+    ``FlopCounterMode`` count of its step)."""
     import torch
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
@@ -5645,6 +6168,29 @@ def dryrun_phase(args, device, gpu: str, started: dict) -> dict:
     check(abs(predicted - peak) <= PEAK_TOL * peak, f"dry run arguments + temp"
           f" {predicted / 1e9:.3f} GB, the real step's peak {peak / 1e9:.3f} GB: beyond"
           f" {PEAK_TOL:.0%}")
+    # phase 10d(a)'s step: rank 0 of a fake two-rank world against the real rank 0
+    tpd = got["train"]["tensor_parallel"]
+    real = tp["real_rank0"]
+    out["tensor_parallel"] = {
+        "arguments": tpd["memory"]["argument_size_in_bytes"], "real_arguments": real["arguments"],
+        "aten_flops": tpd["analysis"]["aten_flops"], "real_flops": real["flops"],
+        "single_rank_aten_flops": analysis["aten_flops"] * TP_BATCH / TRAIN_BATCH,
+        "collectives": tpd["analysis"]["collectives"],
+        "recorded_launches": {k: v["launches"] for k, v in tpd["analysis"]["kernels"].items()},
+        "temp": tpd["memory"]["temp_size_in_bytes"], "trace_s": tpd["lower_s"]}
+    t = out["tensor_parallel"]
+    print(f"dry run against the card, tensor parallel ({TRAIN_ARCH}, {TP_BATCH} x {TRAIN_SEQ},"
+          f" mesh {TP_MESH}, rank 0): arguments {t['arguments']:,} B (real rank 0"
+          f" {t['real_arguments']:,}); aten FLOPs {t['aten_flops']:.6e} (FlopCounterMode of the"
+          f" real rank 0's step {t['real_flops']:.6e}; the (1, 1) step's, scaled to"
+          f" {TP_BATCH} rows, {t['single_rank_aten_flops']:.6e}); collectives"
+          f" {json.dumps(t['collectives'])}; launches {json.dumps(t['recorded_launches'])}"
+          f" [{gpu}]", flush=True)
+    check(t["arguments"] == t["real_arguments"], f"dry run tensor parallel: arguments"
+          f" {t['arguments']:,} B, the real rank 0's state and batch {t['real_arguments']:,} B")
+    check(t["aten_flops"] == t["real_flops"], f"dry run tensor parallel: aten FLOPs"
+          f" {t['aten_flops']:.6e}, FlopCounterMode's of the real rank 0's step"
+          f" {t['real_flops']:.6e}")
     out["s"] = time.perf_counter() - t_phase
     phase("dry run", t_phase, f"phase {out['s']:.1f} s [{gpu}]")
     return out
@@ -5748,11 +6294,20 @@ def main() -> int:
     ap.add_argument("--partition-child", nargs=2, metavar=("NPY", "DEVICE"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-child", nargs=3, metavar=("RANK", "PORT", "TMP"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.ingest_child or args.mesh_child or args.partition_child or args.dryrun_child:
+    if (args.ingest_child or args.mesh_child or args.partition_child or args.dryrun_child
+            or args.tp_child):
         sys.path.insert(0, str(SRC))
         if args.dryrun_child:
             got = dryrun_child(args.seed)
+        elif args.tp_child:
+            import faulthandler
+
+            faulthandler.enable(all_threads=True)     # a crash prints every thread's stack
+            got = tp_child(int(args.tp_child[0]), int(args.tp_child[1]), args.tp_child[2],
+                           args.seed)
         elif args.ingest_child:
             got = ingest_child(*args.ingest_child[:2], args.seed, args.ingest_child[2])
         elif args.mesh_child:
@@ -5864,7 +6419,11 @@ def main() -> int:
             sh = sharded_train(args, device, gpu)
             dry_dir = tempfile.mkdtemp(prefix="rsp_dryrun_")
             try:
-                dr = dryrun_phase(args, device, gpu, dryrun_start(args, dry_dir))
+                # the dry run's children trace on fake tensors while 10d runs
+                started = dryrun_start(args, dry_dir)
+                torch.cuda.empty_cache()
+                tpar = tensor_parallel(args, device, gpu)
+                dr = dryrun_phase(args, device, gpu, started, tpar)
             finally:
                 shutil.rmtree(dry_dir, ignore_errors=True)
             ing = ingest(args, data, child, device)
@@ -5974,7 +6533,10 @@ def main() -> int:
                                if c["flash_attention"]},
                             **{f"llama3.2-1b training {tag} ({SHARDED_STEPS} steps)":
                                run["counts"]["flash_attention"]
-                               for tag, run in sh["runs"].items()}},
+                               for tag, run in sh["runs"].items()},
+                            **{f"llama3.2-1b training, tensor parallel rank {r}"
+                               f" ({TP_STEPS} steps)": c["flash_attention"]
+                               for r, c in enumerate(tpar["train"]["counts"])}},
         "flash_attention_bwd": {
             "llama3.2-1b training (20 steps)": tr["llama"]["counts"]["flash_attention_bwd"],
             "llama3.2-1b training, no drift (20 steps)":
@@ -5985,7 +6547,9 @@ def main() -> int:
             **{run: c["flash_attention_bwd"] for run, c in family_runs.items()
                if c["flash_attention_bwd"]},
             **{f"llama3.2-1b training {tag} ({SHARDED_STEPS} steps)":
-               run["counts"]["flash_attention_bwd"] for tag, run in sh["runs"].items()}},
+               run["counts"]["flash_attention_bwd"] for tag, run in sh["runs"].items()},
+            **{f"llama3.2-1b training, tensor parallel rank {r} ({TP_STEPS} steps)":
+               c["flash_attention_bwd"] for r, c in enumerate(tpar["train"]["counts"])}},
         "mamba2_ssd": {"zamba2-7b generate": hy["counts"]["mamba2_ssd"],
                        **{run: c["mamba2_ssd"] for run, c in family_runs.items()
                           if c["mamba2_ssd"]}},
@@ -6029,6 +6593,7 @@ def main() -> int:
     print(f"training: {json.dumps(tr)}", flush=True)
     print(f"training families: {json.dumps(tf)}", flush=True)
     print(f"sharded training: {json.dumps(sh)}", flush=True)
+    print(f"tensor parallel: {json.dumps(tpar)}", flush=True)
     print(f"dry run: {json.dumps(dr)}", flush=True)
     print(f"scan backward parity: {json.dumps(scan_bwd)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
@@ -6042,7 +6607,7 @@ def main() -> int:
              "flash_attention_d80": tm["flash_attention_d80"],
              "end_to_end": path["e2e"], "serving": lm, "hybrid_serving": hy,
              "rwkv": rw, "moe": mo, "training": tr, "training_families": tf,
-             "sharded_training": sh, "dry_run": dr,
+             "sharded_training": sh, "tensor_parallel": tpar, "dry_run": dr,
              "scan_bwd_parity": scan_bwd,
              "flash_attention_bwd_d80": tm["flash_attention_bwd_d80"], "gpu": gpu},
             indent=1))

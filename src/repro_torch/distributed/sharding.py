@@ -383,16 +383,43 @@ def activation_spec(shape, axes: tuple[str | None, ...], rules: ShardingRules) -
 
 def constrain(x, axes: tuple[str | None, ...]):
     """The activation sharding constraint against the active rules: a
-    no-op outside an :func:`activation_sharding` context; under rules a
-    plain tensor is returned as it is (each rank computes it whole) and a
-    DTensor is redistributed to :func:`activation_spec`'s placements."""
+    no-op outside an :func:`activation_sharding` context.  Under rules a
+    DTensor is redistributed to :func:`activation_spec`'s placements.  A
+    plain tensor is returned as it is: outside tensor-parallel compute each
+    rank holds it whole; inside (``distributed.tensor_parallel``) it is the
+    rank's own part, and the layout is checked -- every dimension the spec
+    puts on "model" must be one that compute splits."""
     rules = _ACTIVE.get()
     if rules is None:
         return x
     spec = activation_spec(tuple(x.shape), axes, rules)
-    if not is_dtensor(x):
-        return x
-    return x.redistribute(x.device_mesh, rules.placements(spec))
+    if is_dtensor(x):
+        return x.redistribute(x.device_mesh, rules.placements(spec))
+    from repro_torch.distributed.tensor_parallel import current
+
+    tp = current()
+    if tp is not None:
+        for a, entry in zip(axes, spec):
+            if "model" in _names(entry) and not tp.splits(a):
+                raise ValueError(f"{axes}: {a!r} resolves to {entry}, which the"
+                                 " tensor-parallel compute does not split")
+    return x
+
+
+def local_caches(caches: Tree, rules: ShardingRules) -> Tree:
+    """This rank's chunk of every decode cache leaf at
+    :func:`cache_shardings` (a contiguous copy; the length and position
+    scalars as they are): the caches a tensor-parallel serving step
+    reads and writes."""
+    from repro_torch.models.common import iter_leaves, set_leaf
+
+    shardings = dict(iter_leaves(cache_shardings(caches, rules)))
+    out: Tree = {}
+    for path, leaf in iter_leaves(caches):
+        if isinstance(leaf, torch.Tensor) and leaf.ndim:
+            leaf = local_chunk(leaf, rules.mesh, shardings[path].placements()).contiguous()
+        set_leaf(out, path, leaf)
+    return out
 
 
 def cache_shardings(caches: Tree, rules: ShardingRules) -> Tree:

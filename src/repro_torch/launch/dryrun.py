@@ -15,7 +15,8 @@ ranks in this one process on PyTorch's ``"fake"`` process-group backend
 (rank 0; a collective moves nothing), builds the production mesh on
 ``"cuda"``, and runs rank 0's step on fake tensors (shapes and dtypes, no
 data, no memory) under :class:`~repro_torch.launch.roofline.DryRunRecorder`.
-Every rank runs the same program (the port has no GSPMD partitioner), so
+Every rank runs the same program on its own shards (the port's tensor
+parallelism is written out where GSPMD partitions the reference's), so
 one rank's is the cell's.  The hand-written kernels take their shape-only
 path on fake tensors (``kernels._cuda``): no kernel is built or launched,
 and no card is needed, though a training cell's backward on a CUDA build
@@ -26,16 +27,18 @@ A cell is what the port runs, scaled to look like nothing else:
 
 * train -- ``make_train_step(..., rules=default_rules(mesh, ...))`` on the
   state as DTensors at the ZeRO and parameter shardings and the batch as
-  DTensors at ``batch_shardings``: each rank gathers every parameter and
-  computes the whole model on its data shard, so compute over "model" is
-  replicated (ROADMAP's tensor-parallel item);
-* prefill, decode, encoder -- the port has no sharded serving step, so the
-  one its training step implies: the parameters gathered, each rank's
-  chunk of the batch and of the caches (``batch_shardings``,
-  ``cache_shardings``; a cache's other sharded dimensions gathered for the
-  compute and its new value cut back to the cache's placement), and
-  ``api.make_prefill_fn``, ``make_decode_fn`` or ``make_forward_fn`` under
-  ``activation_sharding(rules)``;
+  DTensors at ``batch_shardings``: each rank computes its own heads, ff
+  columns, vocab rows and experts on its data shard from its own
+  parameter chunks (``distributed.tensor_parallel``), with the reductions
+  GSPMD inserts;
+* prefill, decode, encoder -- the serving step of the same compute: each
+  rank's chunk of the parameters, of the batch and of the caches
+  (``batch_shardings``, ``cache_shardings``; the caches' "model" shards
+  stay the rank's, a shard over the data ranks of another dimension than
+  the batch is gathered for the compute and its new value cut back to the
+  cache's placement), and ``api.make_prefill_fn``, ``make_decode_fn`` or
+  ``make_forward_fn`` under ``activation_sharding(rules)`` and
+  ``tensor_parallel``;
 * rsp-partition -- ``core.partition.distributed_rsp_partition`` over the D
   = 16 "data" ranks holding rank 0 (within its pod), each with ``records /
   D`` rows of 4,097 int32.
@@ -103,18 +106,24 @@ def _placed(tree, device: str):
     return out
 
 
-def _data_only(placements, dim: int, data_axes: tuple[int, ...]):
-    """``placements`` with only the shards of dimension ``dim`` over the
-    data mesh dimensions kept, the rest replicated."""
-    return tuple(p if isinstance(p, Shard) and p.dim == dim and k in data_axes else Replicate()
-                 for k, p in enumerate(placements))
+def _model_and_data(placements, dim: int, data_axes: tuple[int, ...], model_axis: int | None):
+    """``placements`` with the shards over "model" kept, and over the data
+    mesh dimensions only those of dimension ``dim`` (the batch); the rest
+    replicated."""
+    def keep(k, p):
+        if not isinstance(p, Shard):
+            return False
+        return k == model_axis or (p.dim == dim and k in data_axes)
+
+    return tuple(p if keep(k, p) else Replicate() for k, p in enumerate(placements))
 
 
 def _serve_fn(cfg, cell, rules):
-    """The sharded serving step the training step implies (see the
-    module's notes): ``(params, caches, batch) -> (logits, caches)``, the
-    encoder's ``(params, batch) -> logits``."""
-    from repro_torch.distributed.sharding import activation_sharding, gather, mesh_shape
+    """The sharded serving step (see the module's notes): ``(params,
+    caches, batch) -> (logits, caches)``, the encoder's ``(params, batch)
+    -> logits``."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.distributed.sharding import activation_sharding, mesh_shape
     from repro_torch.models import api
     from repro_torch.models.common import iter_leaves, set_leaf
     from repro_torch.models.transformer import build_lm
@@ -123,18 +132,21 @@ def _serve_fn(cfg, cell, rules):
     mesh = rules.mesh
     names = list(mesh_shape(mesh))
     data_axes = tuple(names.index(a) for a in ("pod", "data") if a in names)
+    model_axis = names.index("model") if "model" in names else None
+    tp = tpl.from_rules(rules)
 
     def model_of(params):
-        # the bf16 compute parameters as they are (trainable keeps the leaves)
-        full = tree_map(gather, params)
-        return build_lm(cfg, full, device=leaves(full)[0].device, trainable=True)
+        # this rank's chunk of every bf16 compute parameter, as it rests
+        # (trainable keeps the leaves), under tensor-parallel compute
+        local = tree_map(lambda p: p.to_local() if isinstance(p, DTensor) else p, params)
+        return build_lm(cfg, local, device=leaves(local)[0].device, trainable=True)
 
     def mine(batch):
         return {k: v.to_local() for k, v in batch.items()}
 
     if cfg.family == "encoder":
         def enc_fn(params, batch):
-            with torch.no_grad(), activation_sharding(rules):
+            with torch.no_grad(), activation_sharding(rules), tpl.tensor_parallel(tp):
                 return api.make_forward_fn(model_of(params))(mine(batch))
 
         return enc_fn
@@ -145,13 +157,15 @@ def _serve_fn(cfg, cell, rules):
         work, placement = {}, {}
         for path, leaf in iter_leaves(caches):
             if isinstance(leaf, DTensor):
-                # batch (dimension 1) stays cut over the data ranks; the
-                # cache's other shards are gathered for the compute
-                keep = _data_only(leaf.placements, 1, data_axes)
+                # the batch (dimension 1) stays cut over the data ranks and
+                # every "model" shard stays the rank's; a shard of another
+                # dimension over the data ranks (long-context kv_seq) is
+                # gathered for the compute
+                keep = _model_and_data(leaf.placements, 1, data_axes, model_axis)
                 placement[path] = (leaf.placements, keep)
                 leaf = leaf.redistribute(mesh, keep).to_local()
             set_leaf(work, path, leaf)
-        with torch.no_grad(), activation_sharding(rules):
+        with torch.no_grad(), activation_sharding(rules), tpl.tensor_parallel(tp):
             logits, new = step(model_of(params))(work, mine(batch))
         out: dict = {}
         for path, leaf in iter_leaves(new):

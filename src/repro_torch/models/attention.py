@@ -34,6 +34,8 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import ParamSpec, Tree, apply_rope, linear, linear_spec, rmsnorm_1d
 
@@ -87,6 +89,10 @@ def attention_apply(
         positions = torch.arange(S, device=x.device)
         if cache is not None:
             positions = positions + cache["length"]
+    tp = tpl.current()
+    if tp is not None:
+        return _attention_split(params, x, cfg, tp, positions=positions, cache=cache,
+                                compute_dtype=compute_dtype, impl=impl)
 
     q = linear(params["q"], x, compute_dtype=compute_dtype).reshape(B, S, H, D)
     k = linear(params["k"], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
@@ -110,24 +116,187 @@ def attention_apply(
             raise ValueError(f"cache of {ck.shape[2]} positions cannot take {start + S}")
         ck[:, :, start:start + S] = kh
         cv[:, :, start:start + S] = vh
+        ck = constrain(ck, ("batch", "kv_heads", "kv_seq", None))
+        cv = constrain(cv, ("batch", "kv_heads", "kv_seq", None))
         new_cache = {"k": ck, "v": cv, "length": start + S}
 
     if cache is not None and S == 1:
         # token decode: grouped attention against the full cache
+        qg = constrain(qg, ("batch", "kv_heads", "heads_inner", None, None))
         out = _decode_attention(
             qg, new_cache["k"], new_cache["v"],
             q_positions=positions,
             kv_positions=torch.arange(new_cache["k"].shape[2], device=x.device),
         )
     elif cfg.flat:
-        out = flash_flat_cvjp(q.transpose(1, 2), kh.repeat_interleave(G, dim=1),
-                              vh.repeat_interleave(G, dim=1), cfg.causal, cfg.k_block, impl=impl)
+        heads = ("batch", "heads", None, None)
+        out = flash_flat_cvjp(constrain(q.transpose(1, 2), heads),
+                              constrain(kh.repeat_interleave(G, dim=1), heads),
+                              constrain(vh.repeat_interleave(G, dim=1), heads),
+                              cfg.causal, cfg.k_block, impl=impl)
         out = out.transpose(1, 2).reshape(B, S, H * D).to(compute_dtype)
+        out = constrain(out, ("batch", None, "heads"))
         return linear(params["o"], out, compute_dtype=compute_dtype), new_cache
     else:
+        qg = constrain(qg, ("batch", "kv_heads", "heads_inner", None, None))
+        kh = constrain(kh, ("batch", "kv_heads", None, None))
+        vh = constrain(vh, ("batch", "kv_heads", None, None))
         out = flash_attention(qg, kh, vh, causal=cfg.causal, impl=impl, k_block=cfg.k_block)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * D).to(compute_dtype)
+    out = constrain(out, ("batch", None, "heads"))
     return linear(params["o"], out, compute_dtype=compute_dtype), new_cache
+
+
+def _attention_split(params, x, cfg: AttentionConfig, tp, *, positions, cache, compute_dtype,
+                     impl):
+    """``attention_apply`` on this rank's whole heads ``[a, b)``
+    (``TensorParallel.heads``).  The q columns and o rows are the rank's
+    chunks, or gathered and sliced where "model" does not divide the
+    heads; kv heads are the rank's chunk when the rules split them, else
+    sliced from the replicated projections (whose gradient then sums the
+    ranks' parts).  A cache whose kv heads are not split holds every kv
+    head, whole or over a head-dim chunk, and a decode step against it
+    attends by contraction (:func:`_decode_contracted`).  The o product is
+    row-parallel: its partial sums are all-reduced."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // Hkv
+    kv_split = tp.splits("kv_heads")
+    if cache is not None and S == 1 and not kv_split:
+        return _decode_contracted(params, x, cfg, tp, positions=positions, cache=cache,
+                                  compute_dtype=compute_dtype)
+    a, b = tp.heads(H)
+    Hl = b - a
+    ka, kb = (a // G, (b - 1) // G + 1) if Hl else (0, 0)
+    Kl = kb - ka
+    xin = tpl.enter(x, tp)
+    q_p = {"w": tpl.gather_heads(params["q"]["w"], 1, H, D, tp)}
+    if "b" in params["q"]:
+        q_p["b"] = tpl.gather_heads(params["q"]["b"], 0, H, D, tp)
+    q = linear(q_p, xin, compute_dtype=compute_dtype).reshape(B, S, Hl, D)
+
+    def kv(name: str) -> torch.Tensor:
+        if kv_split:                       # this rank's chunk: exactly its kv heads
+            return linear(params[name], xin, compute_dtype=compute_dtype).reshape(B, S, Kl, D)
+        p = {"w": tpl.enter(params[name]["w"], tp).narrow(1, ka * D, Kl * D)}
+        if "b" in params[name]:
+            p["b"] = tpl.enter(params[name]["b"], tp).narrow(0, ka * D, Kl * D)
+        return linear(p, xin, compute_dtype=compute_dtype).reshape(B, S, Kl, D)
+
+    def kv_all(name: str) -> torch.Tensor:
+        # every kv head (a cache that holds them all), from the replicated weight
+        return linear(params[name], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
+
+    whole_cache = cache is not None and not kv_split
+    k = kv_all("k") if whole_cache else kv("k")
+    v = kv_all("v") if whole_cache else kv("v")
+    if cfg.qk_norm:
+        q = rmsnorm_1d(tpl.enter(params["q_norm"], tp), q, eps=cfg.norm_eps)
+        k = rmsnorm_1d(tpl.enter(params["k_norm"], tp), k, eps=cfg.norm_eps)
+    if cfg.rope:
+        q = apply_rope(q, positions[None, :, None], theta=cfg.rope_theta)
+        k = apply_rope(k, positions[None, :, None], theta=cfg.rope_theta)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache["length"])
+        ck, cv = cache["k"], cache["v"]
+        if start + S > ck.shape[2]:
+            raise ValueError(f"cache of {ck.shape[2]} positions cannot take {start + S}")
+        d0, d1 = (0, D) if ck.shape[3] == D else tp.chunk(D)
+        ck[:, :, start:start + S] = kh[..., d0:d1]
+        cv[:, :, start:start + S] = vh[..., d0:d1]
+        ck = constrain(ck, ("batch", "kv_heads", "kv_seq", None))
+        cv = constrain(cv, ("batch", "kv_heads", "kv_seq", None))
+        new_cache = {"k": ck, "v": cv, "length": start + S}
+        if whole_cache:
+            kh, vh = kh[:, ka:kb], vh[:, ka:kb]
+
+    if Hl == 0:
+        out = x.new_zeros((B, S, 0), dtype=compute_dtype)
+    elif cache is not None and S == 1:
+        # decode against this rank's kv heads (kv split: its groups whole)
+        qg = constrain(q.reshape(B, S, Kl, G, D).permute(0, 2, 3, 1, 4),
+                       ("batch", "kv_heads", "heads_inner", None, None))
+        out = _decode_attention(qg, new_cache["k"], new_cache["v"], q_positions=positions,
+                                kv_positions=torch.arange(new_cache["k"].shape[2],
+                                                          device=x.device))
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hl * D).to(compute_dtype)
+    else:
+        grouped = Kl == 1 or (a % G == 0 and b % G == 0)
+        if cfg.flat or not grouped:
+            # one kv head a q head: the rank's heads need not hold whole groups
+            idx = torch.arange(a, b, device=x.device) // G - ka
+            kx, vx = kh.index_select(1, idx), vh.index_select(1, idx)
+            qt = q.transpose(1, 2)
+            if cfg.flat:
+                out = flash_flat_cvjp(qt, kx, vx, cfg.causal, cfg.k_block, impl=impl)
+            else:
+                out = flash_attention(qt[:, :, None], kx, vx, causal=cfg.causal, impl=impl,
+                                      k_block=cfg.k_block)[:, :, 0]
+            out = out.transpose(1, 2).reshape(B, S, Hl * D).to(compute_dtype)
+        else:
+            Gl = Hl // Kl
+            qg = constrain(q.reshape(B, S, Kl, Gl, D).permute(0, 2, 3, 1, 4),
+                           ("batch", "kv_heads", "heads_inner", None, None))
+            out = flash_attention(qg, kh, vh, causal=cfg.causal, impl=impl, k_block=cfg.k_block)
+            out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hl * D).to(compute_dtype)
+    out = constrain(out, ("batch", None, "heads"))
+    o_w = tpl.gather_heads(params["o"]["w"], 0, H, D, tp)
+    return linear({"w": o_w}, out, compute_dtype=compute_dtype, reduce="heads"), new_cache
+
+
+def _decode_contracted(params, x, cfg: AttentionConfig, tp, *, positions, cache,
+                       compute_dtype):
+    """A decode step against a cache that holds every kv head, over this
+    rank's head-dim chunk ``[d0, d1)`` (the rules' ``kv_head_dim``) or
+    whole: q of every head (each rank's chunk of the q columns, gathered),
+    k and v of every kv head from their replicated projections; the
+    scores' partial sums over the head-dim chunks all-reduced, the
+    weighted values' chunks gathered, and the o product row-parallel on
+    the rank's chunk of its rows."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // Hkv
+    q = tpl.gather_last(linear(params["q"], x, compute_dtype=compute_dtype), H * D, tp)
+    q = q.reshape(B, S, H, D)
+    k = linear(params["k"], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
+    v = linear(params["v"], x, compute_dtype=compute_dtype).reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rmsnorm_1d(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm_1d(params["k_norm"], k, eps=cfg.norm_eps)
+    if cfg.rope:
+        q = apply_rope(q, positions[None, :, None], theta=cfg.rope_theta)
+        k = apply_rope(k, positions[None, :, None], theta=cfg.rope_theta)
+    start = int(cache["length"])
+    ck, cv = cache["k"], cache["v"]
+    if start + S > ck.shape[2]:
+        raise ValueError(f"cache of {ck.shape[2]} positions cannot take {start + S}")
+    split = ck.shape[3] != D
+    d0, d1 = tp.chunk(D) if split else (0, D)
+    ck[:, :, start:start + S] = k.transpose(1, 2)[..., d0:d1]
+    cv[:, :, start:start + S] = v.transpose(1, 2)[..., d0:d1]
+    ck = constrain(ck, ("batch", "kv_heads", "kv_seq", None))
+    cv = constrain(cv, ("batch", "kv_heads", "kv_seq", None))
+    new_cache = {"k": ck, "v": cv, "length": start + S}
+
+    qg = constrain(q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4),
+                   ("batch", "kv_heads", "heads_inner", None, None))[..., d0:d1]
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg.to(torch.float32), ck.to(torch.float32))
+    if split:
+        tpl.all_reduce(s, tp.group)
+    s = s * (1.0 / (D ** 0.5))
+    keep = torch.arange(ck.shape[2], device=x.device)[None, :] <= positions[:, None]
+    p = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, cv.to(torch.float32))
+    if split:
+        out = tpl.gather_last(out, D, tp)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * D).to(compute_dtype)
+    out = constrain(out, ("batch", None, "heads"))
+    r0, r1 = tp.chunk(H * D)          # the rank's chunk of the o rows
+    return linear(params["o"], out[..., r0:r1], compute_dtype=compute_dtype,
+                  reduce="heads"), new_cache
 
 
 def flash_flat_cvjp(q, k, v, causal: bool, k_block: int, *, impl: str = "auto"):

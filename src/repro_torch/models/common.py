@@ -30,6 +30,8 @@ from typing import Any, Iterator
 import torch
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tpl
+
 Tree = dict[str, Any]
 
 
@@ -154,8 +156,20 @@ def linear_spec(d_in: int, d_out: int, axes: tuple[str | None, str | None], *,
     return out
 
 
-def linear(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
+def linear(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
+           reduce: str | None = None) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``compute_dtype``.  Under tensor parallelism the
+    weight is this rank's chunk: split on its output axis it is
+    column-parallel (the caller has entered the split region,
+    ``tensor_parallel.enter``); with ``reduce``, the logical axis of its
+    input, split there it is row-parallel -- the partial products summed
+    over "model" (``leave``) before the bias, which every rank holds
+    whole."""
+    tp = tpl.current() if reduce is not None else None
+    if tp is not None and tp.splits(reduce):
+        y = tpl.leave(x.to(compute_dtype) @ params["w"].to(compute_dtype), tp)
+    else:
+        y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y
@@ -196,13 +210,25 @@ def embedding_spec(vocab: int, d: int, *, scale: float = 0.02) -> Tree:
     return {"table": ParamSpec((vocab, d), ("vocab", "embed"), "embed", scale)}
 
 
+def _vocab_split() -> "tpl.TensorParallel | None":
+    tp = tpl.current()
+    return tp if tp is not None and tp.splits("vocab") else None
+
+
 def embed(params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     # gather, then cast: the same values as casting the whole table first
+    tp = _vocab_split()
+    if tp is not None:
+        return tpl.vocab_embed(params["table"], ids, compute_dtype, tp)
     return params["table"][ids].to(compute_dtype)
 
 
 def unembed_logits(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x [.., d] @ table.T -> logits [.., vocab]."""
+    """x [.., d] @ table.T -> logits [.., vocab] (a vocab-split table:
+    this rank's columns)."""
+    tp = _vocab_split()
+    if tp is not None:
+        x = tpl.enter(x, tp)
     return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
 
 
@@ -231,7 +257,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Each position's cross entropy [...] in float32: ``logsumexp`` minus
-    the gold logit."""
+    the gold logit (vocab-split logits: over every rank's columns,
+    ``tensor_parallel.vocab_nll``)."""
+    tp = _vocab_split()
+    if tp is not None:
+        return tpl.vocab_nll(logits, labels, tp)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
@@ -270,6 +300,9 @@ def seq_chunked_cross_entropy(
     cross entropy, as in the reference.  The sum over every position is
     divided by ``B * S``."""
     B, S, _ = h.shape
+    tp = _vocab_split()
+    if tp is not None:
+        h = tpl.enter(h, tp)      # once: each chunk's product is column-parallel
     if S % chunks:
         logits = h.to(compute_dtype) @ table.to(compute_dtype).T
         return softmax_cross_entropy(logits, labels)
@@ -277,8 +310,9 @@ def seq_chunked_cross_entropy(
 
     Sc = S // chunks
     total = torch.zeros((), dtype=torch.float32, device=h.device)
+    chunk_nll_sum = tpl.carried(_chunk_nll_sum)   # recomputed under the forward's context
     for c in range(chunks):
         sl = slice(c * Sc, (c + 1) * Sc)
-        total = total + checkpoint(_chunk_nll_sum, h[:, sl], table, labels[:, sl],
+        total = total + checkpoint(chunk_nll_sum, h[:, sl], table, labels[:, sl],
                                    compute_dtype, use_reentrant=False)
     return total / (B * S)

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import Tree, linear, linear_spec
 
 
@@ -45,10 +47,20 @@ def swiglu_specs(d_model: int, d_ff: int) -> Tree:
     }
 
 
+def _enter_ff(x: torch.Tensor) -> torch.Tensor:
+    """``x`` into the ff-split region when the rules split ff over "model"
+    (every rank then holds its ff columns of the first products and rows of
+    the last, whose partial sums ``linear(reduce="ff")`` adds)."""
+    tp = tpl.current()
+    return tpl.enter(x, tp) if tp is not None and tp.splits("ff") else x
+
+
 def swiglu_apply(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    x = _enter_ff(x)
     g = linear(params["gate"], x, compute_dtype=compute_dtype)
     u = linear(params["up"], x, compute_dtype=compute_dtype)
-    return linear(params["down"], silu(g) * u, compute_dtype=compute_dtype)
+    h = constrain(silu(g) * u, ("batch", None, "ff"))
+    return linear(params["down"], h, compute_dtype=compute_dtype, reduce="ff")
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int, *, bias: bool = True) -> Tree:
@@ -59,5 +71,6 @@ def gelu_mlp_specs(d_model: int, d_ff: int, *, bias: bool = True) -> Tree:
 
 
 def gelu_mlp_apply(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    h = gelu_tanh(linear(params["fc1"], x, compute_dtype=compute_dtype))
-    return linear(params["fc2"], h, compute_dtype=compute_dtype)
+    h = gelu_tanh(linear(params["fc1"], _enter_ff(x), compute_dtype=compute_dtype))
+    h = constrain(h, ("batch", None, "ff"))
+    return linear(params["fc2"], h, compute_dtype=compute_dtype, reduce="ff")

@@ -21,6 +21,19 @@ rounded to bf16, as the reference's XLA program computes it on the host
 (it drops the bf16 round trip before the norm's float32 cast).  A decode
 state's conv window is held in the caches' dtype (float32 when served) and
 cast to bf16 where it is used.
+
+Under tensor parallelism (``distributed.tensor_parallel``; "model" must
+divide the heads) a rank computes its own heads: z, x, dt and the SSD on
+its chunks; B and C, their conv channels and silu alike on every rank
+from their replicated weights, entering the split region in float32 at
+the SSD (so their gradient, each rank's heads' part, is summed in float32,
+as GSPMD sums the reference's); the gated norm's mean of squares
+all-reduced over all of ``d_inner``; and the output projection
+row-parallel.  The conv weight and a decode state's conv window rest split
+over the concatenated ``[x | B | C]`` channels, which does not line up with
+the heads: both are gathered (the x channels' weight gradient
+reduce-scattered back, the B and C channels' taken as the rank's chunk),
+and the new window is gathered and cut back to the rank's chunk.
 """
 
 from __future__ import annotations
@@ -30,6 +43,8 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_recurrence
 from repro_torch.models.common import ParamSpec, Tree, linear, linear_spec, rmsnorm_1d
 from repro_torch.models.ffn import silu
@@ -108,22 +123,47 @@ def mamba2_apply(
     B, L, _ = x.shape
     H, P, N = cfg.num_heads, cfg.head_dim, cfg.d_state
     f32 = torch.float32
+    di, Ch = cfg.d_inner, cfg.d_inner + 2 * N
+    tp = tpl.current()
+    if tp is not None and H % tp.size:
+        raise ValueError(f"tensor parallelism over {tp.size} ranks needs the {H} Mamba2 heads"
+                         " to divide")
+    Hl = H // tp.size if tp is not None else H
+    dil = Hl * P                                 # this rank's x channels
 
-    z = linear(params["z"], x, compute_dtype=compute_dtype)
-    xi = linear(params["x"], x, compute_dtype=compute_dtype)
+    xin = x if tp is None else tpl.enter(x, tp)
+    z = linear(params["z"], xin, compute_dtype=compute_dtype)
+    xi = linear(params["x"], xin, compute_dtype=compute_dtype)
     Bm = linear(params["B"], x, compute_dtype=compute_dtype)
     Cm = linear(params["C"], x, compute_dtype=compute_dtype)
-    dt = _softplus(linear(params["dt"], x, compute_dtype=f32) + params["dt_bias"].to(f32))
+    dt = _softplus(linear(params["dt"], xin, compute_dtype=f32) + params["dt_bias"].to(f32))
 
-    xbc = torch.cat([xi, Bm, Cm], dim=-1)
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, params["conv"].to(compute_dtype), conv_state)
-    xbc = silu(xbc)
-    xi, Bm, Cm = torch.split(xbc, [cfg.d_inner, N, N], dim=-1)
+    kernel = params["conv"].to(compute_dtype)
+    if tp is None:
+        xbc, new_conv = _causal_conv(torch.cat([xi, Bm, Cm], dim=-1), kernel, conv_state)
+        xbc = silu(xbc)
+        xi, Bm, Cm = torch.split(xbc, [dil, N, N], dim=-1)
+    else:
+        # the depthwise conv channel by channel: the rank's x channels (their
+        # weights' gradient summed over the ranks) and all of B and C, which
+        # every rank computes alike (their weights' gradient the same on every
+        # rank); B and C enter the split region after it, in float32
+        a0 = tp.rank * dil
+        k_x = tpl.gather(kernel, 1, Ch, tp).narrow(1, a0, dil)
+        k_bc = tpl.gather(kernel, 1, Ch, tp, replicated=True).narrow(1, di, 2 * N)
+        s_x = s_bc = None
+        if conv_state is not None:
+            whole = tpl.gather_last(conv_state, Ch, tp)
+            s_x, s_bc = whole[..., a0:a0 + dil], whole[..., di:]
+        xi, new_x = _causal_conv(xi, k_x, s_x)
+        bc, new_bc = _causal_conv(torch.cat([Bm, Cm], dim=-1), k_bc, s_bc)
+        xi, bc = silu(xi), silu(bc)
+        Bm, Cm = torch.split(bc, [N, N], dim=-1)
 
     a = -torch.exp(params["A_log"].to(f32))                       # [H], < 0
     dA = dt * a[None, None, :]                                    # [B, L, H] <= 0
-    xh = xi.reshape(B, L, H, P).to(f32)
+    xh = constrain(xi.reshape(B, L, Hl, P).to(f32), ("batch", None, "heads", None))
     xbar = xh * dt[..., None]
 
     h0 = state["ssm"] if state is not None else None
@@ -131,17 +171,28 @@ def mamba2_apply(
         # decode: a single recurrence step
         y, h_final = ssd_recurrence(xbar, dA, Bm, Cm, h0=h0)
     else:
-        y, h_final = ssd(xbar, dA, Bm.to(f32), Cm.to(f32), chunk=cfg.chunk, h0=h0, impl=impl)
+        Bs, Cs = Bm.to(f32), Cm.to(f32)
+        if tp is not None:
+            Bs, Cs = tpl.enter(Bs, tp), tpl.enter(Cs, tp)
+        y, h_final = ssd(xbar, dA, Bs, Cs, chunk=cfg.chunk, h0=h0, impl=impl)
 
     y = y + params["D"].to(f32)[None, None, :, None] * xh
-    y = y.reshape(B, L, cfg.d_inner).to(compute_dtype)
+    y = y.reshape(B, L, dil).to(compute_dtype)
     # the gate's product enters the norm unrounded (float32), as XLA
     # computes the reference's bf16 product before the norm's float32 cast
-    y = rmsnorm_1d(params["norm"], y.to(f32) * silu(z).to(f32), eps=cfg.norm_eps)
+    if tp is None:
+        y = rmsnorm_1d(params["norm"], y.to(f32) * silu(z).to(f32), eps=cfg.norm_eps)
+    else:
+        y = tpl.rms_norm_split(params["norm"], y.to(f32) * silu(z).to(f32), di,
+                               eps=cfg.norm_eps, tp=tp)
     y = y.to(compute_dtype)
-    out = linear(params["out"], y, compute_dtype=compute_dtype)
+    out = linear(params["out"], y, compute_dtype=compute_dtype, reduce="heads")
     new_state = None
     if state is not None:
+        if tp is not None:         # the whole window, cut back to the rank's chunk
+            whole = torch.cat([tpl.gather_last(new_x, di, tp), new_bc], dim=-1)
+            lo, hi = tp.chunk(Ch)
+            new_conv = whole[..., lo:hi]
         new_state = {"conv": new_conv.to(state["conv"].dtype), "ssm": h_final}
     return out, new_state
 

@@ -32,8 +32,18 @@ Its gradient gathers each token's k kept slots back and adds them in
 assignment order (:class:`_DispatchGather`), where ``index_select``'s own
 backward adds them with atomics in an order that changes from run to run.
 The reference's activation constraints (``distributed.sharding.constrain``)
-are not applied here: under sharding rules each model rank computes the
-whole layer (tensor-parallel compute is queued in the roadmap).
+are called at its sites.
+
+Under tensor parallelism (``distributed.tensor_parallel``) the router and
+its aux loss are replicated (a router split over the experts computes
+its experts' logits, which are gathered; every rank routes alike and adds
+the aux loss once), and each rank
+computes its own experts (the rules' ``experts`` split, qwen3-moe) or its
+own columns of every expert's hidden layer (``expert_ff``, granite-moe's
+40 experts on 16 ranks): it dispatches the assignments to its experts,
+combines its experts' (or its partial) outputs in assignment order, and
+an all-reduce adds the ranks' combines.  The sum's order differs from one
+card's in-order bf16 adds, so the output is held to a tolerance.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import ParamSpec, Tree, linear_spec
 from repro_torch.models.ffn import silu
 
@@ -106,9 +118,19 @@ def moe_capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
 
 def route(params, xt: torch.Tensor, cfg: MoEConfig):
     """The float32 router on ``xt [G, Tg, d]``: ``(logits, probs, top_w,
-    top_idx)``, the top-k weights renormalised."""
-    logits = torch.einsum("gtd,de->gte", xt.to(torch.float32),
-                          params["router"]["w"].to(torch.float32))
+    top_idx)``, the top-k weights renormalised.  A router split over the
+    experts (tensor parallelism; ``xt`` has entered the split region) gives
+    each rank its experts' logits, gathered whole: every rank routes
+    alike."""
+    w = params["router"]["w"].to(torch.float32)
+    logits = torch.einsum("gtd,de->gte", xt.to(torch.float32), w)
+    tp = tpl.current()
+    if tp is not None and tp.splits("experts"):
+        logits = tpl.gather(logits, 2, cfg.num_experts, tp, replicated=True)
+    return _routed(logits, cfg)
+
+
+def _routed(logits: torch.Tensor, cfg: MoEConfig):
     probs = torch.softmax(logits, dim=-1)
     top_probs, top_idx = torch.topk(probs, cfg.top_k, dim=-1)
     top_w = top_probs / torch.clamp_min(top_probs.sum(-1, keepdim=True), 1e-9)
@@ -162,11 +184,21 @@ def moe_apply(
         raise ValueError(f"tokens {T} not divisible by moe_groups {G}")
     Tg = T // G
     C = Tg if dropless else moe_capacity(Tg, cfg)
-    xt = x.reshape(G, Tg, d)
+    xt = constrain(x.reshape(G, Tg, d), ("moe_group", None, "embed"))
     dev = x.device
+    tp = tpl.current()
+    if tp is not None and not (tp.splits("experts") or tp.splits("expert_ff")):
+        tp = None
+    e0, e1 = tp.chunk(E) if tp is not None and tp.splits("experts") else (0, E)
+    El = e1 - e0                                   # this rank's experts
+
+    # the tokens enter the split region once, for the experts and a router
+    # split over them (one all-reduce sums both paths' gradients)
+    xin = tpl.enter(xt, tp) if tp is not None else xt
 
     # ---- routing (float32) ----------------------------------------------
-    _, probs, top_w, top_idx = route(params, xt, cfg)
+    _, probs, top_w, top_idx = route(params, xin if tp is not None and tp.splits("experts")
+                                     else xt, cfg)
 
     # ---- load-balancing auxiliary loss (Switch) --------------------------
     dispatch_frac = torch.nn.functional.one_hot(top_idx, E).to(torch.float32).mean(dim=(1, 2))
@@ -180,30 +212,40 @@ def moe_apply(
     else:
         pos = _cumsum_positions(flat_e, E)
     keep = pos < C
+    if tp is not None:
+        # the rank's assignments: those to its experts; the tokens and the
+        # combine weights enter the split region (their gradients summed)
+        keep = keep & (flat_e >= e0) & (flat_e < e1)
+        xt, top_w = xin, tpl.enter(top_w, tp)
+        flat_e = (flat_e - e0).clamp(0, El - 1)
     w_flat = top_w.reshape(G, Tg * k) * keep.to(torch.float32)
 
     # ---- dispatch: tokens -> [G, E, C, d] through a slot table -------------
     token_of_assign = torch.arange(Tg, device=dev).repeat_interleave(k)   # [Tg*k]
     clipped_pos = torch.clamp_max(pos, C - 1)
     # a dropped assignment writes to an extra expert row that is cut away
-    e_safe = torch.where(keep, flat_e, torch.full_like(flat_e, E))
-    slot_token = torch.full((G, E + 1, C), Tg, dtype=torch.int64, device=dev)
+    e_safe = torch.where(keep, flat_e, torch.full_like(flat_e, El))
+    slot_token = torch.full((G, El + 1, C), Tg, dtype=torch.int64, device=dev)
     g_idx = torch.arange(G, device=dev)[:, None]
     slot_token[g_idx, e_safe, clipped_pos] = token_of_assign
-    rows = slot_token[:, :E] + g_idx[..., None] * (Tg + 1)               # padded row ids
+    rows = slot_token[:, :El] + g_idx[..., None] * (Tg + 1)              # padded row ids
     # each assignment's slot in the buffer (a dropped one's is not its own)
-    slot = flat_e * C + clipped_pos + g_idx * (E * C)                    # [G, Tg*k]
+    slot = flat_e * C + clipped_pos + g_idx * (El * C)                   # [G, Tg*k]
     x_pad = torch.cat([xt.to(compute_dtype),
                        torch.zeros((G, 1, d), dtype=compute_dtype, device=dev)], dim=1)
     buf = _DispatchGather.apply(x_pad.reshape(G * (Tg + 1), d), rows.reshape(-1), slot, keep)
-    buf = buf.reshape(G * E, C, d)
+    buf = constrain(buf.reshape(G, El, C, d), ("moe_group", "experts", None, "embed"))
+    buf = buf.reshape(G * El, C, d)
 
     # ---- expert computation (stacked products over E) ----------------------
     gate, up, down = (params[n].to(compute_dtype) for n in ("gate", "up", "down"))
     if G > 1:
         gate, up, down = (w.repeat(G, 1, 1) for w in (gate, up, down))
     h = silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
-    y = torch.bmm(h, down).reshape(G * E * C, d)
+    h = constrain(h.reshape(G, El, C, -1), ("moe_group", "experts", None, "expert_ff"))
+    y = torch.bmm(h.reshape(G * El, C, -1), down)
+    y = constrain(y.reshape(G, El, C, d), ("moe_group", "experts", None, "embed"))
+    y = y.reshape(G * El * C, d)
 
     # ---- combine: each token's k outputs added in order, in bf16 -------------
     vals = y.index_select(0, slot.reshape(-1)).reshape(G, Tg * k, d)
@@ -211,6 +253,9 @@ def moe_apply(
     out = torch.zeros((G, Tg, d), dtype=vals.dtype, device=dev)
     for j in range(k):
         out = out + vals[:, :, j]
+    if tp is not None:
+        out = tpl.leave(out, tp)       # the ranks' combines added (float32, then bf16)
+    out = constrain(out, ("moe_group", None, "embed"))
     return out.reshape(B, S, d).to(compute_dtype), aux
 
 

@@ -35,6 +35,16 @@ on the host under the reference's jit):
   cast to bf16 after ``ln_x``; the gate ``silu(g)``, the channel mix's
   ``relu(k)**2`` and ``sigmoid`` round to bf16 after every operation
   (``models/ffn.py``).
+
+Under tensor parallelism (``distributed.tensor_parallel``; "model" must
+divide the heads) the ddlerp and both low-rank products stay replicated,
+as in the reference (``d``-wide float32 work on every rank), and each rank
+computes its own heads: r, k, v and g from their column chunks, the decay,
+the bonus ``u``, the WKV and its group norm on its channels, with ``w0``,
+``u``, ``ln_x`` and the decay's ``w_lora_b`` resting replicated and sliced
+(entered into the split region, so their gradients sum the ranks' parts),
+and ``o`` row-parallel.  The channel mix's key is column-parallel and its
+value row-parallel; its receptance stays replicated.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_scan
 from repro_torch.models.common import ParamSpec, Tree, linear, linear_spec
 from repro_torch.models.ffn import sigmoid, silu
@@ -134,15 +146,37 @@ def rwkv6_timemix_apply(
     xr, xk, xv, xw, xg = (mixed[i].to(compute_dtype) for i in range(5))
     del inner, lora_h, lora, mixed
 
-    r = linear(params["r"], xr, compute_dtype=compute_dtype).reshape(B, L, H, C)
-    k = linear(params["k"], xk, compute_dtype=compute_dtype).reshape(B, L, H, C)
-    v = linear(params["v"], xv, compute_dtype=compute_dtype).reshape(B, L, H, C)
+    tp = tpl.current()
+    if tp is not None and H % tp.size:
+        raise ValueError(f"tensor parallelism over {tp.size} ranks needs the {H} RWKV6 heads"
+                         " to divide")
+    if tp is not None:
+        H = H // tp.size
+        c0, dl = tp.rank * H * C, H * C            # this rank's channels
+
+        def mine(p: torch.Tensor) -> torch.Tensor:  # a replicated leaf, used sliced
+            return tpl.enter(p, tp).narrow(-1, c0, dl)
+
+        xr, xk, xv, xg = (tpl.enter(t, tp) for t in (xr, xk, xv, xg))
+    r = constrain(linear(params["r"], xr, compute_dtype=compute_dtype).reshape(B, L, H, C),
+                  ("batch", None, "heads", None))
+    k = constrain(linear(params["k"], xk, compute_dtype=compute_dtype).reshape(B, L, H, C),
+                  ("batch", None, "heads", None))
+    v = constrain(linear(params["v"], xv, compute_dtype=compute_dtype).reshape(B, L, H, C),
+                  ("batch", None, "heads", None))
     g = linear(params["g"], xg, compute_dtype=compute_dtype)
 
-    w_log = params["w0"].to(f32) + (xw.to(f32) @ params["w_lora_a"].to(f32)) @ params[
-        "w_lora_b"].to(f32)
+    if tp is None:
+        w_log = params["w0"].to(f32) + (xw.to(f32) @ params["w_lora_a"].to(f32)) @ params[
+            "w_lora_b"].to(f32)
+        u = params["u"].to(f32).reshape(H, C)
+        ln_x = params["ln_x"]
+    else:
+        lora_w = tpl.enter(xw.to(f32) @ params["w_lora_a"].to(f32), tp)
+        w_log = mine(params["w0"]).to(f32) + lora_w @ mine(params["w_lora_b"]).to(f32)
+        u = mine(params["u"]).to(f32).reshape(H, C)
+        ln_x = mine(params["ln_x"])
     w = torch.exp(-torch.exp(w_log)).reshape(B, L, H, C)          # decay in (0, 1)
-    u = params["u"].to(f32).reshape(H, C)
 
     h0 = state["wkv"] if state is not None else None
     r, k, v = r.to(f32), k.to(f32), v.to(f32)
@@ -155,8 +189,8 @@ def rwkv6_timemix_apply(
     mu_y = y.mean(-1, keepdim=True)
     var = y.var(-1, unbiased=False, keepdim=True)
     yn = (y - mu_y) * torch.rsqrt(var + cfg.norm_eps)
-    yn = (yn.reshape(B, L, d) * params["ln_x"].to(f32)).to(compute_dtype)
-    out = linear(params["o"], yn * silu(g), compute_dtype=compute_dtype)
+    yn = (yn.reshape(B, L, H * C) * ln_x.to(f32)).to(compute_dtype)
+    out = linear(params["o"], yn * silu(g), compute_dtype=compute_dtype, reduce="heads")
 
     new_state = None
     if state is not None:
@@ -178,8 +212,11 @@ def rwkv6_channelmix_apply(
     xp = _token_shift(x, prev)
     dtype = xp.dtype
     xk = x.to(dtype) + (xp - x.to(dtype)) * params["mu_k"].to(x.dtype).to(dtype)
-    k = linear(params["key"], xk, compute_dtype=compute_dtype)
-    kv = linear(params["value"], torch.square(torch.relu(k)), compute_dtype=compute_dtype)
+    tp = tpl.current()
+    xin = tpl.enter(xk, tp) if tp is not None and tp.splits("ff") else xk
+    k = linear(params["key"], xin, compute_dtype=compute_dtype)
+    kv = linear(params["value"], torch.square(torch.relu(k)), compute_dtype=compute_dtype,
+                reduce="ff")
     rgate = sigmoid(linear(params["receptance"], xk, compute_dtype=compute_dtype))
     new_state = {"shift": x[:, -1:, :]} if state is not None else None
     return rgate * kv, new_state

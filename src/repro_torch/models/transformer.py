@@ -81,6 +81,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn, mamba2, rwkv6
 from repro_torch.models import moe as moe_lib
@@ -222,7 +224,8 @@ def model_specs(cfg: ModelConfig) -> Tree:
 def params_to_tensors(specs: Tree, tree: Tree, device, dtype=torch.float32) -> Tree:
     """A parameter tree (numpy arrays or tensors, any float dtype) as
     tensors on ``device`` of ``dtype`` (None: each leaf's own, with no copy
-    of a tensor already there), checked leaf by leaf against the specs."""
+    of a tensor already there), checked leaf by leaf against the specs --
+    under tensor parallelism against this rank's chunks of them."""
     got = {path for path, _ in iter_leaves(tree)}
     out: Tree = {}
     for path, spec in iter_leaves(specs):
@@ -234,8 +237,9 @@ def params_to_tensors(specs: Tree, tree: Tree, device, dtype=torch.float32) -> T
         if not isinstance(leaf, torch.Tensor):
             arr = np.asarray(leaf)
             leaf = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
-        if tuple(leaf.shape) != spec.shape:
-            raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} != {spec.shape}")
+        want = tpl.local_shape(spec.shape, spec.axes)
+        if tuple(leaf.shape) != want:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} != {want}")
         set_leaf(out, path, leaf.to(device=device, dtype=dtype))
     extra = got - {path for path, _ in iter_leaves(specs)}
     if extra:
@@ -300,11 +304,13 @@ def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int,
 
 def _maybe_remat(fn, enable: bool):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
-    ``enable``: its activations are recomputed in the backward."""
+    ``enable``: its activations are recomputed in the backward, under the
+    tensor-parallel context of the forward (``tensor_parallel.carried``)."""
     if not enable:
         return fn
     from torch.utils.checkpoint import checkpoint
 
+    fn = tpl.carried(fn)
     return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
@@ -345,7 +351,7 @@ class _LM(_Model):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         table = self.embed if self.cfg.tie_embeddings else self.unembed
-        return unembed_logits(table, h)
+        return constrain(unembed_logits(table, h), ("batch", None, "vocab"))
 
     def forward(self, tokens: torch.Tensor, *, caches: Any = None, with_aux: bool = False,
                 moe_groups: int = 1):
@@ -390,7 +396,7 @@ class DenseLM(_LM):
                    moe_groups: int = 1):
         """``hidden``'s (h, new caches) and the aux loss summed over the
         layers; an MoE layer dispatches its tokens in ``moe_groups``."""
-        h = embed(self.embed, tokens)
+        h = constrain(embed(self.embed, tokens), ("batch", None, "embed"))
         S = tokens.shape[1]
         pos0 = caches["pos"] if caches is not None else 0
         positions = torch.arange(S, device=tokens.device) + pos0
@@ -509,7 +515,7 @@ class HybridLM(_LM):
         """Final-normed hidden states [B, S, d] (bf16) and the new caches.
         The shared block runs before layers 0, attn_every, 2 attn_every, ...;
         its k-th invocation keeps KV cache k."""
-        h = embed(self.embed, tokens)
+        h = constrain(embed(self.embed, tokens), ("batch", None, "embed"))
         x_emb = h
         S = tokens.shape[1]
         pos0 = caches["pos"] if caches is not None else 0
@@ -593,7 +599,8 @@ class RWKVLM(_LM):
         Every pass of more than one token runs each layer's WKV through
         ``wkv_impl`` (the kernel on the card by default); a decode step is
         one recurrence step."""
-        h = layernorm(self.ln_in, embed(self.embed, tokens), eps=self.cfg.norm_eps)
+        h = constrain(embed(self.embed, tokens), ("batch", None, "embed"))
+        h = layernorm(self.ln_in, h, eps=self.cfg.norm_eps)
         layers = None
         if caches is not None:
             lc = caches["layers"]
@@ -680,7 +687,10 @@ class EncoderModel(_Model):
         for layer in self.layers:
             h = _maybe_remat(layer, remat)(h, attn_impl=attn_impl)
         h = layernorm(self.ln_out, h, eps=self.cfg.norm_eps)
-        return linear(self.head, h)
+        tp = tpl.current()
+        if tp is not None and tp.splits("vocab"):
+            h = tpl.enter(h, tp)       # the head is column-parallel over the vocab
+        return constrain(linear(self.head, h), ("batch", None, "vocab"))
 
 
 LM = DenseLM | MoELM | HybridLM | RWKVLM

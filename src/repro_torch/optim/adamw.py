@@ -20,12 +20,16 @@ slice's.  The update is elementwise, so slicing changes no bit; the
 squared norm of such a leaf sums its slices' sums.
 
 Under sharding rules (ZeRO-1, ``distributed.sharding``) master, m and v are
-DTensors at their optimizer shardings: ``adamw_update`` takes the full
-float32 gradients (already reduced over the data ranks), clips them by the
-norm of the full gradient, updates only this rank's chunk of each leaf, and
-places the new bf16 parameters back at their parameter shardings (an
-all-gather over "data").  The update being elementwise, a rank's chunk
-holds the bits a single card computes for it.
+DTensors at their optimizer shardings: ``adamw_update`` takes this rank's
+float32 gradient chunks at the parameters' shardings (its "model" chunk of
+a split leaf, as tensor-parallel compute gives it, already reduced over
+the data ranks), clips them by the norm of the full gradient -- the
+squares of split leaves summed over the ranks that split them, those of
+replicated leaves counted once -- updates only its chunk of each leaf (the
+gradient chunk cut over "data"), and places the new bf16 parameters back
+at their parameter shardings (an all-gather over "data").  The update
+being elementwise, a rank's chunk holds the values a single card computes
+for it, up to the norm's order of sums.
 """
 
 from __future__ import annotations
@@ -93,6 +97,48 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack([_square_sum(g) for g in leaves(tree)])))
 
 
+def _sharded_norm(grads: Tree, shardings: dict) -> torch.Tensor:
+    """The global norm of gradient chunks at ``shardings`` (path ->
+    ``NamedSharding``): each leaf's squares summed, the sums of leaves split
+    over some mesh dimensions all-reduced over those, then added to the
+    replicated leaves'."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    buckets: dict[tuple[int, ...], list[torch.Tensor]] = {}
+    for path, g in iter_leaves(grads):
+        sh = shardings[path]
+        dims = tuple(k for k, p in enumerate(sh.placements())
+                     if isinstance(p, Shard) and sh.mesh.size(k) > 1)
+        buckets.setdefault(dims, []).append(_square_sum(g))
+    mesh = next(iter(shardings.values())).mesh
+    total = None
+    for dims, parts in sorted(buckets.items()):
+        s = torch.sum(torch.stack(parts))
+        for k in dims:
+            tpl.all_reduce(s, mesh.get_group(k))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _local_update_chunk(g: torch.Tensor, mesh, from_placements, to_placements) -> torch.Tensor:
+    """The chunk of a gradient chunk ``g`` (at ``from_placements``) that a
+    leaf at ``to_placements`` holds: cut over the mesh dimensions only the
+    latter shards (ZeRO's "data")."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    coord = mesh.get_coordinate()
+    for k, (a, b) in enumerate(zip(from_placements, to_placements)):
+        if a == b or mesh.size(k) == 1:
+            continue
+        if not (isinstance(a, Replicate) and isinstance(b, Shard)):
+            raise ValueError(f"a gradient at {from_placements} has no chunk at {to_placements}")
+        parts = torch.chunk(g, mesh.size(k), dim=b.dim)
+        g = parts[coord[k]] if coord[k] < len(parts) else g.narrow(b.dim, 0, 0)
+    return g
+
+
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
 
@@ -132,17 +178,18 @@ def adamw_update(
     ``clip_by_global_norm``'s scale, so no clipped copy of them is held.
 
     A sharded state (DTensor master, m and v; see the module docstring)
-    takes the full reduced gradients and ``param_shardings``, the
+    takes the rank's reduced gradient chunks at ``param_shardings``, the
     parameters' ``NamedSharding`` tree, at which the new parameters are
     placed."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.distributed.sharding import is_dtensor, local_chunk
+    from repro_torch.distributed.sharding import is_dtensor
 
     sharded = is_dtensor(leaves(state["master"])[0])
     if sharded and param_shardings is None:
         raise ValueError("a sharded optimizer state needs the parameters' shardings")
-    norm = global_norm(grads)
+    shardings = dict(iter_leaves(param_shardings)) if sharded else {}
+    norm = _sharded_norm(grads, shardings) if sharded else global_norm(grads)
     scale = _clip_scale(norm, cfg.grad_clip)
     step_in = state["step"]
     step = (step_in.to_local() if is_dtensor(step_in) else step_in) + 1
@@ -151,7 +198,6 @@ def adamw_update(
     bc1 = 1.0 - f32(cfg.b1) ** t
     bc2 = 1.0 - f32(cfg.b2) ** t
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
-    shardings = dict(iter_leaves(param_shardings)) if sharded else {}
     new_params: Tree = {}
     for (path, master_leaf), m_leaf, v_leaf, g_leaf in zip(
             iter_leaves(state["master"]), leaves(state["m"]), leaves(state["v"]), leaves(grads)):
@@ -161,8 +207,9 @@ def adamw_update(
             continue
         mesh, placements = master_leaf.device_mesh, master_leaf.placements
         local = master_leaf.to_local()
-        _update_leaf(local, m_leaf.to_local(), v_leaf.to_local(),
-                     local_chunk(g_leaf, mesh, placements), cfg, scale, lr, bc1, bc2)
+        g_chunk = _local_update_chunk(g_leaf, mesh, shardings[path].placements(), placements)
+        _update_leaf(local, m_leaf.to_local(), v_leaf.to_local(), g_chunk, cfg, scale, lr, bc1,
+                     bc2)
         # the bf16 chunk, then to the parameter's placements (cast first:
         # the all-gather moves half the bytes, and the cast is elementwise)
         chunk = DTensor.from_local(local.to(compute_dtype), mesh, placements, run_check=False,

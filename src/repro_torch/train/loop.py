@@ -17,14 +17,16 @@ DTensors: the bf16 parameters rest at ``param_shardings`` and master, m
 and v at ``optimizer_shardings`` (ZeRO-1: one more dimension over
 "data").  Every rank's loader yields the same global batch, and a step
 keeps this rank's data shard of it (``batch_shardings``; a batch leaf that
-is a DTensor at that sharding is taken as the rank's shard), gathers the
-parameters, computes the loss and gradients of its shard, all-reduces the
-gradients in float32 over the data axes (their mean), clips by the norm of
-the reduced gradient, updates its own chunk of master, m and v, and places
-the new bf16 parameters back (an all-gather over "data").  Each model rank
-computes the whole model on its data shard: compute over "model" is
-replicated, so a mesh of model ranks alone steps as one card does, bit for
-bit, while memory at rest follows the reference's placements.
+is a DTensor at that sharding is taken as the rank's shard), builds the
+model on its own chunk of every parameter (no gather over "model") and
+computes the loss and gradients of its shard tensor-parallel over "model"
+(``distributed.tensor_parallel``: each model rank its heads, ff columns,
+vocab rows and experts, with the reductions GSPMD inserts for the
+reference), all-reduces its gradient chunks in float32 over the data axes
+(their mean), clips by the norm of the whole reduced gradient, updates its
+own chunk of master, m and v, and places the new bf16 parameters back (an
+all-gather over "data").  A mesh of data ranks alone (one model rank)
+computes the whole model on each.
 
 Families: all five train -- the dense decoders, the MoE decoders (their
 capacity dispatch in ``moe_groups`` groups, the router's aux loss added to
@@ -117,15 +119,34 @@ def _data_groups(rules) -> tuple[list, int]:
     return [rules.mesh.get_group(n) for n in names], math.prod(sizes[n] for n in names)
 
 
-def _data_mean(t: torch.Tensor, groups: list, n: int) -> torch.Tensor:
-    """The float32 mean of ``t`` over the data ranks: summed over each
-    data mesh dimension in turn, then divided by their count."""
-    import torch.distributed as dist
+def _data_mean(t: torch.Tensor, groups: list, n: int,
+               weight: torch.Tensor | None = None) -> torch.Tensor:
+    """The float32 mean of ``t`` over the data ranks (each rank's ``t``
+    times its ``weight`` first, where given): summed over each data mesh
+    dimension in turn, then divided by their count."""
+    from repro_torch.distributed.tensor_parallel import all_reduce
 
-    t = t.to(torch.float32)
+    t = t.to(torch.float32) if weight is None else t.to(torch.float32) * weight
     for group in groups:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        all_reduce(t, group)
     return t.div_(n)
+
+
+def _mask_weight(batch: dict, groups: list, n: int) -> torch.Tensor | None:
+    """A masked loss (the encoder's) is the mean over the positions its
+    ``mask`` marks in the whole batch, so each data rank's mean over its
+    own marked positions counts by their share: ``n * c_r / max(C, 1)``,
+    ``c_r`` the rank's marked positions and ``C`` all ranks'.  None
+    without a mask or with one data rank."""
+    if "mask" not in batch or n == 1:
+        return None
+    from repro_torch.distributed.tensor_parallel import all_reduce
+
+    mine = batch["mask"].to(torch.float32).sum()
+    total = mine.clone()
+    for group in groups:
+        all_reduce(total, group)
+    return mine * n / torch.clamp_min(total, 1.0)
 
 
 def _any_rank(flag: bool, mesh) -> bool:
@@ -133,9 +154,11 @@ def _any_rank(flag: bool, mesh) -> bool:
     all-reduce over each of its dimensions."""
     import torch.distributed as dist
 
+    from repro_torch.distributed.tensor_parallel import all_reduce
+
     t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device_type)
     for group in mesh.get_all_groups():
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        all_reduce(t, group, op=dist.ReduceOp.MAX)
     return bool(t.item())
 
 
@@ -186,9 +209,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
     if rules is None:
         return step_fn
 
+    from repro_torch.distributed import tensor_parallel as tpl
     from repro_torch.distributed.sharding import (
+        activation_sharding,
         batch_shardings,
-        gather,
         is_dtensor,
         local_chunk,
         param_shardings,
@@ -196,6 +220,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
 
     p_shardings = param_shardings(api.model_specs(cfg), rules)
     groups, n_data = _data_groups(rules)
+    tp = tpl.from_rules(rules)
 
     def sharded_step_fn(state: dict, batch: dict):
         b_shardings = batch_shardings(batch, rules)
@@ -207,13 +232,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
         # a DTensor leaf at its batch sharding is this rank's chunk already
         mine = {k: v.to_local() if is_dtensor(v) else
                 local_chunk(v, rules.mesh, b_shardings[k].placements()) for k, v in batch.items()}
-        params = tree_map(gather, state["params"])
-        loss, metrics, grads = loss_and_grads(params, mine)
+        # this rank's chunk of every parameter: no gather over "model"
+        params = tree_map(lambda p: p.to_local() if is_dtensor(p) else p, state["params"])
+        with activation_sharding(rules), tpl.tensor_parallel(tp):
+            loss, metrics, grads = loss_and_grads(params, mine)
         del params
+        weight = _mask_weight(mine, groups, n_data)
         for path, g in list(iter_leaves(grads)):
-            set_leaf(grads, path, _data_mean(g, groups, n_data))
-        loss = _data_mean(loss, groups, n_data)
-        metrics = {k: _data_mean(v, groups, n_data) for k, v in metrics.items()}
+            set_leaf(grads, path, _data_mean(g, groups, n_data, weight))
+        loss = _data_mean(loss, groups, n_data, weight)
+        metrics = {k: _data_mean(v, groups, n_data, weight if k == "ce" else None)
+                   for k, v in metrics.items()}
         step = state["opt"]["step"]
         lr_scale = schedule(step.to_local() if is_dtensor(step) else step,
                             warmup_steps=train_cfg.warmup_steps,

@@ -151,6 +151,57 @@ print(json.dumps(out))
 """
 
 
+TENSOR_PARALLEL = """
+import json
+import torch.distributed as dist
+from repro_torch.configs import ShapeCell, smoke_config
+from repro_torch.launch.dryrun import dryrun_cell, init_fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.roofline import local_bytes
+from repro_torch.models.transformer import init_caches
+
+arch = "llama3.2-1b"
+cfg = smoke_config(arch)
+train = ShapeCell("train_smoke", "train", 32, 4)
+decode = ShapeCell("decode_smoke", "decode", 64, 4)
+out = {}
+for model in (1, 4):
+    init_fake_world(model)
+    mesh = make_host_mesh((1, model), ("data", "model"), device_type="cpu")
+    out[model] = {cell.kind: dryrun_cell(arch, cell.name, cfg=cfg, cell=cell, mesh=mesh)
+                  for cell in (train, decode)}
+    dist.destroy_process_group()
+out["caches"] = local_bytes(init_caches(cfg, decode.global_batch, decode.seq_len,
+                                        device="cpu"))
+print(json.dumps(out))
+"""
+
+
+def test_a_model_rank_computes_its_own_shard():
+    # a fake (1, 4) world: rank 0 computes its heads, ff columns and vocab
+    # rows, so its aten FLOPs fall below 0.4x one rank's of the whole
+    # model, and a decode step gathers no parameter and no cache (its
+    # all-gathers are q's columns and the attention output's head-dim
+    # chunks, activations of one token)
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+
+    got = _child(TENSOR_PARALLEL)
+    whole, split = got["1"], got["4"]
+    for kind in ("train", "decode"):
+        assert split[kind]["analysis"]["aten_flops"] <= 0.4 * whole[kind]["analysis"]["aten_flops"]
+    params = 2 * param_count(api.model_specs(smoke_config("llama3.2-1b")))   # bf16
+    gathered = split["decode"]["analysis"]["collectives"]["all-gather"]["bytes"]
+    assert 0 < gathered < 0.05 * min(params, got["caches"]), (gathered, params, got["caches"])
+    # the reductions GSPMD inserts: all-reduces over "model" in both steps
+    def reduces(r):
+        return r["analysis"]["collectives"].get("all-reduce", {}).get("count", 0)
+
+    for kind in ("train", "decode"):
+        assert reduces(split[kind]) > reduces(whole[kind])
+
+
 def test_a_moe_train_cells_dispatch_is_its_local_shards():
     # a rank of a (4, 1) mesh dispatches its 2 of 8 rows as a (1, 1) mesh
     # dispatches a batch of 2: one group (the reference's moe_groups = dp
@@ -332,7 +383,7 @@ def test_the_reference_tests_properties_hold(qwen_decode):
         used = r["memory"]["argument_size_in_bytes"] + r["memory"]["temp_size_in_bytes"]
         assert used < HBM_CAPACITY, f"{used / 1e9:.1f} GB"
         assert r["compile_s"] == 0.0 and r["cost"]["flops"] == r["analysis"]["flops"]
-        # the parameters and the caches' other shards are gathered
+        # the q columns and the attention output's head-dim chunks are gathered
         assert r["analysis"]["collectives"]["all-gather"]["bytes"] > 0
     # multi-pod shards the batch over 2x more data ranks -> fewer flops per rank
     assert qwen_decode["multi"]["analysis"]["flops"] <= \

@@ -12,12 +12,12 @@ the reference's ``repro.distributed.sharding`` on the CPU.
   entry deals shard p * D + d to rank (p, d); gathering gives the bits
   back.
 * Training under rules (llama's smoke config, 3 steps of a global batch
-  of 8 x 17): on meshes of model ranks alone the step is the
-  single-process step bit for bit (each model rank computes the whole
-  model); on meshes with data ranks it is held to
-  ``tests/test_torch_train.py``'s tolerances (loss 1e-3, gradient norm
-  1e-2 relative, master updates 5e-2 relative L2), since each data rank's
-  bf16 gradients of its shard, summed in float32, round otherwise than the
+  of 8 x 17) is held to ``tests/test_torch_train.py``'s tolerances (loss
+  1e-3, gradient norm 1e-2 relative, master updates 5e-2 relative L2) on
+  every mesh: model ranks compute their own heads, ff columns and vocab
+  rows (``distributed.tensor_parallel``), whose row-parallel sums add in
+  another order than one card's products, and each data rank's bf16
+  gradients of its shard, summed in float32, round otherwise than the
   gradients of the whole batch.  Each rank's master, m and v have the
   reference's ZeRO shard shapes.
 
@@ -512,12 +512,9 @@ def test_training_under_rules_matches_the_single_process_step(shape, tmp_path,
     assert master.keys() == after.keys()
     for key, leaf in params.items():             # the parameters are the master in bf16
         assert np.array_equal(leaf, torch.from_numpy(master[key]).bfloat16().float().numpy())
-    if shape[0] == 1:
-        # model ranks alone: the single process's step, bit for bit
-        assert got == hist
-        for key, leaf in master.items():
-            assert np.array_equal(leaf.view(np.uint32), after[key].view(np.uint32)), key
-        return
+    # model ranks compute their own heads, ff columns and vocab rows, whose
+    # row-parallel sums add in another order than one card's products; data
+    # ranks sum their shards' bf16 gradients in float32: the same tolerances
     for g, w in zip(got, hist):
         assert abs(g["loss"] - w["loss"]) < LOSS_TOL
         assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=GRAD_NORM_REL)
