@@ -782,14 +782,15 @@ def summary_probe(block) -> dict:
 
 def device_events(prof) -> list[tuple[str, float, float]]:
     """(name, start us, duration us) of every device event -- kernels, fills
-    and copies -- a finished ``torch.profiler`` session saw.  The raw Kineto
-    events: prof.events() would parse them into a Python event tree first,
-    which takes minutes for a generate's ~10^5 events."""
+    and copies -- a finished ``torch.profiler`` session saw, without the
+    device shadows of the program's host ranges (``obs.range``).  The raw
+    Kineto events: prof.events() would parse them into a Python event tree
+    first, which takes minutes for a generate's ~10^5 events."""
     from torch.autograd import DeviceType
 
     return [(evt.name(), evt.start_ns() / 1e3, evt.duration_ns() / 1e3)
             for evt in prof.profiler.kineto_results.events()
-            if evt.device_type() == DeviceType.CUDA]
+            if evt.device_type() == DeviceType.CUDA and not evt.is_user_annotation()]
 
 
 def profiled(fn, counts: dict | None = None) -> tuple[float, float | None, dict, int]:

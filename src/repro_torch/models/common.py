@@ -30,6 +30,7 @@ from typing import Any, Iterator
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed import tensor_parallel as tpl
 
 Tree = dict[str, Any]
@@ -167,12 +168,23 @@ def linear(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16,
     whole."""
     tp = tpl.current() if reduce is not None else None
     if tp is not None and tp.splits(reduce):
-        y = tpl.leave(x.to(compute_dtype) @ params["w"].to(compute_dtype), tp)
+        y = tpl.leave(x.to(compute_dtype) @ cast_weight(params["w"], compute_dtype), tp)
     else:
-        y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
+        y = x.to(compute_dtype) @ cast_weight(params["w"], compute_dtype)
     if "b" in params:
-        y = y + params["b"].to(compute_dtype)
+        y = y + cast_weight(params["b"], compute_dtype)
     return y
+
+
+def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype``.  A narrowing cast (float32 weights served in
+    bf16) runs inside a ``models.weight_cast`` range; a weight already in
+    ``dtype``, or widened for a float32 product (Mamba2's dt projection in
+    bf16 training), opens none."""
+    if w.dtype.itemsize <= dtype.itemsize:
+        return w.to(dtype)
+    with obs.range("models.weight_cast"):
+        return w.to(dtype)
 
 
 def rmsnorm_spec(d: int) -> Tree:
@@ -229,7 +241,7 @@ def unembed_logits(params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> 
     tp = _vocab_split()
     if tp is not None:
         x = tpl.enter(x, tp)
-    return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
+    return x.to(compute_dtype) @ cast_weight(params["table"], compute_dtype).T
 
 
 # ---------------------------------------------------------------------------

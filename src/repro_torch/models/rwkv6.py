@@ -53,6 +53,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.distributed.sharding import constrain
@@ -129,22 +130,23 @@ def rwkv6_timemix_apply(
     H, C = cfg.num_heads, cfg.head_dim
     f32 = torch.float32
     prev = state["shift"] if state is not None else None
-    xp = _token_shift(x, prev)
-    # dx and the inner product dx * mu_base_i in the shifted stream's dtype
-    # (bf16 when stateless: both rounded); the sums that take them are
-    # float32 and unrounded (see above)
-    dx = xp - x.to(xp.dtype)
-    mu = params["mu_base"]
-    prod = dx[None] * mu.to(x.dtype).to(xp.dtype)[:, None, None, :]
-    # ddlerp: x_i = x + dx * (mu_i + lora_i(x + dx * mu_base_i))
-    inner = x.to(f32)[None] + prod.to(f32)                       # [5, B, L, d]
-    dx = dx.to(f32)
-    del prod
-    lora_h = torch.tanh(inner @ params["lora_a"].to(f32))        # [5, B, L, r]
-    lora = torch.einsum("nblr,nrd->nbld", lora_h, params["lora_b"].to(f32))
-    mixed = x.to(f32)[None] + dx[None] * (mu.to(f32)[:, None, None, :] + lora)
-    xr, xk, xv, xw, xg = (mixed[i].to(compute_dtype) for i in range(5))
-    del inner, lora_h, lora, mixed
+    with obs.range("rwkv6.ddlerp"):
+        xp = _token_shift(x, prev)
+        # dx and the inner product dx * mu_base_i in the shifted stream's
+        # dtype (bf16 when stateless: both rounded); the sums that take
+        # them are float32 and unrounded (see above)
+        dx = xp - x.to(xp.dtype)
+        mu = params["mu_base"]
+        prod = dx[None] * mu.to(x.dtype).to(xp.dtype)[:, None, None, :]
+        # ddlerp: x_i = x + dx * (mu_i + lora_i(x + dx * mu_base_i))
+        inner = x.to(f32)[None] + prod.to(f32)                       # [5, B, L, d]
+        dx = dx.to(f32)
+        del prod
+        lora_h = torch.tanh(inner @ params["lora_a"].to(f32))        # [5, B, L, r]
+        lora = torch.einsum("nblr,nrd->nbld", lora_h, params["lora_b"].to(f32))
+        mixed = x.to(f32)[None] + dx[None] * (mu.to(f32)[:, None, None, :] + lora)
+        xr, xk, xv, xw, xg = (mixed[i].to(compute_dtype) for i in range(5))
+        del inner, lora_h, lora, mixed
 
     tp = tpl.current()
     if tp is not None and H % tp.size:

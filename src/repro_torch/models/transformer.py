@@ -80,6 +80,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.distributed.sharding import constrain
@@ -305,13 +306,29 @@ def _build_params(cfg: ModelConfig, params: Tree | None, device, seed: int,
 def _maybe_remat(fn, enable: bool):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
     ``enable``: its activations are recomputed in the backward, under the
-    tensor-parallel context of the forward (``tensor_parallel.carried``)."""
+    tensor-parallel context of the forward (``tensor_parallel.carried``),
+    inside a ``models.remat`` range (the first call, the forward's, opens
+    none)."""
     if not enable:
         return fn
     from torch.utils.checkpoint import checkpoint
 
     fn = tpl.carried(fn)
-    return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def remat(*args, **kw):
+        calls = 0
+
+        def run(*a, **k):
+            nonlocal calls
+            calls += 1
+            if calls == 1:
+                return fn(*a, **k)
+            with obs.range("models.remat"):
+                return fn(*a, **k)
+
+        return checkpoint(run, *args, use_reentrant=False, **kw)
+
+    return remat
 
 
 class _Model(nn.Module):

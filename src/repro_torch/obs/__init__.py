@@ -1,6 +1,7 @@
 """``repro_torch.obs`` -- in-process telemetry for the RSP stack.
 
-Three pillars, all zero-dependency and thread-safe:
+Three pillars, all zero-dependency and thread-safe, and the ranges that
+mark the program's hot paths for them and for the torch profiler:
 
 * **metrics** (:mod:`repro_torch.obs.metrics`) -- counters / gauges /
   exponential-bucket histograms in a label-set registry, exportable as
@@ -10,6 +11,11 @@ Three pillars, all zero-dependency and thread-safe:
   as Chrome trace-event JSON (open in Perfetto).
 * **convergence** (:mod:`repro_torch.obs.convergence`) -- per-query
   error-vs-blocks trajectories surfaced on ``QueryResult.trace``.
+* **ranges** (:mod:`repro_torch.obs.ranges`) -- ``with obs.range(name):``
+  around a stretch of the training step or the models: a
+  ``record_function`` range while a torch profiler records, a tracer span
+  while telemetry is on, and a shared no-op after two flag reads when
+  neither is.
 
 Telemetry is **off by default**: the hot paths check :func:`enabled`
 (a plain bool read) and skip all metric/span work when off.  Turn it on
@@ -36,6 +42,7 @@ import threading
 
 from .convergence import ConvergenceStep, ConvergenceTrace
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .ranges import NO_RANGE, Range, profiling
 from .trace import DROPPED, Span, SpanContext, Tracer
 
 _lock = threading.Lock()
@@ -61,6 +68,17 @@ def disable() -> None:
     global _enabled
     with _lock:
         _enabled = False
+
+
+def range(name: str):
+    """A context manager marking ``name`` for the recorders that are on: a
+    ``record_function`` range while a torch profiler records, a span of
+    the process tracer (the child of the thread's enclosing range) while
+    telemetry is on, and :data:`NO_RANGE` when neither is."""
+    record = profiling()
+    if not (record or _enabled):
+        return NO_RANGE
+    return Range(name, record, _tracer if _enabled else None)
 
 
 def get_registry() -> MetricsRegistry:
@@ -104,8 +122,10 @@ __all__ = [
     "SpanContext",
     "Tracer",
     "DROPPED",
+    "NO_RANGE",
     "enabled",
     "enable",
+    "range",
     "disable",
     "get_registry",
     "get_tracer",

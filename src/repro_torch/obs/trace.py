@@ -24,10 +24,14 @@ so a trace is always either fully recorded or fully dropped -- no
 orphan children.  The event buffer is bounded; overflow increments a
 drop counter rather than growing without bound.
 
-Export is Chrome trace-event JSON (``"X"`` complete events with
-``ts``/``dur`` in microseconds plus ``"M"`` thread-name metadata),
-loadable directly in Perfetto (https://ui.perfetto.dev) or
-``chrome://tracing``.
+Spans are stamped with ``time.time_ns()``, the clock of the torch
+profiler's host events (Kineto's ``start_ns()``).  Export is Chrome
+trace-event JSON (``"X"`` complete events with ``ts``/``dur`` in
+microseconds plus ``"M"`` thread-name metadata), loadable directly in
+Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.  Its ``ts``
+counts from the file's ``baseTimeNanoseconds``, the start of the current
+7,889,238-second interval of the Unix epoch, as the profiler's own
+``export_chrome_trace`` does: the two files' events line up once merged.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from collections import deque
 from dataclasses import dataclass
 
 _ids = threading.local()
+CHROME_BASE_S = 7_889_238      # the interval the profiler's Chrome export counts from
 
 
 def _new_id() -> int:
@@ -78,7 +83,7 @@ class Span:
         self.parent_id = parent_id
         self.attrs = attrs
         self._tracer = tracer
-        self._t0 = time.perf_counter() if tracer is not None else 0.0
+        self._t0 = time.time_ns() if tracer is not None else 0
         self._tid = threading.get_ident()
         self._done = False
 
@@ -93,7 +98,7 @@ class Span:
         if self._done or self._tracer is None:
             return
         self._done = True
-        self._tracer._finish(self, time.perf_counter())
+        self._tracer._finish(self, time.time_ns())
 
     def __enter__(self) -> "Span":
         return self
@@ -116,7 +121,6 @@ class Tracer:
         self._events: deque = deque(maxlen=max_events)
         self._dropped = 0
         self._thread_names: dict[int, str] = {}
-        self._epoch = time.perf_counter()
 
     # -- span lifecycle -----------------------------------------------------
     def start_span(self, name: str, *, parent: SpanContext | None = None,
@@ -145,7 +149,7 @@ class Tracer:
         """Alias of :meth:`start_span`, reads better in ``with`` statements."""
         return self.start_span(name, parent=parent, attrs=attrs)
 
-    def _finish(self, span: Span, t1: float) -> None:
+    def _finish(self, span: Span, t1: int) -> None:
         ev = (span.name, span._tid, span._t0, t1,
               span.ctx.trace_id, span.ctx.span_id, span.parent_id, span.attrs)
         with self._lock:
@@ -176,9 +180,18 @@ class Tracer:
             self._events.clear()
             self._dropped = 0
 
-    def chrome_events(self) -> list[dict]:
+    @staticmethod
+    def chrome_base_ns() -> int:
+        """The ``baseTimeNanoseconds`` of an export made now: the Unix time
+        floored to a multiple of ``CHROME_BASE_S`` seconds, the profiler's."""
+        return time.time_ns() // 10**9 // CHROME_BASE_S * CHROME_BASE_S * 10**9
+
+    def chrome_events(self, base_ns: int | None = None) -> list[dict]:
         """Trace-event list: ``M`` thread-name metadata + ``X`` complete
-        events, ts/dur in integer microseconds relative to tracer start."""
+        events, ``ts`` in microseconds from ``base_ns`` (by default
+        :meth:`chrome_base_ns`) and ``dur`` in microseconds."""
+        if base_ns is None:
+            base_ns = self.chrome_base_ns()
         with self._lock:
             events = list(self._events)
             names = dict(self._thread_names)
@@ -199,16 +212,19 @@ class Tracer:
                 "name": name,
                 "pid": pid,
                 "tid": tid,
-                "ts": round((t0 - self._epoch) * 1e6),
-                "dur": max(1, round((t1 - t0) * 1e6)),
+                "ts": (t0 - base_ns) / 1e3,
+                "dur": max(1e-3, (t1 - t0) / 1e3),
                 "args": args,
             })
         return out
 
     def export_chrome(self, path: str | os.PathLike) -> int:
-        """Write ``{"traceEvents": [...]}`` JSON; returns the event count."""
-        events = self.chrome_events()
-        payload = {"traceEvents": events, "displayTimeUnit": "ms"}
+        """Write ``{"traceEvents": [...]}`` JSON with its
+        ``baseTimeNanoseconds``; returns the event count."""
+        base_ns = self.chrome_base_ns()
+        events = self.chrome_events(base_ns)
+        payload = {"traceEvents": events, "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": base_ns}
         tmp = f"{path}.tmp"
         with open(tmp, "w") as f:
             json.dump(payload, f, default=repr)

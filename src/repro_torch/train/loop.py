@@ -48,6 +48,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import store as ckpt
 from repro_torch.device import resolve_device
 from repro_torch.models import api, transformer
@@ -174,10 +175,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
 
     def grads_of(params: Tree, batch: dict):
         device = leaves(params)[0].device
-        model = build_lm(cfg, params, device=device, trainable=True)
-        loss, metrics = api.make_loss_fn(model, moe_groups=train_cfg.moe_groups)(batch)
-        loss.backward()
-        grads = param_grads(model, params)
+        with obs.range("train.forward"):
+            model = build_lm(cfg, params, device=device, trainable=True)
+            loss, metrics = api.make_loss_fn(model, moe_groups=train_cfg.moe_groups)(batch)
+        with obs.range("train.backward"):
+            loss.backward()
+            grads = param_grads(model, params)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def loss_and_grads(params: Tree, batch: dict):
@@ -201,9 +204,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
 
     def step_fn(state: dict, batch: dict):
         loss, metrics, grads = loss_and_grads(state["params"], batch)
-        lr_scale = schedule(state["opt"]["step"], warmup_steps=train_cfg.warmup_steps,
-                            total_steps=train_cfg.total_steps)
-        new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg, lr_scale=lr_scale)
+        with obs.range("train.optimizer"):
+            lr_scale = schedule(state["opt"]["step"], warmup_steps=train_cfg.warmup_steps,
+                                total_steps=train_cfg.total_steps)
+            new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg,
+                                                      lr_scale=lr_scale)
         return {"params": new_params, "opt": new_opt}, {"loss": loss, **metrics, **stats}
 
     if rules is None:
@@ -244,12 +249,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, train_cfg: TrainConf
         metrics = {k: _data_mean(v, groups, n_data, weight if k == "ce" else None)
                    for k, v in metrics.items()}
         step = state["opt"]["step"]
-        lr_scale = schedule(step.to_local() if is_dtensor(step) else step,
-                            warmup_steps=train_cfg.warmup_steps,
-                            total_steps=train_cfg.total_steps)
-        new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg,
-                                                  lr_scale=lr_scale,
-                                                  param_shardings=p_shardings)
+        with obs.range("train.optimizer"):
+            lr_scale = schedule(step.to_local() if is_dtensor(step) else step,
+                                warmup_steps=train_cfg.warmup_steps,
+                                total_steps=train_cfg.total_steps)
+            new_opt, new_params, stats = adamw_update(state["opt"], grads, opt_cfg,
+                                                      lr_scale=lr_scale,
+                                                      param_shardings=p_shardings)
         return {"params": new_params, "opt": new_opt}, {"loss": loss, **metrics, **stats}
 
     return sharded_step_fn
@@ -279,6 +285,34 @@ def init_state(cfg: ModelConfig, seed: int = 0, *, params: Tree | None = None, d
     return reshard_state(state, state_shardings(cfg, rules))
 
 
+class _StepTimer:
+    """The seconds of the work run inside it.  On a card, CUDA events on
+    the current stream: work queued before it is not counted, however far
+    the host ran ahead.  On the host, ``perf_counter``; the work inside
+    must end with its outputs ready (a ``float()`` of them)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.seconds = float("nan")
+
+    def __enter__(self) -> "_StepTimer":
+        if self.cuda:
+            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            self._events[0].record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.cuda:
+            start, end = self._events
+            end.record()
+            end.synchronize()
+            self.seconds = start.elapsed_time(end) / 1e3
+        else:
+            self.seconds = time.perf_counter() - self._t0
+
+
 class Trainer:
     """Checkpoint/restart training loop on ``device``.
 
@@ -287,7 +321,8 @@ class Trainer:
     optimizer *and loader state*) is restored so a killed run resumes
     exactly where it stopped.  ``history`` keeps the metrics of every
     ``log_every``-th step (and the first), as floats, with the step and its
-    seconds.  Under ``rules`` every rank of the mesh runs a Trainer over a
+    seconds (``sec_per_step``: the logged step alone, from CUDA events on
+    its stream on a card).  Under ``rules`` every rank of the mesh runs a Trainer over a
     loader of the same seed; a checkpoint is gathered on every rank and
     written by rank 0, and a restart restores it onto the rules' mesh
     (``distributed.elastic.restore_for_mesh``).  Since such a save is a
@@ -364,12 +399,14 @@ class Trainer:
                 self.checkpointer.save(step, state, extra={"loader": self.loader.state_dict()})
                 break
             batch = self.batch_transform(self.loader.next_batch())
-            t0 = time.time()
-            state, metrics = self.step_fn(state, batch)
             if (step + 1) % self.train_cfg.log_every == 0 or step == start_step:
-                metrics = {k: float(v) for k, v in metrics.items()}     # waits for the step
-                metrics.update(step=step + 1, sec_per_step=time.time() - t0)
+                with _StepTimer(self.device) as timer:
+                    state, metrics = self.step_fn(state, batch)
+                    metrics = {k: float(v) for k, v in metrics.items()}   # waits for the step
+                metrics.update(step=step + 1, sec_per_step=timer.seconds)
                 self.history.append(metrics)
+            else:
+                state, metrics = self.step_fn(state, batch)
             # under rules a save is a collective: every rank stops at the
             # step on which any rank saw the signal
             stop = self._preempted if self.rules is None else _any_rank(self._preempted,
